@@ -1,0 +1,142 @@
+"""Write the fixtures the PyTorch port is checked against, from the JAX package.
+
+The port (``src/repro_torch``) and its ``chip_smoke.py`` may not import JAX,
+so the JAX side's artifact and outputs are exported once, here, into
+``src/repro_torch/assets/``:
+
+  * ``mnist_ttfs.npz`` — the paper-geometry deployment artifact (784 -> 150,
+    10 groups x 15, T = 32), trained and exported exactly the way
+    ``benchmarks/common.py::get_artifact_and_data`` does it;
+  * ``mnist_ttfs_expected.npz`` — the JAX package's outputs on the 10,000
+    procedural test images (``mnist.load("test")``): reference labels,
+    served latency-mode labels and steps, SHA-256 digests of the
+    reference's ``first_spike`` / ``v_final`` and of the image array, and
+    the artifact and program fingerprints;
+  * ``fuzz_seed{0..7}.npz`` — the adversarial artifacts and images of
+    ``repro.conformance.fuzz.fuzz_case(seed)`` (their reference outputs are
+    ``tests/golden/conformance_seed*.npz``). Each holds the saved artifact
+    file as raw bytes (``artifact``; ``Artifact.load(io.BytesIO(...))``
+    reads it back) beside ``images`` and ``times``.
+
+Run from the repo root (the CPU is enough):
+
+    PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/export_torch_fixture.py
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import io
+import os
+import tempfile
+import time
+
+import numpy as np
+
+from repro.conformance.fuzz import fuzz_case
+from repro.conformance.golden import PINNED_SEEDS
+from repro.core import deploy
+from repro.core.artifact import Artifact
+from repro.core.lowering import lower
+from repro.core.reference import SNNReference
+from repro.data import mnist
+from repro.serving.snn_engine import SNNServeEngine
+from repro.training.ttfs_trainer import train_dense_proxy
+
+ASSETS = os.path.join(os.path.dirname(__file__), "..", "src", "repro_torch",
+                      "assets")
+
+
+def digest(a: np.ndarray) -> str:
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def export_mnist(out_dir: str) -> None:
+    t0 = time.perf_counter()
+    # mnist.load("train"/"test") are generate(60000, 1234) / generate(10000,
+    # 1235); generating directly keeps the script off the on-disk cache
+    xtr, ytr = mnist.generate(60_000, 1234)
+    xte, yte = mnist.generate(10_000, 1235)
+    res = train_dense_proxy(xtr, ytr, test_images=xte, test_labels=yte,
+                            epochs=3)
+    path = os.path.join(out_dir, "mnist_ttfs.npz")
+    deploy.export(res.model, path, calib_images=xtr[:8192],
+                  calib_labels=ytr[:8192])
+    art = Artifact.load(path)
+    print(f"trained + exported {path} in {time.perf_counter() - t0:.1f}s")
+
+    ref = SNNReference(art)
+    labels, first, v = [], [], []
+    for i in range(0, len(xte), 1000):
+        out = ref.forward(xte[i:i + 1000])
+        labels.append(np.asarray(out.labels, np.int32))
+        first.append(np.asarray(out.first_spike, np.int32))
+        v.append(np.asarray(out.v_final, np.int32))
+    labels = np.concatenate(labels)
+    first = np.concatenate(first)
+    v = np.concatenate(v)
+
+    served = {}
+    for latency in (False, True):
+        eng = SNNServeEngine(art, max_batch=64, latency_mode=latency)
+        for img in xte:
+            eng.submit(img)
+        done = eng.flush()
+        reqs = [done[r] for r in sorted(done)]
+        served[latency] = (np.asarray([r.label for r in reqs], np.int32),
+                           np.asarray([r.steps for r in reqs], np.int32),
+                           eng.stats()["overflow_fallbacks"])
+        eng.close()
+    assert np.array_equal(served[False][0], labels), "served != reference"
+    assert np.array_equal(served[True][0], labels), "latency != reference"
+
+    np.savez(os.path.join(out_dir, "mnist_ttfs_expected.npz"),
+             labels=labels,
+             labels_latency=served[True][0],
+             steps_latency=served[True][1],
+             overflow_rows=np.int32(served[False][2]),
+             first_spike_sha256=np.array(digest(first)),
+             v_final_sha256=np.array(digest(v)),
+             images_sha256=np.array(digest(xte)),
+             artifact_fingerprint=np.array(art.fingerprint()),
+             program_fingerprint=np.array(lower(art, cache=False).fingerprint),
+             accuracy=np.float64(np.mean(labels == yte)))
+    print(f"reference accuracy {np.mean(labels == yte):.4f}, "
+          f"overflow rows {served[False][2]}, "
+          f"mean latency steps {served[True][1].mean():.2f}")
+
+
+def export_fuzz(out_dir: str) -> None:
+    for seed in PINNED_SEEDS:
+        case = fuzz_case(seed)
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "artifact.npz")
+            case.artifact.save(path)
+            with open(path, "rb") as f:
+                blob = f.read()
+        # the saved file must read back to the same fingerprint
+        assert Artifact.load(io.BytesIO(blob)).fingerprint() == \
+            case.artifact.fingerprint()
+        np.savez_compressed(
+            os.path.join(out_dir, f"fuzz_seed{seed}.npz"),
+            artifact=np.frombuffer(blob, np.uint8),
+            images=case.images, times=case.times)
+    print(f"wrote {len(PINNED_SEEDS)} fuzz cases")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default=ASSETS)
+    ap.add_argument("--skip-mnist", action="store_true",
+                    help="only rewrite the fuzz cases")
+    a = ap.parse_args(argv)
+    os.makedirs(a.out, exist_ok=True)
+    export_fuzz(a.out)
+    if not a.skip_mnist:
+        export_mnist(a.out)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,1 @@
+"""data — the procedural MNIST stand-in (numpy, byte-identical to repro's)."""

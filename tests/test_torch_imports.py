@@ -1,0 +1,67 @@
+"""The port stands alone: no file of ``src/repro_torch`` and not
+``chip_smoke.py`` imports JAX or the JAX package, and nothing falls back to
+the CPU on its own when the card is missing."""
+
+import ast
+import os
+
+import pytest
+import torch
+
+from repro_torch.core.artifact import Artifact
+from repro_torch.core.lowering import lower
+from repro_torch.core.reference import SNNReference
+from repro_torch.serving.snn_engine import SNNServeEngine
+
+ROOT = os.path.normpath(os.path.join(os.path.dirname(__file__), ".."))
+PORT = os.path.join(ROOT, "src", "repro_torch")
+MNIST_ART = os.path.join(PORT, "assets", "mnist_ttfs.npz")
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _port_files():
+    yield os.path.join(ROOT, "chip_smoke.py")
+    for root, _, files in os.walk(PORT):
+        for name in files:
+            if name.endswith(".py"):
+                yield os.path.join(root, name)
+
+
+def _imported_modules(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield node.lineno, [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module and \
+                node.level == 0:
+            yield node.lineno, [node.module]
+        elif isinstance(node, ast.Call) and getattr(
+                node.func, "attr", getattr(node.func, "id", None)) in (
+                    "import_module", "__import__") and node.args and \
+                isinstance(node.args[0], ast.Constant):
+            yield node.lineno, [str(node.args[0].value)]
+
+
+def test_port_imports_neither_jax_nor_repro():
+    bad, seen = [], 0
+    for path in _port_files():
+        seen += 1
+        with open(path) as f:
+            tree = ast.parse(f.read(), filename=path)
+        for lineno, mods in _imported_modules(tree):
+            for mod in mods:
+                if mod.split(".")[0] in FORBIDDEN:
+                    bad.append(f"{os.path.relpath(path, ROOT)}:{lineno} "
+                               f"imports {mod}")
+    assert seen > 15
+    assert not bad, "the port must not import JAX or repro:\n" + \
+        "\n".join(bad)
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    art = Artifact.load(MNIST_ART)
+    for make in (lambda: lower(art), lambda: SNNReference(art),
+                 lambda: SNNServeEngine(art)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+    assert lower(art, device="cpu").device == torch.device("cpu")
