@@ -5,33 +5,45 @@
 
 Phases (any failure exits non-zero; nothing is caught):
 
-  1. build   — compile every CUDA source of the main path with nvcc
-               (sm_90a) and print its wall time and ptxas report;
-  2. kernels — each kernel against its plain PyTorch version on the card, bit
-               for bit (tolerance 0: all arithmetic is integer), at the MNIST
-               serving shape (B = 64, with an all-PAD row) and on the eight
-               adversarial fuzz artifacts packed from the golden spike times
-               (leak_shift 31 with negative membranes, never-spiking rows,
-               both decode fallbacks, tie-heavy rows), plus one 2,000-neuron
-               layer that gives each thread four lanes;
-  3. main path — SNNServeEngine on the card serves the 10,000 procedural
-               MNIST test images in full-T and in latency mode, each with the
-               launch counters set to 0 just before its requests and read
-               just after its flush: the mode's kernel must have launched
-               once per served batch, the other kernel never. Labels must
-               equal the JAX reference's (exported in src/repro_torch/assets)
-               and the port's SNNReference on the card. Outside the counted
-               runs, the fuzz artifacts are served and run through the
-               accelerator, and their labels, first-spike times, membranes
-               and steps must equal tests/golden/;
+  1. build   — compile every CUDA source (csrc/*.cu) with nvcc (sm_90a), one
+               process each, all at once; print the wall time and the ptxas
+               report;
+  2. kernels — each of the seven kernels against its plain PyTorch version
+               on the card, bit for bit (tolerance 0: all arithmetic is
+               integer), at the MNIST serving shape (B = 64, with an all-PAD
+               row) and on the eight adversarial fuzz artifacts packed from
+               the golden spike times (leak_shift 31 with negative
+               membranes, never-spiking rows, both decode fallbacks,
+               tie-heavy rows), plus one 2,000-neuron layer that gives each
+               thread four lanes. event_accum also takes the frames with
+               their slots shuffled (PAD in the middle of a row), ttfs_decode
+               tie-heavy rows under both fallbacks, and spike_matmul a random
+               int8 product with ragged edges; the staged kernels' state must
+               equal the fused kernels';
+  3. main path — five serving runs over the 10,000 procedural MNIST test
+               images, each with every launch counter set to 0 just before
+               its requests and read just after its flush: SNNServeEngine on
+               the fused kernels (full-T, latency mode) and on the staged
+               CUDA kernels (kernel="cuda", full-T and latency mode), and
+               ServingScheduler(spec="accelerator-batch", kernel="cuda").
+               Each run must launch each kernel of its path once per served
+               batch and no other kernel, and serve the JAX reference's
+               labels (and latency steps), exported in src/repro_torch/
+               assets. Outside the counted runs, the fuzz artifacts are
+               served and run through the fused and both -cuda accelerator
+               specs against tests/golden/, and the staged early exit must
+               equal the fused one in first spikes, v at exit and steps;
   4. overflow — the MNIST artifact with e_max = 8 must reroute rows to the
-               dense path and still return the reference labels;
+               dense path and still return the reference labels, with the
+               fused and the staged kernels;
   5. times   — per kernel at the serving shape: its device time alone (CUDA
                events around 20 back-to-back launches queued behind a spin
                kernel, so no host dispatch falls between them; median of 50
                such samples), the wrapper's host time per call, the time of
                one wrapper call as a caller pays it, its plain version's time
-               (CUDA events around one call, median of 50), and the least
+               (CUDA events around one call, median of 50), the device time
+               of the one PyTorch call that computes the same function where
+               there is one (torch._int_mm for spike_matmul), and the least
                time the card could take for the same work (bound).
 
 The last lines are a ``kernels`` summary, one JSON object with every
@@ -55,20 +67,29 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 ASSETS = os.path.join(SRC, "repro_torch", "assets")
 GOLDEN = os.path.join(ROOT, "tests", "golden")
-SOURCE = "src/repro_torch/csrc/fused_event_lif.cu"
-REPLACES = {
-    "fused_event_lif_decode":
-        "src/repro/kernels/fused_event_lif/kernel.py:158",
-    "fused_event_lif_early_exit":
-        "src/repro/kernels/fused_event_lif/kernel.py:227",
+CSRC = "src/repro_torch/csrc"
+PALLAS = "src/repro/kernels"
+#: kernel -> (its CUDA source, the Pallas kernel it replaces)
+KERNELS = {
+    "fused_event_lif_decode": ("fused_event_lif.cu",
+                               "fused_event_lif/kernel.py:158"),
+    "fused_event_lif_early_exit": ("fused_event_lif.cu",
+                                   "fused_event_lif/kernel.py:227"),
+    "fused_event_lif": ("fused_event_lif.cu", "fused_event_lif/kernel.py:85"),
+    "spike_matmul": ("spike_matmul.cu", "spike_matmul/kernel.py:37"),
+    "lif_fused": ("lif.cu", "lif/kernel.py:45"),
+    "ttfs_decode": ("ttfs_decode.cu", "ttfs_decode/kernel.py:42"),
+    "event_accum": ("event_accum.cu", "event_accum/kernel.py:42"),
 }
-#: NVIDIA H100 SXM peaks (data sheet): HBM bytes/s, and the 67 T/s float32
-#: rate outside the tensor cores, against which the kernels' integer ALU
-#: operations are counted. The card's int32 rate is lower (an SM has half as
-#: many INT32 lanes as FP32 lanes), so the bound computed here is below the
-#: true one: it never flatters a kernel
+#: NVIDIA H100 SXM peaks (data sheet): HBM bytes/s; the 67 T/s float32 rate
+#: outside the tensor cores, against which the kernels' integer ALU
+#: operations are counted (the card's int32 rate is lower: an SM has half as
+#: many INT32 lanes as FP32 lanes, so the bound computed here is below the
+#: true one and never flatters a kernel); the tensor cores' int8 rate, for
+#: the integer matrix product
 HBM_BYTES_PER_S = 3.35e12
 ALU_OPS_PER_S = 67e12
+INT8_OPS_PER_S = 1979e12
 SERVE_BATCH = 64
 TIMING_RUNS = 50
 BACK_TO_BACK = 20
@@ -99,6 +120,12 @@ def sha256(a) -> str:
     return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
 
 
+def max_abs_err(got, want) -> int:
+    """Largest |got - want| over tensors paired in order (0 if all empty)."""
+    return max((int((g.long() - w.long()).abs().max()) if g.numel() else 0
+                for g, w in zip(got, want)), default=0)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -111,13 +138,33 @@ def main() -> int:
     from repro_torch.core.accelerator import SNNAccelerator
     from repro_torch.core.artifact import Artifact
     from repro_torch.core.events import pack_events_batched
+    from repro_torch.core.lif_dynamics import lif_scan
     from repro_torch.core.lowering import lower
     from repro_torch.core.reference import SNNReference
-    from repro_torch.core.ttfs import encode_ttfs
+    from repro_torch.core.runtimes import make_runtime
+    from repro_torch.core.ttfs import encode_ttfs, frames_from_times
     from repro_torch.data import mnist
     from repro_torch.kernels import build
+    from repro_torch.kernels.event_accum import ops as ea, ref as ea_ref
     from repro_torch.kernels.fused_event_lif import ops, ref
+    from repro_torch.kernels.lif import ops as lif, ref as lif_ref
+    from repro_torch.kernels.spike_matmul import ops as smm, ref as smm_ref
+    from repro_torch.kernels.ttfs_decode import ops as dec, ref as dec_ref
+    from repro_torch.serving.scheduler import ServingScheduler
     from repro_torch.serving.snn_engine import SNNServeEngine
+
+    wrappers = (ops, ea, lif, smm, dec)
+
+    def reset_launches() -> None:
+        for w in wrappers:
+            w.reset_launches()
+
+    def launch_counts() -> dict:
+        return {k: n for w in wrappers for k, n in w.LAUNCHES.items()}
+
+    check(set(launch_counts()) == set(KERNELS),
+          f"launch counters {sorted(launch_counts())} are not the kernels "
+          f"{sorted(KERNELS)}")
 
     dev = torch.device("cuda", torch.cuda.current_device())
     card = card_line()
@@ -126,8 +173,9 @@ def main() -> int:
 
     # ---------------------------------------------------------------- 1 build
     t0 = time.perf_counter()
-    build.build(["fused_event_lif"])
-    print(f"[build] nvcc wall {time.perf_counter() - t0:.2f} s")
+    build.build(build.sources())
+    print(f"[build] {len(build.sources())} sources, nvcc wall "
+          f"{time.perf_counter() - t0:.2f} s")
     for log in build.build_logs.values():
         print(log.rstrip())
 
@@ -157,18 +205,21 @@ def main() -> int:
         fuzz.append((seed, fart, fprog, images, golden))
 
     # ------------------------------------------------------- 2 kernels vs plain
-    def serve_batch_frames(p, images):
-        times = encode_ttfs(torch.from_numpy(np.asarray(images, np.float32)),
-                            p.T, p.x_min).numpy()
-        return pack_events_batched(times, p.T, p.e_max, device=dev)
+    def host_times(p, images):
+        return encode_ttfs(torch.from_numpy(np.asarray(images, np.float32)),
+                           p.T, p.x_min).numpy()
+
+    def kernel_args(p):
+        return dict(T=p.T, e_max=p.e_max, leak_shift=p.leak_shift,
+                    n_out=p.n_out, n_groups=p.n_groups,
+                    per_group=p.per_group, fallback=p.fallback,
+                    w=p.w_padded, thr=p.thr_padded)
 
     mnist_imgs = np.array(xte[:SERVE_BATCH])
     mnist_imgs[-1] = 0.0                          # an all-PAD row
-    cases = [("mnist", prog, serve_batch_frames(prog, mnist_imgs))]
+    cases = [("mnist", kernel_args(prog), host_times(prog, mnist_imgs))]
     for seed, _, fprog, _, golden in fuzz:
-        cases.append((f"fuzz{seed}", fprog,
-                      pack_events_batched(golden["times"], fprog.T,
-                                          fprog.e_max, device=dev)))
+        cases.append((f"fuzz{seed}", kernel_args(fprog), golden["times"]))
     # a 2,000-neuron layer (N_pad 2048: 512 threads x 4 lanes per thread)
     rng = np.random.RandomState(0)
     n_in, n_out, n_pad, T = 300, 2000, 2048, 16
@@ -176,102 +227,185 @@ def main() -> int:
     w[:, :n_out] = rng.randint(-127, 128, (n_in, n_out))
     thr = np.full((n_pad,), 2**31 - 1, np.int32)
     thr[:n_out] = rng.randint(50, 4000, n_out)
-    wide_times = rng.randint(0, T + 1, (16, n_in))
-    wide = dict(T=T, leak_shift=3, n_out=n_out, n_groups=16, per_group=125,
-                fallback="membrane", w=torch.from_numpy(w).to(dev),
-                thr=torch.from_numpy(thr).to(dev))
-    wide_frames = pack_events_batched(wide_times, T, 64, device=dev)
+    cases.append(("wide", dict(T=T, e_max=64, leak_shift=3, n_out=n_out,
+                               n_groups=16, per_group=125, fallback="membrane",
+                               w=torch.from_numpy(w).to(dev),
+                               thr=torch.from_numpy(thr).to(dev)),
+                  rng.randint(0, T + 1, (16, n_in))))
 
-    def kernel_args(p):
-        return dict(T=p.T, leak_shift=p.leak_shift, n_out=p.n_out,
-                    n_groups=p.n_groups, per_group=p.per_group,
-                    fallback=p.fallback, w=p.w_padded, thr=p.thr_padded)
+    max_err = {name: 0 for name in KERNELS}
 
-    max_err = {name: 0 for name in ops.LAUNCHES}
+    def hold(kname: str, got, want, case: str) -> None:
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        max_err[kname] = max(max_err[kname], err)
+        check(err == 0, f"{kname} differs from its plain version on {case} "
+              f"(max |err| {err})")
+
+    def same(got, want, what: str) -> None:
+        check(all(torch.equal(g, x) for g, x in zip(got, want)), what)
+
     no_spike = {"membrane": 0, "zero": 0}
     negative_v = 0
-    for name, a, frames in ([(n, kernel_args(p), f) for n, p, f in cases]
-                            + [("wide", wide, wide_frames)]):
+    for name, a, times in cases:
+        T_ = a["T"]
+        frames = pack_events_batched(times, T_, a["e_max"], device=dev)
         ids, count = frames.ids, frames.count
-        dec = dict(n_out=a["n_out"], n_groups=a["n_groups"],
-                   per_group=a["per_group"], fallback=a["fallback"])
-        res, labels = ops.fused_event_lif_decode(
-            ids, count, a["w"], a["thr"], a["leak_shift"], **dec)
-        want = ref.fused_event_lif_decode_ref(
-            ids, count, a["w"], a["thr"], a["leak_shift"], **dec)
-        res_x, steps = ops.fused_event_lif_early_exit(
-            ids, count, a["w"], a["thr"], a["leak_shift"])
-        want_x = ref.fused_event_lif_early_exit_ref(
-            ids, count, a["w"], a["thr"], a["leak_shift"])
-        torch.cuda.synchronize()
-        for kname, got, ref_out in (
-                ("fused_event_lif_decode",
-                 (res.first_spike, res.v_final, labels), want),
-                ("fused_event_lif_early_exit",
-                 (res_x.first_spike, res_x.v_final, steps), want_x)):
-            err = max(int((g.long() - r.long()).abs().max()) if g.numel()
-                      else 0 for g, r in zip(got, ref_out))
-            max_err[kname] = max(max_err[kname], err)
-            check(err == 0, f"{kname} differs from its plain version on "
-                  f"{name} (max |err| {err})")
-        negative_v += int((res.v_final[:, :a["n_out"]] < 0).sum())
-        silent = (res.first_spike[:, :a["n_out"]] == a["T"]).all(dim=1)
+        wt, th, ls = a["w"], a["thr"], a["leak_shift"]
+        dec_kw = dict(n_out=a["n_out"], n_groups=a["n_groups"],
+                      per_group=a["per_group"], fallback=a["fallback"])
+        # the fused kernels (1-3)
+        res, labels = ops.fused_event_lif_decode(ids, count, wt, th, ls,
+                                                 **dec_kw)
+        hold("fused_event_lif_decode", (res.first_spike, res.v_final, labels),
+             ref.fused_event_lif_decode_ref(ids, count, wt, th, ls, **dec_kw),
+             name)
+        res_x, steps = ops.fused_event_lif_early_exit(ids, count, wt, th, ls)
+        hold("fused_event_lif_early_exit",
+             (res_x.first_spike, res_x.v_final, steps),
+             ref.fused_event_lif_early_exit_ref(ids, count, wt, th, ls), name)
+        full = ops.fused_event_lif(ids, count, wt, th, ls)
+        hold("fused_event_lif", full,
+             ref.fused_event_lif_ref(ids, count, wt, th, ls), name)
+        same(full, res, f"fused_event_lif differs from the decode kernel's "
+             f"first/v on {name}")
+        # the staged kernels (4-7)
+        cur = ea.event_accum(ids, wt)
+        hold("event_accum", (cur,), (ea_ref.event_accum_ref(ids, wt),), name)
+        perm = torch.from_numpy(np.random.RandomState(1).permutation(
+            ids.shape[2])).to(dev)
+        shuffled = ids[..., perm].contiguous()        # PAD mid-row
+        cur_s = ea.event_accum(shuffled, wt)
+        hold("event_accum", (cur_s,),
+             (ea_ref.event_accum_ref(shuffled, wt),), f"{name} shuffled")
+        same((cur_s,), (cur,), f"event_accum depends on slot order on {name}")
+        staged = lif.lif_fused(cur.movedim(1, 0), th, ls)
+        hold("lif_fused", staged,
+             lif_ref.lif_fused_ref(cur.movedim(1, 0), th, ls), name)
+        same(staged, res, f"staged LIF state differs from the fused kernel's "
+             f"on {name}")
+        n = a["n_out"]
+        first_l, v_l = staged.first_spike[:, :n], staged.v_final[:, :n]
+        dkw = dict(n_groups=a["n_groups"], per_group=a["per_group"],
+                   sentinel=T_, fallback=a["fallback"])
+        labels_s = dec.ttfs_decode(first_l, v_l, **dkw)
+        hold("ttfs_decode", (labels_s,),
+             (dec_ref.ttfs_decode_ref(first_l, v_l, **dkw),), name)
+        same((labels_s,), (labels,), f"staged labels differ from the fused "
+             f"decode kernel's on {name}")
+        raster = frames_from_times(torch.from_numpy(
+            np.asarray(times, np.int32)).to(dev), T_)
+        cur_b = smm.spike_matmul(raster, wt)
+        hold("spike_matmul", (cur_b,), (smm_ref.spike_matmul_ref(raster, wt),),
+             name)
+        if not frames.overflow.any():
+            same((cur_b,), (cur,), f"spike_matmul currents differ from "
+                 f"event_accum's on {name}")
+        negative_v += int((res.v_final[:, :n] < 0).sum())
+        silent = (res.first_spike[:, :n] == T_).all(dim=1)
         no_spike[a["fallback"]] += int(silent.sum())
-        print(f"[kernels] {name}: B={ids.shape[0]} T={a['T']} "
-              f"E_max={ids.shape[2]} N_pad={a['w'].shape[1]} "
-              f"leak_shift={a['leak_shift']} fallback={a['fallback']} "
+        print(f"[kernels] {name}: B={ids.shape[0]} T={T_} "
+              f"E_max={ids.shape[2]} N_in={wt.shape[0]} N_pad={wt.shape[1]} "
+              f"leak_shift={ls} fallback={a['fallback']} "
               f"events={int(count.sum())} no-spike rows={int(silent.sum())}: "
-              f"bit-exact")
+              f"all seven kernels bit-exact")
     check(negative_v > 0, "no negative membrane was exercised")
     check(no_spike["membrane"] > 0 and no_spike["zero"] > 0,
           "both decode fallbacks must be exercised")
+    # tie-heavy rows at the serving shape, both fallbacks
+    first_t = torch.from_numpy(rng.choice([1, 2, prog.T], size=(
+        SERVE_BATCH, prog.n_out)).astype(np.int32)).to(dev)
+    first_t[:SERVE_BATCH // 2] = prog.T
+    v_t = torch.from_numpy(rng.randint(-2, 2, (SERVE_BATCH, prog.n_out))
+                           .astype(np.int32)).to(dev)
+    for fallback in ("membrane", "zero"):
+        dkw = dict(n_groups=prog.n_groups, per_group=prog.per_group,
+                   sentinel=prog.T, fallback=fallback)
+        hold("ttfs_decode", (dec.ttfs_decode(first_t, v_t, **dkw),),
+             (dec_ref.ttfs_decode_ref(first_t, v_t, **dkw),),
+             f"ties/{fallback}")
+    # any int8 with ragged edges: M = 777, K = 129, N = 200
+    a8 = torch.from_numpy(rng.randint(-128, 128, (7, 111, 129))
+                          .astype(np.int8)).to(dev)
+    b8 = torch.from_numpy(rng.randint(-128, 128, (129, 200))
+                          .astype(np.int8)).to(dev)
+    hold("spike_matmul", (smm.spike_matmul(a8, b8),),
+         (smm_ref.spike_matmul_ref(a8, b8),), "random int8 777x129x200")
     print(f"[kernels] negative membranes {negative_v}, no-spike rows per "
-          f"fallback {no_spike}")
+          f"fallback {no_spike}; tie-heavy decode and a ragged int8 product "
+          f"bit-exact; max |err| {max_err}")
 
     # ------------------------------------------------------------ 3 main path
-    served = {}
-    launches = {}
-    per_batch = {}
-    for latency in (False, True):
-        kname = ("fused_event_lif_early_exit" if latency
-                 else "fused_event_lif_decode")
-        (other,) = set(ops.LAUNCHES) - {kname}
-        eng = SNNServeEngine(art, max_batch=SERVE_BATCH,
-                             latency_mode=latency)
+    #: per run: how to build it, and the launches each kernel must make per
+    #: served batch (every other kernel: none)
+    runs = [
+        ("event-fused full-T",
+         lambda: SNNServeEngine(art, max_batch=SERVE_BATCH),
+         {"fused_event_lif_decode": 1}),
+        ("event-fused latency",
+         lambda: SNNServeEngine(art, max_batch=SERVE_BATCH,
+                                latency_mode=True),
+         {"fused_event_lif_early_exit": 1}),
+        ("event-cuda full-T",
+         lambda: SNNServeEngine(art, max_batch=SERVE_BATCH, kernel="cuda"),
+         {"event_accum": 1, "lif_fused": 1, "ttfs_decode": 1}),
+        ("event-cuda latency",
+         lambda: SNNServeEngine(art, max_batch=SERVE_BATCH, kernel="cuda",
+                                latency_mode=True),
+         {"event_accum": 1, "ttfs_decode": 1}),
+        ("batch-cuda",
+         lambda: ServingScheduler(art, spec="accelerator-batch",
+                                  kernel="cuda", max_batch=SERVE_BATCH),
+         {"spike_matmul": 1, "lif_fused": 1, "ttfs_decode": 1}),
+    ]
+    launches = {name: 0 for name in KERNELS}
+    per_run = {}
+    for run, make, per_batch in runs:
+        eng = make()
+        finish = eng.flush if hasattr(eng, "flush") else eng.drain
         eng.reset_stats()
-        ops.reset_launches()
+        reset_launches()
         t0 = time.perf_counter()
         for img in xte:
             eng.submit(img)
-        done = eng.flush()
+        done = finish()
         wall = time.perf_counter() - t0
-        counts = dict(ops.LAUNCHES)
+        counts = launch_counts()
         reqs = [done[r] for r in sorted(done)]
         st = eng.stats()
         eng.close()
-        launches[kname] = counts[kname]
-        per_batch[kname] = counts[kname] / st["batches"]
-        check(counts[kname] > 0, f"{kname} was never launched on the main "
-              f"path")
-        check(per_batch[kname] == 1.0, f"{kname}: {counts[kname]} launches "
-              f"for {st['batches']} served batches, not one each")
-        check(counts[other] == 0, f"{other} launched {counts[other]} times "
-              f"in the {'latency' if latency else 'full-T'} run")
+        batches = st["batches"]
+        for kname, n in counts.items():
+            want = per_batch.get(kname, 0) * batches
+            check(n == want, f"{run}: {kname} launched {n} times for "
+                  f"{batches} served batches, expected {want}")
+            launches[kname] += n
+        check(all(counts[k] > 0 for k in per_batch),
+              f"{run}: a kernel of the path was never launched")
         labels = np.asarray([r.label for r in reqs], np.int32)
         steps = np.asarray([r.steps for r in reqs], np.int32)
-        served[latency] = (labels, steps)
-        mode = "latency" if latency else "full-T"
-        print(f"[main] {mode}: {len(reqs)} images in {wall:.3f} s wall, "
+        latency = run.endswith("latency")
+        check(np.array_equal(labels, exp["labels_latency" if latency
+                                         else "labels"]),
+              f"{run}: served labels differ from the JAX reference's")
+        check(np.array_equal(steps, exp["steps_latency"]) if latency
+              else bool((steps == prog.T).all()),
+              f"{run}: served steps differ from the JAX reference's")
+        per_run[run] = st
+        print(f"[main] {run}: {len(reqs)} images in {wall:.3f} s wall, "
               f"accuracy {np.mean(labels == yte):.4f}, mean steps "
-              f"{steps.mean():.2f}, {kname} launches {counts[kname]} "
-              f"({per_batch[kname]:.2f} per served batch)")
-        print(f"[main] {mode} stats: {json.dumps(st, sort_keys=True)}")
-    check(np.array_equal(served[False][0], exp["labels"]),
-          "full-T served labels differ from the JAX reference labels")
-    check(np.array_equal(served[True][0], exp["labels_latency"]),
-          "latency-mode labels differ from the JAX latency labels")
-    check(np.array_equal(served[True][1], exp["steps_latency"]),
-          "latency-mode steps differ from the JAX latency steps")
+              f"{steps.mean():.2f}, system {st['system_us_per_image']:.2f} "
+              f"us/image, accelerator {st['accel_us_per_image']:.2f} "
+              f"us/image, launches "
+              f"{ {k: counts[k] for k in per_batch} } over {batches} batches "
+              f"(1.00 per served batch each, every other kernel 0)")
+        print(f"[main] {run} stats: {json.dumps(st, sort_keys=True)}")
+    print("[main] staged vs fused, system / accelerator us per image — card: "
+          f"{card}")
+    for run, st in per_run.items():
+        print(f"[main]   {run:22s} {st['system_us_per_image']:9.2f} "
+              f"{st['accel_us_per_image']:9.2f}")
+
     # correctness only, outside the counted runs: the launches below are not
     # the main path's
     for seed, fart, fprog, images, golden in fuzz:
@@ -279,18 +413,25 @@ def main() -> int:
         check(np.array_equal(eng.classify(images), golden["labels"]),
               f"fuzz seed {seed}: served labels differ from golden")
         eng.close()
-        out = SNNAccelerator(fprog, mode="event", kernel="fused",
-                             device=dev).forward(images)
-        for key in ("labels", "first_spike", "v_final", "steps"):
-            check(np.array_equal(getattr(out, key).cpu().numpy(),
-                                 golden[key]),
-                  f"fuzz seed {seed}: accelerator {key} differs from golden")
-        out = SNNAccelerator(fprog, mode="event", kernel="fused",
-                             device=dev).forward(images, latency_mode=True)
-        check(np.array_equal(out.labels.cpu().numpy(), golden["labels"]),
+        for spec in ("accelerator-event-fused", "accelerator-event-cuda",
+                     "accelerator-batch-cuda"):
+            out = make_runtime(fprog, spec, device=dev).forward(images)
+            for key in ("labels", "first_spike", "v_final", "steps"):
+                check(np.array_equal(getattr(out, key).cpu().numpy(),
+                                     golden[key]),
+                      f"fuzz seed {seed}: {spec} {key} differs from golden")
+        lat = {k: SNNAccelerator(fprog, mode="event", kernel=k,
+                                 device=dev).forward(images, latency_mode=True)
+               for k in ("fused", "cuda")}
+        check(np.array_equal(lat["cuda"].labels.cpu().numpy(),
+                             golden["labels"]),
               f"fuzz seed {seed}: latency-mode labels differ from golden")
-    print(f"[main] fuzz seeds {manifest['seeds']}: labels, first_spike, "
-          f"v_final, steps equal tests/golden/")
+        same(lat["cuda"], lat["fused"], f"fuzz seed {seed}: the staged early "
+             f"exit differs from the fused one")
+    print(f"[main] fuzz seeds {manifest['seeds']}: accelerator-event-fused, "
+          f"-event-cuda and -batch-cuda equal tests/golden/ in labels, "
+          f"first_spike, v_final, steps; the staged early exit equals the "
+          f"fused one in labels, first_spike, v at exit and steps")
 
     ref_rt = SNNReference(art, device=dev)
     labels, first, v = [], [], []
@@ -299,8 +440,8 @@ def main() -> int:
         labels.append(out.labels.cpu().numpy())
         first.append(out.first_spike.cpu().numpy())
         v.append(out.v_final.cpu().numpy())
-    check(np.array_equal(np.concatenate(labels), served[False][0]),
-          "served labels differ from the port's SNNReference on the card")
+    check(np.array_equal(np.concatenate(labels), exp["labels"]),
+          "SNNReference labels on the card differ from the JAX reference's")
     check(sha256(np.concatenate(first)) == str(exp["first_spike_sha256"]),
           "SNNReference first_spike differs from the JAX reference")
     check(sha256(np.concatenate(v)) == str(exp["v_final_sha256"]),
@@ -312,37 +453,71 @@ def main() -> int:
     meta = copy.deepcopy(art.meta)
     meta["events"]["e_max"] = 8
     small = Artifact(meta, dict(art.arrays))
-    eng = SNNServeEngine(small, max_batch=SERVE_BATCH)
-    got = eng.classify(xte[:SERVE_BATCH])
-    st = eng.stats()
-    eng.close()
-    check(st["overflow_fallbacks"] > 0, "e_max=8 rerouted no row")
-    check(np.array_equal(got, exp["labels"][:SERVE_BATCH]),
-          "rerouted labels differ from the reference")
-    print(f"[overflow] e_max=8: {st['overflow_fallbacks']} of {SERVE_BATCH} "
-          f"rows rerouted to the dense path, labels equal the reference")
+    for kernel in ("fused", "cuda"):
+        eng = SNNServeEngine(small, max_batch=SERVE_BATCH, kernel=kernel)
+        got = eng.classify(xte[:SERVE_BATCH])
+        st = eng.stats()
+        eng.close()
+        check(st["overflow_fallbacks"] > 0, "e_max=8 rerouted no row")
+        check(np.array_equal(got, exp["labels"][:SERVE_BATCH]),
+              f"rerouted labels differ from the reference ({kernel})")
+        print(f"[overflow] e_max=8, kernel={kernel}: "
+              f"{st['overflow_fallbacks']} of {SERVE_BATCH} rows rerouted to "
+              f"the dense path, labels equal the reference")
 
     # --------------------------------------------------------------- 5 times
-    frames = serve_batch_frames(prog, xte[:SERVE_BATCH])
+    images = xte[:SERVE_BATCH]
+    times = host_times(prog, images)
+    frames = pack_events_batched(times, prog.T, prog.e_max, device=dev)
     ids, count = frames.ids, frames.count
-    dec = dict(n_out=prog.n_out, n_groups=prog.n_groups,
-               per_group=prog.per_group, fallback=prog.fallback)
+    dec_kw = dict(n_out=prog.n_out, n_groups=prog.n_groups,
+                  per_group=prog.per_group, fallback=prog.fallback)
+    dkw = dict(n_groups=prog.n_groups, per_group=prog.per_group,
+               sentinel=prog.T, fallback=prog.fallback)
     args = (ids, count, prog.w_padded, prog.thr_padded, prog.leak_shift)
+    cur = ea.event_accum(ids, prog.w_padded)
+    view = cur.movedim(1, 0)
+    state = lif.lif_fused(view, prog.thr_padded, prog.leak_shift)
+    first_l = state.first_spike[:, :prog.n_out]
+    v_l = state.v_final[:, :prog.n_out]
+    raster = frames_from_times(torch.from_numpy(times).to(dev), prog.T)
+    raster_2d = raster.view(-1, prog.n_in)
     fns = {
         "fused_event_lif_decode": (
-            lambda: ops.fused_event_lif_decode(*args, **dec),
-            lambda: ref.fused_event_lif_decode_ref(*args, **dec)),
+            lambda: ops.fused_event_lif_decode(*args, **dec_kw),
+            lambda: ref.fused_event_lif_decode_ref(*args, **dec_kw), None),
         "fused_event_lif_early_exit": (
             lambda: ops.fused_event_lif_early_exit(*args),
-            lambda: ref.fused_event_lif_early_exit_ref(*args)),
+            lambda: ref.fused_event_lif_early_exit_ref(*args), None),
+        "fused_event_lif": (
+            lambda: ops.fused_event_lif(*args),
+            lambda: ref.fused_event_lif_ref(*args), None),
+        "spike_matmul": (
+            lambda: smm.spike_matmul(raster, prog.w_padded),
+            lambda: smm_ref.spike_matmul_ref(raster, prog.w_padded),
+            lambda: torch._int_mm(raster_2d, prog.w_padded)),
+        "lif_fused": (
+            lambda: lif.lif_fused(view, prog.thr_padded, prog.leak_shift),
+            lambda: lif_scan(view, prog.thr_padded, prog.leak_shift, prog.T),
+            None),
+        "ttfs_decode": (
+            lambda: dec.ttfs_decode(first_l, v_l, **dkw),
+            lambda: dec_ref.ttfs_decode_ref(first_l, v_l, **dkw), None),
+        "event_accum": (
+            lambda: ea.event_accum(ids, prog.w_padded),
+            lambda: ea_ref.event_accum_ref(ids, prog.w_padded), None),
     }
+    check(set(fns) == set(KERNELS), "a kernel has no timing entry")
+    check(torch.equal(torch._int_mm(raster_2d, prog.w_padded),
+                      smm.spike_matmul(raster_2d, prog.w_padded)),
+          "torch._int_mm, the yardstick, differs from spike_matmul")
 
     def call_ms(fn) -> float:
         """One call as a caller pays it: CUDA events around the call, host
         dispatch included (median of TIMING_RUNS)."""
         for _ in range(5):
             fn()
-        times = []
+        samples = []
         for _ in range(TIMING_RUNS):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -350,8 +525,8 @@ def main() -> int:
             fn()
             end.record()
             end.synchronize()
-            times.append(start.elapsed_time(end))
-        return statistics.median(times)
+            samples.append(start.elapsed_time(end))
+        return statistics.median(samples)
 
     def kernel_ms(fn) -> tuple[float, float]:
         """(device ms of one launch alone, host ms of one wrapper call).
@@ -364,8 +539,8 @@ def main() -> int:
             fn()
         torch.cuda.synchronize()
         spin = SPIN_CYCLES
-        dev, host = [], []
-        while len(dev) < TIMING_RUNS:
+        on_card, host = [], []
+        while len(on_card) < TIMING_RUNS:
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             torch.cuda._sleep(spin)
@@ -382,49 +557,78 @@ def main() -> int:
                       "queued ahead of the card")
                 spin *= 2
                 continue
-            dev.append(start.elapsed_time(end) / BACK_TO_BACK)
+            on_card.append(start.elapsed_time(end) / BACK_TO_BACK)
             host.append(1e3 * queued / BACK_TO_BACK)
-        return statistics.median(dev), statistics.median(host)
+        return statistics.median(on_card), statistics.median(host)
 
-    # the work this batch needs: executed steps, their events, the distinct
-    # weight rows they touch; 5 ALU operations per lane-step of the LIF update
+    # the work this batch needs, each input read once and each output
+    # written once: executed steps, their events, the distinct weight rows
+    # they touch; 5 ALU operations per lane-step of the LIF update, 4 per
+    # lane of the decode comparator (two keys, a min and a max)
     cnt = count.cpu().numpy().astype(np.int64)
     ids_h = ids.cpu().numpy()
     _, steps_x = ops.fused_event_lif_early_exit(*args)
     steps_h = steps_x.cpu().numpy()
     B, T_, E = ids_h.shape
-    N = prog.n_pad
-    work = {"fused_event_lif_decode": np.full(B, T_),
-            "fused_event_lif_early_exit": steps_h}
-    rows = []
-    for kname, (kern, plain) in fns.items():
-        run = work[kname]
+    N, K, n = prog.n_pad, prog.n_in, prog.n_out
+
+    def gather_work(run):
+        """(events, live steps, distinct weight rows) of rows that run
+        ``run[b]`` steps each."""
         live = np.arange(T_)[None, :] < run[:, None]           # (B, T)
-        events = int((cnt * live).sum())
-        used = np.zeros(prog.n_in, bool)
+        used = np.zeros(K, bool)
         for b in range(B):
             for t in range(int(run[b])):
                 used[ids_h[b, t, :cnt[b, t]]] = True
-        n_bytes = (4 * events + 4 * int(live.sum()) + int(used.sum()) * N
-                   + 4 * N + 2 * 4 * B * N + 4 * B)
-        n_ops = events * N + 5 * int(live.sum()) * N
-        t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / ALU_OPS_PER_S
+        return int((cnt * live).sum()), int(live.sum()), int(used.sum())
+
+    work = {}
+    for kname, run, label_bytes in (
+            ("fused_event_lif_decode", np.full(B, T_), 4 * B),
+            ("fused_event_lif_early_exit", steps_h, 4 * B),
+            ("fused_event_lif", np.full(B, T_), 0)):
+        events, steps_live, used_rows = gather_work(run)
+        work[kname] = (4 * events + 4 * steps_live + used_rows * N + 4 * N
+                       + 2 * 4 * B * N + label_bytes,
+                       events * N + 5 * steps_live * N, ALU_OPS_PER_S)
+    events, _, used_rows = gather_work(np.full(B, T_))
+    work["event_accum"] = (4 * B * T_ * E + used_rows * N + 4 * B * T_ * N,
+                           events * N, ALU_OPS_PER_S)
+    work["lif_fused"] = (4 * T_ * B * N + 4 * N + 2 * 4 * B * N,
+                         5 * T_ * B * N, ALU_OPS_PER_S)
+    reads = 2 if prog.fallback == "membrane" else 1
+    work["ttfs_decode"] = (4 * B * n * reads + 4 * B, 4 * B * n, ALU_OPS_PER_S)
+    M = B * T_
+    work["spike_matmul"] = (M * K + K * N + 4 * M * N, 2 * M * K * N,
+                            INT8_OPS_PER_S)
+
+    rows = []
+    for kname, (kern, plain, library) in fns.items():
+        n_bytes, n_ops, op_rate = work[kname]
+        t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / op_rate
         (ms, host_ms), whole_ms = kernel_ms(kern), call_ms(kern)
         plain_ms = call_ms(plain)
-        rows.append({"name": kname, "route": "cuda", "source": SOURCE,
-                     "replaces": REPLACES[kname],
+        library_ms = kernel_ms(library)[0] if library is not None else None
+        source, replaces = KERNELS[kname]
+        rows.append({"name": kname, "route": "cuda",
+                     "source": f"{CSRC}/{source}",
+                     "replaces": f"{PALLAS}/{replaces}",
                      "launches": int(launches[kname]),
                      "max_abs_err": max_err[kname], "ms": ms,
                      "plain_ms": plain_ms,
                      "bound_ms": 1e3 * max(t_bytes, t_ops),
                      "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                     "library_ms": None})
-        print(f"[times] {kname}: B={B} T={T_} E_max={E} N_pad={N} events "
-              f"{events}: kernel alone {ms:.4f} ms, wrapper host "
+                     "library_ms": library_ms})
+        lib_txt = ("none" if library_ms is None
+                   else f"{library_ms:.4f} ms (torch._int_mm, alone)")
+        print(f"[times] {kname}: B={B} T={T_} E_max={E} N_in={K} N_pad={N} "
+              f"(events {events} in full T, {int((steps_h).sum())} steps "
+              f"in latency mode): kernel alone {ms:.4f} ms, wrapper host "
               f"{host_ms:.4f} ms per call, one call {whole_ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, bound {rows[-1]['bound_ms']:.6f} ms "
-              f"({rows[-1]['bound_by']}: {n_bytes} B, {n_ops} ops), launches "
-              f"per served batch {per_batch[kname]:.2f} — card: {card}")
+              f"{plain_ms:.4f} ms, library {lib_txt}, bound "
+              f"{rows[-1]['bound_ms']:.6f} ms ({rows[-1]['bound_by']}: "
+              f"{n_bytes} B, {n_ops} ops), main-path launches "
+              f"{launches[kname]} — card: {card}")
 
     print("kernels " + " ".join(f"{r['name']}={r['launches']}" for r in rows))
     print(json.dumps({"kernels": rows}))

@@ -6,20 +6,31 @@ planner emitted:
 
   * ``mode="event"`` — packed (T, E_max) event-id frames drive per-step
     gathers of weight rows, so work scales with ACTIVE events.
-    ``kernel="fused"`` runs the hand-written event→LIF→decode CUDA kernels
-    (``kernels.fused_event_lif``): full-T with the label computed on the
-    card, or, in latency mode, a per-row early exit at the first output
-    spike. ``kernel="torch"`` runs the staged pipeline in plain PyTorch
-    (gathered currents, ``lif_scan``, decode), as the JAX package's ``jnp``
-    kernel does.
   * ``mode="batch"`` — the time-batched path: the (T, N_in) spike raster is
-    one integer GEMM (float32, exact; see ``core.reference``), then the LIF
-    scan over the (T, N_pad) currents. The serving tier's dense fallback
-    for rows that overflow E_max. Only ``kernel="torch"`` exists so far.
+    one exact integer product with the weights, then the LIF scan over the
+    (T, N_pad) currents. The serving tier's dense fallback for rows that
+    overflow E_max.
+
+``kernel`` picks the implementation (the JAX package's ``jnp`` is
+``torch`` here, its ``pallas`` is ``cuda``):
+
+  * ``"fused"`` (event mode) — the hand-written event→LIF→decode CUDA
+    kernels (``kernels.fused_event_lif``): full-T with the label computed on
+    the card, or, in latency mode, a per-row early exit at the first output
+    spike. The (B, T, N_pad) currents never exist.
+  * ``"cuda"`` — the staged pipeline on the hand-written CUDA kernels, as
+    the JAX ``pallas`` kernel runs it: ``event_accum`` (event mode) or
+    ``spike_matmul`` (batch mode) writes the (B, T, N_pad) int32 currents,
+    then ``lif_fused`` and ``ttfs_decode``. Latency mode replaces
+    ``lif_fused`` by the per-row early-exit scan in PyTorch, as JAX runs
+    ``lif_scan_early_exit`` in ``jnp``. No float32 weight copy is built.
+  * ``"torch"`` — the same staged pipeline in plain PyTorch (the kernels'
+    plain versions); batch mode's product is float32 (exact; see
+    ``core.reference``), with the weight copy in the program cache's bundle
+    tier.
 
 All paths are bit-exact against the reference. Execution parameters come
-from the lowered program; the float32 weight copy of batch mode lives in the
-program cache's bundle tier.
+from the lowered program.
 """
 
 from __future__ import annotations
@@ -29,25 +40,22 @@ import torch
 
 from repro_torch.core import ttfs
 from repro_torch.core.artifact import Artifact
-from repro_torch.core.events import PAD, EventFrames, pack_events_batched
-from repro_torch.core.lif_dynamics import lif_scan, lif_scan_early_exit
+from repro_torch.core.events import EventFrames, pack_events_batched
+from repro_torch.core.lif_dynamics import lif_scan, lif_scan_early_exit_rows
 from repro_torch.core.lowering import (LoweredProgram, get_cache, lower,
                                        program_nbytes)
 from repro_torch.core.reference import as_images, spike_currents
 from repro_torch.core.types import SNNOutput, decode_output
+from repro_torch.kernels.event_accum import ops as ea_ops
+from repro_torch.kernels.event_accum.ref import event_accum_ref
 from repro_torch.kernels.fused_event_lif import ops as fused
+from repro_torch.kernels.lif import ops as lif_ops
+from repro_torch.kernels.spike_matmul import ops as smm_ops
+from repro_torch.kernels.ttfs_decode import ops as dec_ops
 from repro_torch.telemetry import trace as ttrace
 
-#: kernels each mode runs; the staged CUDA kernels are still to be ported
-KERNELS = {"event": ("torch", "fused"), "batch": ("torch",)}
-
-
-def event_currents(ids: torch.Tensor, w_padded: torch.Tensor) -> torch.Tensor:
-    """(B, T, E_max) event ids -> (B, T, N_pad) int32 currents by row gather
-    over every slot; PAD slots add zero."""
-    rows = w_padded[ids.clamp(min=0).long()]               # (B, T, E, N_pad)
-    rows = torch.where((ids != PAD)[..., None], rows, 0)
-    return rows.sum(dim=2, dtype=torch.int32)
+#: kernels each mode runs
+KERNELS = {"event": ("torch", "fused", "cuda"), "batch": ("torch", "cuda")}
 
 
 class SNNAccelerator:
@@ -56,11 +64,10 @@ class SNNAccelerator:
                  device: str | torch.device = "cuda"):
         if mode not in KERNELS:
             raise ValueError(mode)
-        if kernel in ("cuda", "pallas"):
-            raise NotImplementedError(
-                f"kernel {kernel!r} means the staged kernels (event_accum, "
-                "lif, ttfs_decode, spike_matmul), not ported yet (ROADMAP: "
-                "TPU kernels still to port)")
+        if kernel == "pallas":
+            raise ValueError(
+                "kernel 'pallas' names the JAX package's TPU kernels; the "
+                "port's staged kernels are kernel='cuda'")
         if kernel == "fused" and mode != "event":
             raise ValueError(
                 "the fused kernel consumes packed event frames; use "
@@ -79,7 +86,7 @@ class SNNAccelerator:
         self.n_out = prog.n_out
         self.w_padded = prog.w_padded          # (N_in, N_pad) int8
         self.thr_padded = prog.thr_padded      # (N_pad,) int32
-        if mode == "batch":
+        if mode == "batch" and kernel == "torch":
             bundle, self.cache_hit = get_cache().bundle(
                 ("accelerator", *prog.cache_key, mode, kernel),
                 lambda: {"w_f32": prog.w_padded.to(torch.float32)},
@@ -88,19 +95,44 @@ class SNNAccelerator:
 
     # ------------------------------------------------------------- pipelines
     def _decode(self, first: torch.Tensor, v: torch.Tensor, steps):
+        """Labels of the logical lanes of (B, N_pad) first/v; the CUDA
+        decode reads the ``[:, :n_out]`` slices in place."""
         first_l, v_l = first[:, :self.n_out], v[:, :self.n_out]
-        labels = decode_output(first_l, v_l, self.program.decode)
+        plan = self.program.decode
+        if self.kernel == "cuda":
+            labels = dec_ops.ttfs_decode(
+                first_l, v_l, n_groups=plan.n_groups,
+                per_group=plan.per_group, sentinel=plan.sentinel,
+                fallback=plan.fallback)
+        else:
+            labels = decode_output(first_l, v_l, plan)
         if steps is None:
             steps = torch.full_like(labels, self.T)
         return SNNOutput(labels, first_l, v_l, steps)
 
+    def _staged(self, currents: torch.Tensor,
+                latency_mode: bool) -> SNNOutput:
+        """(B, T, N_pad) int32 currents -> LIF over their (T, B, N_pad) view
+        (read in place) -> decode."""
+        view = currents.movedim(1, 0)
+        if latency_mode:
+            res, steps = lif_scan_early_exit_rows(view, self.thr_padded,
+                                                  self.leak_shift, self.T)
+            return self._decode(res.first_spike, res.v_final, steps)
+        if self.kernel == "cuda":
+            res = lif_ops.lif_fused(view, self.thr_padded, self.leak_shift)
+        else:
+            res = lif_scan(view, self.thr_padded, self.leak_shift, self.T)
+        return self._decode(res.first_spike, res.v_final, None)
+
     def _forward_batch(self, images: torch.Tensor) -> SNNOutput:
         times = ttfs.encode_ttfs(images, self.T, self.x_min)
         raster = ttfs.frames_from_times(times, self.T)         # (B, T, N_in)
-        currents = spike_currents(raster, self._w_f32)         # (B, T, N_pad)
-        res = lif_scan(currents.movedim(1, 0), self.thr_padded,
-                       self.leak_shift, self.T)
-        return self._decode(res.first_spike, res.v_final, None)
+        if self.kernel == "cuda":
+            currents = smm_ops.spike_matmul(raster, self.w_padded)
+        else:
+            currents = spike_currents(raster, self._w_f32)     # (B, T, N_pad)
+        return self._staged(currents, latency_mode=False)
 
     def _forward_event(self, frames: EventFrames,
                        latency_mode: bool) -> SNNOutput:
@@ -119,16 +151,11 @@ class SNNAccelerator:
             return SNNOutput(labels, res.first_spike[:, :self.n_out],
                              res.v_final[:, :self.n_out],
                              torch.full_like(labels, self.T))
-        currents = event_currents(ids, self.w_padded)          # (B, T, N_pad)
-        if not latency_mode:
-            res = lif_scan(currents.movedim(1, 0), self.thr_padded,
-                           self.leak_shift, self.T)
-            return self._decode(res.first_spike, res.v_final, None)
-        rows = [lif_scan_early_exit(c, self.thr_padded, self.leak_shift,
-                                    self.T) for c in currents]
-        return self._decode(torch.stack([r.first_spike for r, _ in rows]),
-                            torch.stack([r.v_final for r, _ in rows]),
-                            torch.stack([s for _, s in rows]))
+        if self.kernel == "cuda":
+            currents = ea_ops.event_accum(ids, self.w_padded)  # (B, T, N_pad)
+        else:
+            currents = event_accum_ref(ids, self.w_padded)
+        return self._staged(currents, latency_mode)
 
     # -------------------------------------------------------------- frontend
     def forward(self, images=None, frames: EventFrames | None = None,

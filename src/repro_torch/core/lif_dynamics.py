@@ -71,3 +71,28 @@ def lif_scan_early_exit(currents: torch.Tensor, thresholds: torch.Tensor,
         t += 1
     return (LIFResult(first_spike=first, v_final=v),
             torch.tensor(t, dtype=torch.int32, device=currents.device))
+
+
+def lif_scan_early_exit_rows(currents: torch.Tensor, thresholds: torch.Tensor,
+                             leak_shift: int, T: int
+                             ) -> tuple[LIFResult, torch.Tensor]:
+    """``lif_scan_early_exit`` per row, as ``jax.vmap`` runs it over a batch:
+    currents (T, B, N); all rows advance together, and each row freezes its
+    v, first and step count once any of its N lanes has fired. Nothing is
+    read back to the host inside the loop, which always runs T steps.
+
+    Returns (LIFResult over (B, N) with v at each row's exit, steps (B,)
+    int32)."""
+    v = torch.zeros(currents.shape[1:], dtype=torch.int32,
+                    device=currents.device)
+    first = torch.full_like(v, T)
+    steps = torch.zeros(currents.shape[1:2], dtype=torch.int32,
+                        device=currents.device)
+    for t in range(T):
+        live = (first == T).all(dim=-1)                     # (B,)
+        v_t, first_t = lif_step(v, first, currents[t], thresholds,
+                                leak_shift, t, T)
+        v = torch.where(live[:, None], v_t, v)
+        first = torch.where(live[:, None], first_t, first)
+        steps += live.to(torch.int32)
+    return LIFResult(first_spike=first, v_final=v), steps

@@ -8,15 +8,17 @@ map ``jnp`` -> ``torch`` and ``pallas`` -> ``cuda``; ``fused`` stays:
 
     reference                      software reference (the oracle)
     accelerator                    alias of accelerator-batch (family default)
-    accelerator-batch[-torch]      time-batched GEMM path
-    accelerator-event[-torch|fused]
+    accelerator-batch[-torch|cuda] time-batched GEMM path
+    accelerator-event[-torch|fused|cuda]
                                    packed-event path (kernel picked via the
                                    suffix or the ``kernel=`` keyword)
 
-``ADVERTISED_SPECS`` lists every spec above; each constructs. Specs that
-name a kernel not ported yet (``-cuda`` and the ``-pallas`` spelling of it)
-and the ``board`` family raise ``NotImplementedError`` naming the ROADMAP
-item that brings them.
+``-cuda`` is the staged pipeline on the hand-written CUDA kernels
+(``spike_matmul`` or ``event_accum``, then ``lif_fused`` and
+``ttfs_decode``). ``ADVERTISED_SPECS`` lists every spec above; each
+constructs. The ``-pallas`` spelling raises ``ValueError`` naming ``cuda``;
+the ``board`` family raises ``NotImplementedError`` naming the ROADMAP item
+that brings it.
 
 Factories ignore keywords they don't understand, so harness-level defaults
 (``kernel=``, ``latency_mode=``) can be passed uniformly across families.
@@ -39,8 +41,9 @@ _REGISTRY: dict[str, Callable] = {}
 ADVERTISED_SPECS = (
     "reference",
     "accelerator",
-    "accelerator-batch", "accelerator-batch-torch",
+    "accelerator-batch", "accelerator-batch-torch", "accelerator-batch-cuda",
     "accelerator-event", "accelerator-event-torch", "accelerator-event-fused",
+    "accelerator-event-cuda",
 )
 
 def register(family: str):

@@ -3,15 +3,14 @@
 // Replaces the Pallas TPU kernels of src/repro/kernels/fused_event_lif/kernel.py:
 //   fused_event_lif_decode      <- fused_event_lif_decode_kernel     (full T, label)
 //   fused_event_lif_early_exit  <- fused_event_lif_early_exit_kernel (latency mode)
+//   fused_event_lif             <- fused_event_lif_kernel            (full T, no label)
 // and computes exactly what they compute. For each batch row b and step t:
 //   i[n]  = sum over e < count[b,t] with ids[b,t,e] >= 0 of w[ids[b,t,e], n]   (int32)
 //   v     = v - (v >> leak_shift) + i        (arithmetic shift on signed int)
 //   first = t where (v >= thr && first == T) (first-spike latch; T = never)
-// The decode kernel then applies the grouped-TTFS comparator to the logical
-// lanes [0, n_out): the label is the group of the smallest packed key
-// first*n_out + idx if any lane fired (min first < T), else the "membrane"
-// fallback (group of the first lane holding the largest v) or 0 ("zero").
-// The early-exit kernel stops a row after the first step at which ANY of its
+// The decode kernel then applies the grouped-TTFS comparator of lif_step.cuh
+// to the logical lanes [0, n_out); fused_event_lif is the same kernel compiled
+// without that epilogue (a template flag). The early-exit kernel stops a row after the first step at which ANY of its
 // n_pad lanes has fired and reports v at exit and the steps executed.
 //
 // What bounds it on the H100. Per image the kernel must read the weight rows
@@ -36,19 +35,14 @@
 // memory a block may hold; staging it is a later redesign). Rows run in
 // parallel across SMs; steps cannot, since each depends on the last.
 //
-// Integer semantics. Arithmetic is done on unsigned words and cast back, so an
-// overflowing membrane wraps as it does in XLA instead of being undefined
-// behaviour; the right shift is on the signed value (sign-extending), so
-// leak_shift = 31 adds 1 per step to a negative membrane, as the reference
-// does. Ids outside [0, n_in) are skipped (PAD is -1), so a bad id cannot
-// read outside w.
+// Integer semantics: the update and latch of lif_step.cuh (wrapping like XLA,
+// arithmetic shift). Ids outside [0, n_in) are skipped (PAD is -1), so a bad
+// id cannot read outside w.
 //
 // Each C entry point launches on the given stream and returns
 // cudaGetLastError(); it allocates nothing and does not synchronise.
 
-#include <climits>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "lif_step.cuh"
 
 namespace {
 
@@ -98,8 +92,8 @@ __device__ __forceinline__ void gather_step(const RowArgs& a, int b, int t,
   }
 }
 
-// v <- v - (v >> s) + i ; first <- t where v >= thr and first == T.
-// Returns whether any of this thread's lanes has fired so far.
+// One LIF step on this thread's lanes; returns whether any of them has fired
+// so far.
 template <int LPT>
 __device__ __forceinline__ bool lif_step(const RowArgs& a, int t,
                                          const int32_t (&acc)[LPT],
@@ -109,9 +103,8 @@ __device__ __forceinline__ bool lif_step(const RowArgs& a, int t,
   bool any = false;
 #pragma unroll
   for (int k = 0; k < LPT; ++k) {
-    const int32_t leak = v[k] >> a.leak_shift;
-    v[k] = (int32_t)((uint32_t)v[k] - (uint32_t)leak + (uint32_t)acc[k]);
-    if (v[k] >= thr[k] && first[k] == a.T) first[k] = t;
+    v[k] = lif_update(v[k], acc[k], a.leak_shift);
+    lif_latch(v[k], thr[k], first[k], t, a.T);
     any |= first[k] != a.T;
   }
   return any;
@@ -148,31 +141,11 @@ __device__ __forceinline__ void store_state(const RowArgs& a, int b,
   }
 }
 
-// Block-wide min (is_min) or max of one int64 per thread; every thread gets
-// the result. blockDim.x is a multiple of 32.
-__device__ long long block_reduce(long long x, bool is_min) {
-  __shared__ long long part[MAX_THREADS / 32];
-  const unsigned full = 0xffffffffu;
-  for (int off = 16; off > 0; off >>= 1) {
-    const long long y = __shfl_down_sync(full, x, off);
-    x = is_min ? (y < x ? y : x) : (y > x ? y : x);
-  }
-  const int warp = threadIdx.x / 32, n_warps = blockDim.x / 32;
-  __syncthreads();                       // part[] may hold a previous result
-  if ((threadIdx.x & 31) == 0) part[warp] = x;
-  __syncthreads();
-  x = part[0];
-  for (int i = 1; i < n_warps; ++i) {
-    const long long y = part[i];
-    x = is_min ? (y < x ? y : x) : (y > x ? y : x);
-  }
-  return x;
-}
-
-template <int LPT>
+// Full T; with DECODE the grouped-TTFS label of the row is written too.
+template <int LPT, bool DECODE>
 __global__ void __launch_bounds__(MAX_THREADS)
-fused_decode_kernel(RowArgs a, int n_out, int per_group, int fallback_membrane,
-                    int32_t* first_out, int32_t* v_out, int32_t* labels) {
+fused_full_kernel(RowArgs a, int n_out, int per_group, int fallback_membrane,
+                  int32_t* first_out, int32_t* v_out, int32_t* labels) {
   __shared__ int32_t s_ids[ID_CHUNK];
   const int b = blockIdx.x;
   int32_t thr[LPT], v[LPT], first[LPT], acc[LPT];
@@ -182,33 +155,16 @@ fused_decode_kernel(RowArgs a, int n_out, int per_group, int fallback_membrane,
     lif_step<LPT>(a, t, acc, thr, v, first);
   }
   store_state<LPT>(a, b, v, first, first_out, v_out);
-
-  // grouped-TTFS comparator over the logical lanes [0, n_out)
-  long long key = LLONG_MAX, vkey = LLONG_MIN;
+  if constexpr (DECODE) {
+    DecodeKeys keys;
 #pragma unroll
-  for (int k = 0; k < LPT; ++k) {
-    const int lane = threadIdx.x + k * blockDim.x;
-    if (lane < n_out) {
-      const long long kk = (long long)first[k] * n_out + lane;
-      key = kk < key ? kk : key;
-      // largest v first, then the smallest lane among equal v
-      const long long vk = (long long)v[k] * 4294967296LL + (INT32_MAX - lane);
-      vkey = vk > vkey ? vk : vkey;
+    for (int k = 0; k < LPT; ++k) {
+      const int lane = threadIdx.x + k * blockDim.x;
+      if (lane < n_out) decode_fold(keys, first[k], v[k], lane, n_out);
     }
-  }
-  key = block_reduce(key, true);
-  vkey = block_reduce(vkey, false);
-  if (threadIdx.x == 0) {
-    int label;
-    if (key < (long long)a.T * n_out) {            // some lane fired
-      label = (int)(key % n_out) / per_group;
-    } else if (fallback_membrane) {
-      const int lane = INT32_MAX - (int)(vkey & 0xffffffffLL);
-      label = lane / per_group;
-    } else {
-      label = 0;
-    }
-    labels[b] = label;
+    const int label = decode_label(keys, n_out, per_group, a.T,
+                                   fallback_membrane);
+    if (threadIdx.x == 0) labels[b] = label;
   }
 }
 
@@ -245,12 +201,35 @@ bool launch_shape(int n_pad, int* threads, int* lpt) {
   return true;
 }
 
-template <int LPT>
-void launch_decode(const RowArgs& a, int B, int threads, int n_out,
-                   int per_group, int fallback_membrane, int32_t* first_out,
-                   int32_t* v_out, int32_t* labels, cudaStream_t stream) {
-  fused_decode_kernel<LPT><<<B, threads, 0, stream>>>(
+template <int LPT, bool DECODE>
+void launch_full(const RowArgs& a, int B, int threads, int n_out,
+                 int per_group, int fallback_membrane, int32_t* first_out,
+                 int32_t* v_out, int32_t* labels, cudaStream_t stream) {
+  fused_full_kernel<LPT, DECODE><<<B, threads, 0, stream>>>(
       a, n_out, per_group, fallback_membrane, first_out, v_out, labels);
+}
+
+template <bool DECODE>
+void dispatch_full(const RowArgs& a, int B, int threads, int lpt, int n_out,
+                   int per_group, int fallback_membrane, int32_t* first_out,
+                   int32_t* v_out, int32_t* labels, cudaStream_t s) {
+  switch (lpt) {
+    case 1: launch_full<1, DECODE>(a, B, threads, n_out, per_group,
+                                   fallback_membrane, first_out, v_out, labels,
+                                   s);
+            break;
+    case 2: launch_full<2, DECODE>(a, B, threads, n_out, per_group,
+                                   fallback_membrane, first_out, v_out, labels,
+                                   s);
+            break;
+    case 4: launch_full<4, DECODE>(a, B, threads, n_out, per_group,
+                                   fallback_membrane, first_out, v_out, labels,
+                                   s);
+            break;
+    default: launch_full<8, DECODE>(a, B, threads, n_out, per_group,
+                                    fallback_membrane, first_out, v_out,
+                                    labels, s);
+  }
 }
 
 template <int LPT>
@@ -277,20 +256,22 @@ int fused_event_lif_decode(const int32_t* ids, const int32_t* count,
       !launch_shape(n_pad, &threads, &lpt))
     return (int)cudaErrorInvalidValue;
   const RowArgs a{ids, count, w, thr, T, E, n_in, n_pad, leak_shift};
-  const cudaStream_t s = (cudaStream_t)stream;
-  switch (lpt) {
-    case 1: launch_decode<1>(a, B, threads, n_out, per_group,
-                             fallback_membrane, first_out, v_out, labels, s);
-            break;
-    case 2: launch_decode<2>(a, B, threads, n_out, per_group,
-                             fallback_membrane, first_out, v_out, labels, s);
-            break;
-    case 4: launch_decode<4>(a, B, threads, n_out, per_group,
-                             fallback_membrane, first_out, v_out, labels, s);
-            break;
-    default: launch_decode<8>(a, B, threads, n_out, per_group,
-                              fallback_membrane, first_out, v_out, labels, s);
-  }
+  dispatch_full<true>(a, B, threads, lpt, n_out, per_group, fallback_membrane,
+                      first_out, v_out, labels, (cudaStream_t)stream);
+  return (int)cudaGetLastError();
+}
+
+int fused_event_lif(const int32_t* ids, const int32_t* count, const int8_t* w,
+                    const int32_t* thr, int32_t* first_out, int32_t* v_out,
+                    int B, int T, int E, int n_in, int n_pad, int leak_shift,
+                    void* stream) {
+  int threads, lpt;
+  if (B <= 0 || T <= 0 || E <= 0 || leak_shift < 0 || leak_shift > 31 ||
+      !launch_shape(n_pad, &threads, &lpt))
+    return (int)cudaErrorInvalidValue;
+  const RowArgs a{ids, count, w, thr, T, E, n_in, n_pad, leak_shift};
+  dispatch_full<false>(a, B, threads, lpt, 0, 1, 0, first_out, v_out, nullptr,
+                       (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }
 

@@ -1,0 +1,87 @@
+// Shared device code of the SNN kernels: the integer LIF update and the
+// grouped-TTFS comparator, so that the fused kernels (fused_event_lif.cu),
+// the staged LIF kernel (lif.cu) and the staged decode kernel
+// (ttfs_decode.cu) run one definition of each.
+//
+// LIF, per lane and step t (all int32, as core.lif_dynamics.lif_step):
+//   v     = v - (v >> leak_shift) + i
+//   first = t  where v >= thr and first == T   (first-spike latch; T = never)
+// The sum is taken on unsigned words and cast back, so an overflowing
+// membrane wraps as it does in XLA instead of being undefined behaviour in
+// C++; the shift stays on the signed value (sign-extending), so
+// leak_shift = 31 adds 1 per step to a negative membrane, as the reference
+// does.
+//
+// Decode, over the logical lanes [0, n) of one row, as ttfs.decode_labels:
+// the label is the group of the smallest packed key first*n + lane if any
+// lane's first is below the sentinel, else the "membrane" fallback (group of
+// the first lane holding the largest v) or 0 ("zero"). The key is int64, so
+// T*n may exceed 2^31 (the Pallas kernel's key is int32); the membrane key
+// v*2^32 + (INT32_MAX - lane) breaks ties to the first lane, as jnp.argmax.
+
+#pragma once
+
+#include <climits>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+__device__ __forceinline__ int32_t lif_update(int32_t v, int32_t i,
+                                              int leak_shift) {
+  const int32_t leak = v >> leak_shift;
+  return (int32_t)((uint32_t)v - (uint32_t)leak + (uint32_t)i);
+}
+
+__device__ __forceinline__ void lif_latch(int32_t v, int32_t thr,
+                                          int32_t& first, int t, int T) {
+  if (v >= thr && first == T) first = t;
+}
+
+struct DecodeKeys {
+  long long key = LLONG_MAX;    // min of first*n + lane
+  long long vkey = LLONG_MIN;   // max of v*2^32 + (INT32_MAX - lane)
+};
+
+__device__ __forceinline__ void decode_fold(DecodeKeys& k, int32_t first,
+                                            int32_t v, int lane, int n) {
+  const long long kk = (long long)first * n + lane;
+  k.key = kk < k.key ? kk : k.key;
+  const long long vk = (long long)v * 4294967296LL + (INT32_MAX - lane);
+  k.vkey = vk > k.vkey ? vk : k.vkey;
+}
+
+// Block-wide min (is_min) or max of one int64 per thread; every thread gets
+// the result. blockDim.x is a multiple of 32 and at most 1024.
+__device__ __forceinline__ long long block_reduce(long long x, bool is_min) {
+  __shared__ long long part[32];
+  const unsigned full = 0xffffffffu;
+  for (int off = 16; off > 0; off >>= 1) {
+    const long long y = __shfl_down_sync(full, x, off);
+    x = is_min ? (y < x ? y : x) : (y > x ? y : x);
+  }
+  const int warp = threadIdx.x / 32, n_warps = blockDim.x / 32;
+  __syncthreads();                       // part[] may hold a previous result
+  if ((threadIdx.x & 31) == 0) part[warp] = x;
+  __syncthreads();
+  x = part[0];
+  for (int i = 1; i < n_warps; ++i) {
+    const long long y = part[i];
+    x = is_min ? (y < x ? y : x) : (y > x ? y : x);
+  }
+  return x;
+}
+
+// Reduce every thread's keys over the block and return the row's label (the
+// same value in every thread).
+__device__ __forceinline__ int decode_label(DecodeKeys k, int n, int per_group,
+                                            int sentinel,
+                                            int fallback_membrane) {
+  const long long key = block_reduce(k.key, true);
+  const long long vkey = block_reduce(k.vkey, false);
+  if (key < (long long)sentinel * n) {             // some lane fired
+    const long long lane = ((key % n) + n) % n;    // floor mod: first < 0 too
+    return (int)(lane / per_group);
+  }
+  if (fallback_membrane)
+    return (INT32_MAX - (int)(vkey & 0xffffffffLL)) / per_group;
+  return 0;
+}

@@ -3,10 +3,11 @@
 Each ``src/repro_torch/csrc/<name>.cu`` exposes a plain C interface and is
 compiled, on first use, into ``build/kernels/lib<name>-<hash>.so`` at the
 repository root (``build/`` is git-ignored), for ``sm_90a`` only. The file
-name carries the source's SHA-256, so an edited source is rebuilt and a
-stale library is never loaded. ``build`` starts one ``nvcc`` per source,
-all at once, and waits for them; ``load`` builds what is missing and returns
-the ``ctypes.CDLL``.
+name carries the SHA-256 of the source and of the shared headers
+(``csrc/*.cuh``), so an edited source or header is rebuilt and a stale
+library is never loaded. ``build`` starts one ``nvcc`` per source, all at
+once, and waits for them; ``load`` builds what is missing and returns the
+``ctypes.CDLL``; ``sources`` names every kernel source.
 
 Nothing here runs at import: the CPU tests import every module, and no card
 or toolkit is needed until a kernel is launched.
@@ -51,10 +52,16 @@ def nvcc_path() -> str:
     return found
 
 
+def sources() -> list[str]:
+    """The name of every kernel source, ``csrc/<name>.cu``."""
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: list[str]) -> dict[str, Path]:

@@ -1,4 +1,4 @@
-"""Public wrappers of the fused event→LIF→decode kernels.
+"""Public wrappers of the fused event→LIF(→decode) kernels.
 
 The port of ``repro.kernels.fused_event_lif.ops`` with the same signatures,
 minus ``backend=``: the device of the tensors decides. On CUDA tensors a
@@ -20,15 +20,16 @@ import torch
 
 from repro_torch.core.lif_dynamics import LIFResult
 from repro_torch.kernels import build
+from repro_torch.kernels.common import P, I, check_tensors, raise_on, stream
 from repro_torch.kernels.fused_event_lif import ref as _ref
 
 #: kernel name -> launches since the last ``reset_launches()``
-LAUNCHES = {"fused_event_lif_decode": 0, "fused_event_lif_early_exit": 0}
+LAUNCHES = {"fused_event_lif": 0, "fused_event_lif_decode": 0,
+            "fused_event_lif_early_exit": 0}
 
 _SOURCE = "fused_event_lif"
 #: widest padded layer the kernels take (512 threads x 8 lanes per thread)
 MAX_N_PAD = 4096
-_P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 def reset_launches() -> None:
@@ -39,10 +40,12 @@ def reset_launches() -> None:
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = build.load(_SOURCE)
-    lib.fused_event_lif_decode.argtypes = [_P] * 7 + [_I] * 9 + [_P]
-    lib.fused_event_lif_decode.restype = _I
-    lib.fused_event_lif_early_exit.argtypes = [_P] * 7 + [_I] * 6 + [_P]
-    lib.fused_event_lif_early_exit.restype = _I
+    lib.fused_event_lif.argtypes = [P] * 6 + [I] * 6 + [P]
+    lib.fused_event_lif_decode.argtypes = [P] * 7 + [I] * 9 + [P]
+    lib.fused_event_lif_early_exit.argtypes = [P] * 7 + [I] * 6 + [P]
+    for fn in (lib.fused_event_lif, lib.fused_event_lif_decode,
+               lib.fused_event_lif_early_exit):
+        fn.restype = I
     return lib
 
 
@@ -55,13 +58,11 @@ def _check(ids: torch.Tensor, count: torch.Tensor, w: torch.Tensor,
     if w.dim() != 2 or thresholds.shape != (w.shape[1],):
         raise ValueError(f"w must be (N_in, N_pad) and thresholds (N_pad,); "
                          f"got {tuple(w.shape)} and {tuple(thresholds.shape)}")
-    want = ((ids, torch.int32), (count, torch.int32), (w, torch.int8),
-            (thresholds, torch.int32))
-    for name, (t, dtype) in zip(("ids", "count", "w", "thresholds"), want):
-        if t.dtype != dtype:
-            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-        if t.device != ids.device:
-            raise ValueError(f"{name} is on {t.device}, ids on {ids.device}")
+    check_tensors(ids.device, ids=(ids, torch.int32),
+                  count=(count, torch.int32), w=(w, torch.int8),
+                  thresholds=(thresholds, torch.int32))
+    for name, t in (("ids", ids), ("count", count), ("w", w),
+                    ("thresholds", thresholds)):
         if ids.is_cuda and not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if not 0 <= int(leak_shift) <= 31:
@@ -71,13 +72,29 @@ def _check(ids: torch.Tensor, count: torch.Tensor, w: torch.Tensor,
                          f"layer the CUDA kernels take")
 
 
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
-def _raise_on(code: int, kernel: str) -> None:
-    if code != 0:
-        raise RuntimeError(f"{kernel} launch failed with CUDA error {code}")
+def fused_event_lif(ids: torch.Tensor, count: torch.Tensor, w: torch.Tensor,
+                    thresholds: torch.Tensor, leak_shift: int) -> LIFResult:
+    """Full-T fused pass, no decode. ids (B, T, E_max) int32 (PAD = -1),
+    count (B, T) int32, w (N_in, N_pad) int8, thresholds (N_pad,) int32 ->
+    LIFResult over (B, N_pad)."""
+    _check(ids, count, w, thresholds, leak_shift)
+    if not ids.is_cuda:
+        first, v = _ref.fused_event_lif_ref(ids, count, w, thresholds,
+                                            leak_shift)
+        return LIFResult(first_spike=first, v_final=v)
+    B, T, E = ids.shape
+    n_in, n_pad = w.shape
+    first = torch.empty((B, n_pad), dtype=torch.int32, device=ids.device)
+    v = torch.empty_like(first)
+    if B:
+        with torch.cuda.device(ids.device):
+            code = _lib().fused_event_lif(
+                ids.data_ptr(), count.data_ptr(), w.data_ptr(),
+                thresholds.data_ptr(), first.data_ptr(), v.data_ptr(), B, T,
+                E, n_in, n_pad, int(leak_shift), stream(ids))
+        raise_on(code, "fused_event_lif")
+        LAUNCHES["fused_event_lif"] += 1
+    return LIFResult(first_spike=first, v_final=v)
 
 
 def fused_event_lif_decode(ids: torch.Tensor, count: torch.Tensor,
@@ -111,8 +128,8 @@ def fused_event_lif_decode(ids: torch.Tensor, count: torch.Tensor,
                 ids.data_ptr(), count.data_ptr(), w.data_ptr(),
                 thresholds.data_ptr(), first.data_ptr(), v.data_ptr(),
                 labels.data_ptr(), B, T, E, n_in, n_pad, int(leak_shift),
-                n_out, per_group, int(fallback == "membrane"), _stream(ids))
-        _raise_on(code, "fused_event_lif_decode")
+                n_out, per_group, int(fallback == "membrane"), stream(ids))
+        raise_on(code, "fused_event_lif_decode")
         LAUNCHES["fused_event_lif_decode"] += 1
     return LIFResult(first_spike=first, v_final=v), labels
 
@@ -139,7 +156,7 @@ def fused_event_lif_early_exit(ids: torch.Tensor, count: torch.Tensor,
                 ids.data_ptr(), count.data_ptr(), w.data_ptr(),
                 thresholds.data_ptr(), first.data_ptr(), v.data_ptr(),
                 steps.data_ptr(), B, T, E, n_in, n_pad, int(leak_shift),
-                _stream(ids))
-        _raise_on(code, "fused_event_lif_early_exit")
+                stream(ids))
+        raise_on(code, "fused_event_lif_early_exit")
         LAUNCHES["fused_event_lif_early_exit"] += 1
     return LIFResult(first_spike=first, v_final=v), steps

@@ -12,9 +12,12 @@ accelerator/system scope split.
     (the first launch builds the CUDA kernels), then the artifact checksum
     (``faults.detect``) runs on its in-memory copy; a lane that fails either
     is refused with ``RuntimeError``;
+  * a lane's runtime comes from ``spec`` and ``kernel``: an event-mode
+    accelerator is fed packed frames, every other runtime (the reference,
+    ``accelerator-batch`` with ``kernel="torch"`` or ``"cuda"``) images;
   * rows whose event frames exceed the artifact's E_max are served again
-    through the dense ``accelerator-batch`` runtime (the FPGA would
-    backpressure; the serving tier reroutes) and counted;
+    through the dense ``accelerator-batch`` runtime on plain PyTorch (the
+    FPGA would backpressure; the serving tier reroutes) and counted;
   * accelerator scope is the device work of a batch: the clock stops after
     ``torch.cuda.synchronize()`` on the program's device, never around an
     asynchronous launch alone. System scope is everything a request pays.

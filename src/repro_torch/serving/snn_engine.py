@@ -33,9 +33,12 @@ class SNNServeEngine:
 
     ``backend="accelerator"`` (the only one ported) serves the packed-event
     path; ``kernel`` selects its implementation: ``"fused"`` (default, the
-    hand-written event→LIF→decode CUDA kernels) or ``"torch"`` (the staged
-    plain-PyTorch pipeline). ``latency_mode`` serves with a per-row early
-    exit at the first output spike. ``backend="board"``, ``workers >= 1``,
+    hand-written event→LIF→decode CUDA kernels), ``"cuda"`` (the staged
+    pipeline on the hand-written ``event_accum``, ``lif_fused`` and
+    ``ttfs_decode`` CUDA kernels) or ``"torch"`` (the staged plain-PyTorch
+    pipeline). ``latency_mode`` serves with a per-row early exit at the
+    first output spike (with ``"cuda"``, the exit scan runs in PyTorch
+    between the two kernels, as the JAX package runs it in ``jnp``). ``backend="board"``, ``workers >= 1``,
     a non-default ``max_wait_us``, ``faults=``, ``resilience=`` and
     ``canary_pool=`` are not ported yet and raise ``NotImplementedError``."""
 

@@ -96,7 +96,10 @@ def test_wrappers_on_cpu_run_plain_versions_and_count_no_launch():
     res_x, steps = ops.fused_event_lif_early_exit(f.ids, f.count, tw, tthr, 4)
     assert torch.equal(steps, ref.fused_event_lif_early_exit_ref(
         f.ids, f.count, tw, tthr, 4)[2])
-    assert ops.LAUNCHES == {"fused_event_lif_decode": 0,
+    res_full = ops.fused_event_lif(f.ids, f.count, tw, tthr, 4)
+    assert torch.equal(res_full.first_spike, want[0])
+    assert torch.equal(res_full.v_final, want[1])
+    assert ops.LAUNCHES == {"fused_event_lif": 0, "fused_event_lif_decode": 0,
                             "fused_event_lif_early_exit": 0}
 
 

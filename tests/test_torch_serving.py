@@ -1,7 +1,8 @@
 """The port's runtimes and serving tier against the JAX package on the CPU:
-every advertised spec against the golden conformance seeds, the served MNIST
-artifact against the JAX SNNServeEngine (full-T and latency mode), the
-overflow→dense reroute, and every path the port refuses so far."""
+every advertised spec (the ``-cuda`` ones included, on their kernels' plain
+versions) against the golden conformance seeds, the served MNIST artifact
+against the JAX SNNServeEngine (full-T and latency mode), the overflow→dense
+reroute, and every path the port refuses so far."""
 
 import copy
 import io
@@ -54,10 +55,18 @@ def test_reference_and_specs_match_golden(seed):
         for key in KEYS:
             assert np.array_equal(getattr(out, key).numpy(), golden[key]), \
                 (spec, key)
-    for kernel in ("fused", "torch"):
+    latency = {}
+    for kernel in ("fused", "torch", "cuda"):
         acc = SNNAccelerator(art, mode="event", kernel=kernel, device="cpu")
         out = acc.forward(images, latency_mode=True)
         assert np.array_equal(out.labels.numpy(), golden["labels"]), kernel
+        latency[kernel] = out
+    # the staged early exit freezes each row where the fused kernel stops
+    for kernel in ("torch", "cuda"):
+        for key in KEYS:
+            assert np.array_equal(getattr(latency[kernel], key).numpy(),
+                                  getattr(latency["fused"], key).numpy()), \
+                (kernel, key)
 
 
 @pytest.mark.parametrize("latency_mode", [False, True])
@@ -123,8 +132,6 @@ def test_refused_paths_raise_not_implemented():
         lambda: ServingScheduler(art, spec="board-batched", device="cpu"),
         lambda: make_runtime(art, "board", device="cpu"),
         lambda: make_runtime(art, "board-py", device="cpu"),
-        lambda: make_runtime(art, "accelerator-event-cuda", device="cpu"),
-        lambda: make_runtime(art, "accelerator-batch-pallas", device="cpu"),
         lambda: make_runtime(art, "reference", faults="seu_weight=1",
                              device="cpu"),
         lambda: lowering.lower_with_faults(art, None),
@@ -136,6 +143,17 @@ def test_refused_paths_raise_not_implemented():
         SNNServeEngine(art, backend="bogus", device="cpu")
     with pytest.raises(ValueError):
         make_runtime(art, "accelerator-batch-fused", device="cpu")
+    # the JAX package's kernel name is no alias of the port's CUDA kernels
+    for make in (
+            lambda: make_runtime(art, "accelerator-batch-pallas",
+                                 device="cpu"),
+            lambda: make_runtime(art, "accelerator-event-pallas",
+                                 device="cpu"),
+            lambda: SNNAccelerator(art, mode="event", kernel="pallas",
+                                   device="cpu"),
+            lambda: SNNServeEngine(art, kernel="pallas", device="cpu")):
+        with pytest.raises(ValueError, match="cuda"):
+            make()
 
 
 def test_engine_rejects_malformed_images_and_closes_cleanly():
