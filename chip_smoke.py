@@ -8,7 +8,7 @@ Phases (any failure exits non-zero; nothing is caught):
   1. build   — compile every CUDA source (csrc/*.cu) with nvcc (sm_90a), one
                process each, all at once; print the wall time and the ptxas
                report;
-  2. kernels — each of the seven kernels against its plain PyTorch version
+  2. kernels — each of the seven SNN kernels against its plain PyTorch version
                on the card, bit for bit (tolerance 0: all arithmetic is
                integer), at the MNIST serving shape (B = 64, with an all-PAD
                row) and on the eight adversarial fuzz artifacts packed from
@@ -36,15 +36,47 @@ Phases (any failure exits non-zero; nothing is caught):
   4. overflow — the MNIST artifact with e_max = 8 must reroute rows to the
                dense path and still return the reference labels, with the
                fused and the staged kernels;
-  5. times   — per kernel at the serving shape: its device time alone (CUDA
+  5. attention — the flash-attention kernel against its plain version on
+               the card, in float32 (tolerance 2e-5) and bfloat16 (2e-2, the
+               tolerances of tests/test_kernels.py): the five shapes of that
+               test's sweep, a ragged case, GQA group 8 with kv_len < Skv, a
+               window spanning several tiles, queries that see no key (the
+               mean of v) and Qwen3-8B's head shape read through (B, S, H, D)
+               views, as the model hands them over, at S 2048 and at the
+               prefill's own shape (B 2, S 4096);
+  6. LM path — Qwen3-8B at full width and depth (36 layers, 8.19 B
+               parameters drawn in bf16 on the card from a seeded generator):
+               make_prefill_step on 2 x 4096 tokens of the TokenPipeline,
+               with every launch counter set to 0 just before and read just
+               after (flash_attention once per layer, every other kernel
+               never), and each layer's attention output in that run held
+               to the plain version on the same q, k, v views (2e-2, bf16);
+               the same model with attention on the plain version
+               (max |logit difference| at most twice that between the plain
+               version and SDPA on the same model, the same greedy last
+               token on every row); the forward against token-by-token
+               prefill at 4 layers of full width in float32 (within 2e-3, as
+               tests/test_models.py holds JAX); and ServeEngine.generate on 8
+               prompts in float32, as the launcher serves, each served token
+               the forward's greedy choice within that tolerance. Then where
+               the LM's time goes: the bf16 prefill's wall time on the
+               kernel, the plain version and SDPA (median of 3 warm runs),
+               one prefill on the kernel under torch.profiler (device time by
+               kernel group, the device's busy share of the window), and the
+               float32 decode step (median of 16 warm steps, 4 profiled);
+  7. times   — per kernel at the serving shape: its device time alone (CUDA
                events around 20 back-to-back launches queued behind a spin
                kernel, so no host dispatch falls between them; median of 50
                such samples), the wrapper's host time per call, the time of
                one wrapper call as a caller pays it, its plain version's time
                (CUDA events around one call, median of 50), the device time
                of the one PyTorch call that computes the same function where
-               there is one (torch._int_mm for spike_matmul), and the least
-               time the card could take for the same work (bound).
+               there is one (torch._int_mm for spike_matmul, scaled_dot_
+               product_attention for flash_attention), and the least time the
+               card could take for the same work (bound). Flash attention is
+               timed at (B 1, Hq 32, Hkv 8, S 4096, D 128, causal, bf16), and
+               once more at S 32,768 (fewer samples, no plain version: its
+               scores would take 137 GB).
 
 The last lines are a ``kernels`` summary, one JSON object with every
 kernel's numbers, the card's name and power limit, and the result line
@@ -80,6 +112,7 @@ KERNELS = {
     "lif_fused": ("lif.cu", "lif/kernel.py:45"),
     "ttfs_decode": ("ttfs_decode.cu", "ttfs_decode/kernel.py:42"),
     "event_accum": ("event_accum.cu", "event_accum/kernel.py:42"),
+    "flash_attention": ("flash_attention.cu", "flash_attention/kernel.py:86"),
 }
 #: NVIDIA H100 SXM peaks (data sheet): HBM bytes/s; the 67 T/s float32 rate
 #: outside the tensor cores, against which the kernels' integer ALU
@@ -90,11 +123,52 @@ KERNELS = {
 HBM_BYTES_PER_S = 3.35e12
 ALU_OPS_PER_S = 67e12
 INT8_OPS_PER_S = 1979e12
+#: the tensor cores' dense bf16 rate and the CUDA cores' float32 rate, against
+#: which attention's floating-point operations are counted
+BF16_FLOPS = 989e12
+FP32_FLOPS = 67e12
 SERVE_BATCH = 64
 TIMING_RUNS = 50
 BACK_TO_BACK = 20
 #: cycles the spin kernel holds the stream while launches are queued behind it
 SPIN_CYCLES = 20_000_000
+#: flash attention against its plain version: B, Hq, Hkv, Sq, Skv, D, causal,
+#: window, q_offset, kv_len, and whether q, k, v are (B, S, H, D) views
+ATTN_CASES = {
+    "sweep-1": (1, 4, 4, 128, 128, 64, True, None, 0, None, False),
+    "sweep-2 gqa+offset": (2, 8, 2, 128, 256, 64, True, None, 128, None,
+                           False),
+    "sweep-3 window": (1, 4, 1, 256, 256, 128, True, 64, 0, None, False),
+    "sweep-4 cross": (1, 2, 2, 128, 384, 64, False, None, 0, None, False),
+    "sweep-5 short q": (2, 4, 4, 8, 128, 64, True, None, 120, None, False),
+    "ragged": (1, 4, 2, 100, 200, 128, True, None, 100, None, True),
+    "group8 kv_len": (2, 8, 1, 96, 320, 128, True, None, 224, 250, False),
+    "window 3 tiles": (1, 4, 2, 512, 512, 128, True, 150, 0, None, False),
+    "no visible key": (1, 4, 2, 8, 8, 128, True, 2, 20, None, False),
+    "qwen3-8b heads": (1, 32, 8, 2048, 2048, 128, True, None, 0, None, True),
+    "qwen3-8b prefill": (2, 32, 8, 4096, 4096, 128, True, None, 0, None,
+                         True),
+}
+#: the tolerance of each input type (tests/test_kernels.py's)
+ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+LM_ARCH = "qwen3-8b"
+PREFILL_B, PREFILL_S = 2, 4096
+#: the bf16 model on the kernel against the same model on the plain
+#: attention: its max |logit| difference may be at most this many times the
+#: difference between two other correct attentions on the same model, the
+#: plain version and SDPA. Both kernels accumulate in f32 and round their
+#: bf16 outputs once; where a value lies near a rounding boundary they round
+#: it apart by one step, and 36 layers carry those steps to the logits, so
+#: the floor is measured on this run's model rather than fixed (a first
+#: fixed bound of 0.25, eight bf16 steps at |logit| in [4, 8), was exceeded
+#: at 0.297 on an H100 with the same greedy tokens).
+PREFILL_FLOOR_FACTOR = 2.0
+#: the forward against token-by-token decode, float32 (tests/test_models.py)
+DECODE_TOL = 2e-3
+ATTN_TIME_S = (4096, 32768)
+#: samples and back-to-back launches of attention's times at S = 4096, whose
+#: launches take milliseconds, not microseconds
+FEW_SAMPLES = (10, 5)
 
 
 def fail(msg: str) -> None:
@@ -113,6 +187,57 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60,
         check=True).stdout.strip().splitlines()
     return out[0].strip()
+
+
+def group_of(kernel: str) -> str:
+    if "flash_kernel" in kernel:
+        return "flash_attention (csrc/flash_attention.cu)"
+    if any(s in kernel.lower() for s in ("gemm", "nvjet", "xmma", "cutlass")):
+        return "matrix products (cuBLAS)"
+    return "other (norms, RoPE, SiLU, casts, embedding, softmax, copies)"
+
+
+def profile(fn) -> dict:
+    """Device time by kernel over one call of ``fn`` under torch.profiler,
+    and the device's busy share of the window (kernel time over wall)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernels = {}
+    for ev in prof.key_averages():     # the device's own events only
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        dev_us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0))
+        if dev_us:
+            kernels[ev.key] = kernels.get(ev.key, 0.0) + dev_us / 1e3
+    groups: dict[str, float] = {}
+    for name, ms in kernels.items():
+        groups[group_of(name)] = groups.get(group_of(name), 0.0) + ms
+    busy = sum(kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+    return {"wall_ms": wall_ms, "device_ms": busy,
+            "busy_share": busy / wall_ms, "groups_ms": groups,
+            "top_ms": dict(top)}
+
+
+def show_profile(what: str, prof: dict, card: str) -> None:
+    check(prof["device_ms"] > 0, f"the profiler saw no device time in the "
+          f"{what}")
+    print(f"[profile] {what}: wall {prof['wall_ms']:.1f} ms, device "
+          f"{prof['device_ms']:.1f} ms, busy share {prof['busy_share']:.3f} — "
+          f"card: {card}")
+    for g, ms in sorted(prof["groups_ms"].items(), key=lambda kv: -kv[1]):
+        print(f"[profile] {what}   {ms:9.2f} ms  {g}")
+    for name, ms in prof["top_ms"].items():
+        print(f"[profile] {what}     {ms:9.2f} ms  {name[:100]}")
 
 
 def sha256(a) -> str:
@@ -135,6 +260,11 @@ def main() -> int:
         fail(f"no src/repro_torch beside {__file__}: run it from a checkout")
     sys.path.insert(0, SRC)
 
+    import dataclasses
+
+    import torch.nn.functional as F
+
+    from repro_torch.configs.registry import get_config
     from repro_torch.core.accelerator import SNNAccelerator
     from repro_torch.core.artifact import Artifact
     from repro_torch.core.events import pack_events_batched
@@ -144,16 +274,22 @@ def main() -> int:
     from repro_torch.core.runtimes import make_runtime
     from repro_torch.core.ttfs import encode_ttfs, frames_from_times
     from repro_torch.data import mnist
+    from repro_torch.data.tokens import TokenPipeline, TokenPipelineConfig
     from repro_torch.kernels import build
     from repro_torch.kernels.event_accum import ops as ea, ref as ea_ref
+    from repro_torch.kernels.flash_attention import ops as fa, ref as fa_ref
     from repro_torch.kernels.fused_event_lif import ops, ref
     from repro_torch.kernels.lif import ops as lif, ref as lif_ref
     from repro_torch.kernels.spike_matmul import ops as smm, ref as smm_ref
     from repro_torch.kernels.ttfs_decode import ops as dec, ref as dec_ref
+    from repro_torch.models import layers
+    from repro_torch.models.model import LM
+    from repro_torch.serving.engine import ServeEngine
     from repro_torch.serving.scheduler import ServingScheduler
     from repro_torch.serving.snn_engine import SNNServeEngine
+    from repro_torch.training.lm_step import make_prefill_step
 
-    wrappers = (ops, ea, lif, smm, dec)
+    wrappers = (ops, ea, lif, smm, dec, fa)
 
     def reset_launches() -> None:
         for w in wrappers:
@@ -465,7 +601,258 @@ def main() -> int:
               f"{st['overflow_fallbacks']} of {SERVE_BATCH} rows rerouted to "
               f"the dense path, labels equal the reference")
 
-    # --------------------------------------------------------------- 5 times
+    # ------------------------------------------------- 5 attention vs plain
+    torch.backends.cuda.matmul.allow_tf32 = False    # float32 compared below
+    torch.backends.cudnn.allow_tf32 = False
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+    def attn_inputs(B, Hq, Hkv, Sq, Skv, D, dtype, views, seed):
+        """q, k, v on the card from a seeded generator; with ``views`` drawn
+        as (B, S, H, D) and handed over as (B, H, S, D) ``movedim`` views."""
+        g = torch.Generator(dev).manual_seed(seed)
+        out = []
+        for H, S in ((Hq, Sq), (Hkv, Skv), (Hkv, Skv)):
+            shape = (B, S, H, D) if views else (B, H, S, D)
+            t = torch.randn(shape, generator=g, device=dev).to(dtype)
+            out.append(t.movedim(1, 2) if views else t)
+        return out
+
+    max_err["flash_attention"] = 0.0
+    for dname, tol in ATTN_TOL.items():
+        for case, (B, Hq, Hkv, Sq, Skv, D, causal, window, qoff, kv_len,
+                   views) in ATTN_CASES.items():
+            q, k, v = attn_inputs(B, Hq, Hkv, Sq, Skv, D, dtypes[dname],
+                                  views, Sq + Skv)
+            kw = dict(causal=causal, window=window, q_offset=qoff,
+                      kv_len=kv_len)
+            got = fa.flash_attention(q, k, v, **kw)
+            want = fa_ref.flash_attention_ref(q, k, v, **kw)
+            torch.cuda.synchronize()
+            check(got.shape == q.shape and got.dtype == q.dtype,
+                  f"flash_attention {case} {dname}: shape or dtype")
+            err = float((got.float() - want.float()).abs().max())
+            max_err["flash_attention"] = max(max_err["flash_attention"], err)
+            check(torch.allclose(got.float(), want.float(), rtol=tol,
+                                 atol=tol),
+                  f"flash_attention differs from its plain version on {case} "
+                  f"{dname} (max |err| {err:.3g}, tolerance {tol})")
+            if case == "no visible key":
+                mean = v.float().mean(dim=2, keepdim=True).repeat_interleave(
+                    Hq // Hkv, dim=1).expand(got.shape)
+                check(torch.allclose(got.float(), mean, rtol=tol, atol=tol),
+                      f"flash_attention {dname}: a query that sees no key "
+                      f"must get the mean of v")
+            print(f"[attention] {case} {dname}: B={B} Hq={Hq} Hkv={Hkv} "
+                  f"Sq={Sq} Skv={Skv} D={D} causal={causal} window={window} "
+                  f"q_offset={qoff} kv_len={kv_len} views={views}: max |err| "
+                  f"{err:.3g} (tolerance {tol})")
+
+    # ------------------------------------------------------- 6 LM main path
+    cfg = get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    lm = LM(cfg, device=dev).init_params(
+        torch.Generator(dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in lm.parameters())
+    check(sum(p.numel() for p in lm.parameters() if p.dim() == 2)
+          == cfg.param_count(), "the model's matrices are not param_count()")
+    print(f"[lm] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} q heads / {cfg.n_kv_heads} kv heads of "
+          f"{cfg.d_head}, d_ff {cfg.d_ff}, vocab {cfg.vocab}: {n_params} "
+          f"parameters ({cfg.param_count()} in matrices) drawn in "
+          f"{lm.dtype} on the card in {time.perf_counter() - t0:.2f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    pipe = TokenPipeline(TokenPipelineConfig(
+        vocab=cfg.vocab, seq_len=PREFILL_S, global_batch=PREFILL_B))
+    toks = torch.from_numpy(pipe.global_batch_at(0)["tokens"]).to(dev)
+    prefill = make_prefill_step(lm)
+    seen = []                  # every layer's q, k, v views and output
+
+    def recorded(q, k, v, **kw):
+        out = fa.flash_attention(q, k, v, **kw)
+        seen.append((q, k, v, kw, out))
+        return out
+
+    layers.flash_attention = recorded
+    reset_launches()
+    try:
+        t0 = time.perf_counter()
+        logits = prefill(toks)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        counts = launch_counts()
+    finally:
+        layers.flash_attention = fa.flash_attention
+    check(counts["flash_attention"] == cfg.n_layers,
+          f"prefill launched flash_attention {counts['flash_attention']} "
+          f"times, expected one per layer ({cfg.n_layers})")
+    check(all(n == 0 for kname, n in counts.items()
+              if kname != "flash_attention"),
+          f"prefill launched another kernel: {counts}")
+    launches["flash_attention"] += counts["flash_attention"]
+    check(logits.shape == (PREFILL_B, PREFILL_S, cfg.vocab)
+          and bool(torch.isfinite(logits).all()),
+          "prefill logits are not finite or not (B, S, V)")
+    # each launch of the run against the plain version on its own inputs
+    tol = ATTN_TOL["bfloat16"]
+    check(len(seen) == cfg.n_layers, "not one attention call per layer")
+    layer_err = 0.0
+    for i, (q, k, v, kw, got) in enumerate(seen):
+        want = fa_ref.flash_attention_ref(q, k, v, **kw)
+        err = float((got.float() - want.float()).abs().max())
+        layer_err = max(layer_err, err)
+        check(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
+              f"layer {i}'s attention in the prefill differs from the plain "
+              f"version (max |err| {err:.3g}, tolerance {tol})")
+        del want
+    q0, k0 = seen[0][:2]
+    print(f"[lm] prefill attention, all {len(seen)} layers against the plain "
+          f"version on their own inputs: q {tuple(q0.shape)} strides "
+          f"{q0.stride()}, k {tuple(k0.shape)}, {q0.dtype}, {seen[0][3]}: "
+          f"max |err| {layer_err:.3g} (tolerance {tol})")
+    max_err["flash_attention"] = max(max_err["flash_attention"], layer_err)
+    del seen, q0, k0, q, k, v, got
+    torch.cuda.empty_cache()
+    print(f"[lm] make_prefill_step on {PREFILL_B} x {PREFILL_S} tokens: "
+          f"{first_s:.3f} s (first call); launches {counts} — card: {card}")
+
+    def sdpa_attention(q, k, v, *, causal=True, window=None, q_offset=0,
+                       kv_len=None):
+        """The library's attention, a yardstick (never the port's)."""
+        check(causal and window is None and q_offset == 0 and kv_len is None,
+              "SDPA was asked for more than causal attention")
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                              enable_gqa=True)
+
+    def wall_ms(fn, runs=3) -> float:
+        samples = []
+        for _ in range(runs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            samples.append(1e3 * (time.perf_counter() - t0))
+        return statistics.median(samples)
+
+    other, walls = {}, {}
+    for name, attention in (("kernel", fa.flash_attention),
+                            ("plain", fa_ref.flash_attention_ref),
+                            ("sdpa", sdpa_attention)):
+        layers.flash_attention = attention
+        try:                   # the same model on another attention
+            if name != "kernel":
+                other[name] = prefill(toks)
+            walls[name] = wall_ms(lambda: prefill(toks))
+        finally:
+            layers.flash_attention = fa.flash_attention
+        rate = PREFILL_B * PREFILL_S * 1e3 / walls[name]
+        print(f"[lm] prefill with attention on {name}: {walls[name]:.1f} ms "
+              f"(median of 3 warm runs; {rate:.0f} tokens/s) — card: {card}")
+
+    def max_diff(a, b) -> float:
+        return max(float((a[i].float() - b[i].float()).abs().max())
+                   for i in range(PREFILL_B))
+
+    dlogit = max_diff(logits, other["plain"])
+    floor = max_diff(other["sdpa"], other["plain"])
+    bound = PREFILL_FLOOR_FACTOR * floor
+    greedy = [t[:, -1].argmax(dim=-1).tolist()
+              for t in (logits, other["plain"], other["sdpa"])]
+    print(f"[lm] kernel vs plain attention: max |logit difference| "
+          f"{dlogit:.4g}; SDPA vs plain {floor:.4g}, so the bound is "
+          f"{bound:.4g} ({PREFILL_FLOOR_FACTOR} x); max |logit| "
+          f"{float(logits.float().abs().max()):.3f}; last-position greedy "
+          f"tokens kernel / plain / SDPA {greedy}")
+    check(dlogit <= bound, f"prefill logits on the kernel differ from the "
+          f"plain attention's by {dlogit}, over {bound}")
+    check(greedy[0] == greedy[1], "the greedy last token differs between "
+          "the kernel and the plain attention")
+    del logits, other
+    torch.cuda.empty_cache()
+    show_profile("prefill", profile(lambda: prefill(toks)), card)
+    del lm, prefill
+    torch.cuda.empty_cache()
+
+    # the forward against token-by-token prefill: 4 layers, float32
+    cfg4 = dataclasses.replace(cfg, n_layers=4)
+    lm4 = LM(cfg4, dtype=torch.float32, device=dev).init_params(
+        torch.Generator(dev).manual_seed(1))
+    toks4 = torch.from_numpy(TokenPipeline(TokenPipelineConfig(
+        vocab=cfg.vocab, seq_len=256, global_batch=2, seed=18))
+        .global_batch_at(0)["tokens"]).to(dev)
+    full, _ = lm4.forward(toks4)
+    t0 = time.perf_counter()
+    last, cache = lm4.prefill(toks4, s_max=256)
+    torch.cuda.synchronize()
+    derr = float((full[:, -1] - last[:, 0]).abs().max())
+    print(f"[lm] {cfg.name} at 4 layers, float32, 2 x 256 tokens: forward "
+          f"(flash kernel) vs prefill (256 decode steps, "
+          f"{time.perf_counter() - t0:.2f} s) last logits max |err| "
+          f"{derr:.3g} (tolerance {DECODE_TOL}), cache len {cache['len']}")
+    check(derr < DECODE_TOL, f"decode differs from the forward by {derr}")
+    del lm4, full, last, cache
+    torch.cuda.empty_cache()
+
+    # serving, float32 as the launcher serves
+    lm32 = LM(cfg, dtype=torch.float32, device=dev).init_params(
+        torch.Generator(dev).manual_seed(0))
+    eng = ServeEngine(lm32, max_batch=4, s_max=256, device=dev)
+    rng_p = np.random.RandomState(0)
+    prompts = [rng_p.randint(1, cfg.vocab, rng_p.randint(4, 17))
+               .astype(np.int32) for _ in range(8)]
+    reset_launches()
+    outs = eng.generate(prompts, max_new=16)
+    counts = launch_counts()
+    st = eng.stats()
+    check(all(n == 0 for n in counts.values()), f"decode launched a kernel "
+          f"(its attention is plain PyTorch, as in JAX): {counts}")
+    check(len(outs) == 8 and all(len(o) == 16 for o in outs)
+          and all(0 <= t < cfg.vocab for o in outs for t in o),
+          "ServeEngine did not serve 16 tokens to each of 8 prompts")
+    # each served token is the forward's greedy choice over the left-padded
+    # prompt and the tokens served before it, within the decode tolerance
+    gap = 0.0
+    for i in range(0, 8, 4):
+        chunk, served = prompts[i:i + 4], outs[i:i + 4]
+        S = max(len(p) for p in chunk)
+        seq = np.zeros((len(chunk), S + 16), np.int64)
+        for b, (p, o) in enumerate(zip(chunk, served)):
+            seq[b, S - len(p):S] = p
+            seq[b, S:] = o
+        lg, _ = lm32.forward(torch.from_numpy(seq[:, :-1]).to(dev))
+        lg = lg[:, S - 1:].float()                 # (B, 16, V)
+        got = lg.gather(-1, torch.from_numpy(seq[:, S:]).to(dev)[..., None])
+        gap = max(gap, float((lg.amax(dim=-1) - got[..., 0]).max()))
+    check(gap <= DECODE_TOL, f"a served token is {gap} below the forward's "
+          f"greedy choice")
+    print(f"[lm] ServeEngine (float32, {cfg.n_layers} layers): 8 prompts of "
+          f"{[len(p) for p in prompts]} tokens, max_new 16, max_batch 4: "
+          f"accelerator {st['accelerator_s']:.3f} s, system "
+          f"{st['system_s']:.3f} s, host overhead {st['host_overhead_s']:.3f}"
+          f" s, tokens_out {st['tokens_out']}; every served token within "
+          f"{gap:.3g} of the forward's greedy logit; launches {counts} — "
+          f"card: {card}")
+    print(f"[lm] ServeEngine stats: {json.dumps(st, sort_keys=True)}")
+    # the decode step alone: 4 rows against a 256-slot cache
+    state = {"cache": lm32.init_cache(4, 256)}
+    one = torch.ones((4, 1), dtype=torch.int32, device=dev)
+
+    def decode(steps=1):
+        for _ in range(steps):
+            _, state["cache"] = lm32.decode_step(state["cache"], one)
+
+    decode(16)
+    step_ms = wall_ms(decode, runs=16)
+    weight_bytes = sum(p.numel() * p.element_size() for p in lm32.parameters())
+    print(f"[lm] decode step, float32, 4 rows, 256-slot cache: {step_ms:.2f} "
+          f"ms (median of 16); reading the {weight_bytes / 1e9:.1f} GB of "
+          f"weights once takes {1e3 * weight_bytes / HBM_BYTES_PER_S:.2f} ms "
+          f"— card: {card}")
+    show_profile("4 decode steps", profile(lambda: decode(4)), card)
+    del lm32, eng, state
+    torch.cuda.empty_cache()
+
+    # --------------------------------------------------------------- 7 times
     images = xte[:SERVE_BATCH]
     times = host_times(prog, images)
     frames = pack_events_batched(times, prog.T, prog.e_max, device=dev)
@@ -507,18 +894,38 @@ def main() -> int:
             lambda: ea.event_accum(ids, prog.w_padded),
             lambda: ea_ref.event_accum_ref(ids, prog.w_padded), None),
     }
+    # attention at Qwen3-8B's head shape, causal, bf16, S = 4096 (and 32,768
+    # below): the kernel, its plain version, and SDPA as the library call
+    aq = {}
+    for S in ATTN_TIME_S:
+        aq[S] = attn_inputs(1, cfg.n_heads, cfg.n_kv_heads, S, S, cfg.d_head,
+                            torch.bfloat16, False, S)
+
+    S0 = ATTN_TIME_S[0]
+    fns["flash_attention"] = (
+        lambda: fa.flash_attention(*aq[S0]),
+        lambda: fa_ref.flash_attention_ref(*aq[S0]),
+        lambda: sdpa_attention(*aq[S0]))
     check(set(fns) == set(KERNELS), "a kernel has no timing entry")
+    tol = ATTN_TOL["bfloat16"]
+    for S, (q, k, v) in aq.items():
+        got = fa.flash_attention(q, k, v).float()
+        lib = sdpa_attention(q, k, v).float()
+        check(torch.allclose(got, lib, rtol=tol, atol=tol), f"SDPA, the "
+              f"yardstick, differs from flash_attention at S {S} by "
+              f"{float((got - lib).abs().max())}")
+        del got, lib
     check(torch.equal(torch._int_mm(raster_2d, prog.w_padded),
                       smm.spike_matmul(raster_2d, prog.w_padded)),
           "torch._int_mm, the yardstick, differs from spike_matmul")
 
-    def call_ms(fn) -> float:
+    def call_ms(fn, runs=TIMING_RUNS, warm=5) -> float:
         """One call as a caller pays it: CUDA events around the call, host
-        dispatch included (median of TIMING_RUNS)."""
-        for _ in range(5):
+        dispatch included (median of ``runs``)."""
+        for _ in range(warm):
             fn()
         samples = []
-        for _ in range(TIMING_RUNS):
+        for _ in range(runs):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -528,25 +935,27 @@ def main() -> int:
             samples.append(start.elapsed_time(end))
         return statistics.median(samples)
 
-    def kernel_ms(fn) -> tuple[float, float]:
+    def kernel_ms(fn, runs=TIMING_RUNS, back=BACK_TO_BACK,
+                  warm=5) -> tuple[float, float]:
         """(device ms of one launch alone, host ms of one wrapper call).
 
-        A spin kernel holds the stream while BACK_TO_BACK calls are queued
-        behind the start event, so the events bracket kernels that run back
-        to back with no host dispatch between them; a sample whose spin ended
-        before the queue was full is taken again with a longer spin."""
-        for _ in range(5):
+        A spin kernel holds the stream while ``back`` calls are queued behind
+        the start event, so the events bracket kernels that run back to back
+        with no host dispatch between them; a sample whose spin ended before
+        the queue was full is taken again with a longer spin (median of
+        ``runs`` samples)."""
+        for _ in range(warm):
             fn()
         torch.cuda.synchronize()
         spin = SPIN_CYCLES
         on_card, host = [], []
-        while len(on_card) < TIMING_RUNS:
+        while len(on_card) < runs:
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             torch.cuda._sleep(spin)
             start.record()
             t0 = time.perf_counter()
-            for _ in range(BACK_TO_BACK):
+            for _ in range(back):
                 fn()
             queued = time.perf_counter() - t0
             primed = not start.query()
@@ -557,8 +966,8 @@ def main() -> int:
                       "queued ahead of the card")
                 spin *= 2
                 continue
-            on_card.append(start.elapsed_time(end) / BACK_TO_BACK)
-            host.append(1e3 * queued / BACK_TO_BACK)
+            on_card.append(start.elapsed_time(end) / back)
+            host.append(1e3 * queued / back)
         return statistics.median(on_card), statistics.median(host)
 
     # the work this batch needs, each input read once and each output
@@ -602,13 +1011,28 @@ def main() -> int:
     work["spike_matmul"] = (M * K + K * N + 4 * M * N, 2 * M * K * N,
                             INT8_OPS_PER_S)
 
+    def attn_work(q, k):
+        """(bytes, operations) of causal attention: q, k, v read once and
+        the output written once; 2 FLOPs a multiply-add in QK^T and in PV
+        over the S(S+1)/2 visible pairs of each head."""
+        B_, Hq, S_, D_ = q.shape
+        Hkv = k.shape[1]
+        size = q.element_size()
+        return (size * B_ * S_ * D_ * (2 * Hq + 2 * Hkv),
+                4 * B_ * Hq * (S_ * (S_ + 1) // 2) * D_)
+
+    work["flash_attention"] = (*attn_work(*aq[S0][:2]), BF16_FLOPS)
+
     rows = []
     for kname, (kern, plain, library) in fns.items():
         n_bytes, n_ops, op_rate = work[kname]
         t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / op_rate
-        (ms, host_ms), whole_ms = kernel_ms(kern), call_ms(kern)
-        plain_ms = call_ms(plain)
-        library_ms = kernel_ms(library)[0] if library is not None else None
+        runs, back = FEW_SAMPLES if kname == "flash_attention" else (
+            TIMING_RUNS, BACK_TO_BACK)
+        (ms, host_ms) = kernel_ms(kern, runs, back)
+        whole_ms, plain_ms = call_ms(kern, runs), call_ms(plain, runs)
+        library_ms = (kernel_ms(library, runs, back)[0]
+                      if library is not None else None)
         source, replaces = KERNELS[kname]
         rows.append({"name": kname, "route": "cuda",
                      "source": f"{CSRC}/{source}",
@@ -619,16 +1043,45 @@ def main() -> int:
                      "bound_ms": 1e3 * max(t_bytes, t_ops),
                      "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                      "library_ms": library_ms})
+        lib_name = {"spike_matmul": "torch._int_mm",
+                    "flash_attention": "scaled_dot_product_attention"}
         lib_txt = ("none" if library_ms is None
-                   else f"{library_ms:.4f} ms (torch._int_mm, alone)")
-        print(f"[times] {kname}: B={B} T={T_} E_max={E} N_in={K} N_pad={N} "
-              f"(events {events} in full T, {int((steps_h).sum())} steps "
-              f"in latency mode): kernel alone {ms:.4f} ms, wrapper host "
+                   else f"{library_ms:.4f} ms ({lib_name[kname]}, alone)")
+        shape_txt = (f"B=1 Hq={cfg.n_heads} Hkv={cfg.n_kv_heads} S={S0} "
+                     f"D={cfg.d_head} causal bf16"
+                     if kname == "flash_attention" else
+                     f"B={B} T={T_} E_max={E} N_in={K} N_pad={N} (events "
+                     f"{events} in full T, {int((steps_h).sum())} steps in "
+                     f"latency mode)")
+        print(f"[times] {kname}: {shape_txt}: kernel alone {ms:.4f} ms, "
+              f"wrapper host "
               f"{host_ms:.4f} ms per call, one call {whole_ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, library {lib_txt}, bound "
               f"{rows[-1]['bound_ms']:.6f} ms ({rows[-1]['bound_by']}: "
               f"{n_bytes} B, {n_ops} ops), main-path launches "
               f"{launches[kname]} — card: {card}")
+
+    # attention at S = 32,768: a few samples, no plain version (its scores
+    # would take 137 GB)
+    S1 = ATTN_TIME_S[1]
+    n_bytes, n_ops = attn_work(*aq[S1][:2])
+    ms, host_ms = kernel_ms(lambda: fa.flash_attention(*aq[S1]), runs=3,
+                            back=1, warm=1)
+    library_ms = kernel_ms(lambda: sdpa_attention(*aq[S1]), runs=5, back=2,
+                           warm=1)[0]
+    bound = 1e3 * max(n_bytes / HBM_BYTES_PER_S, n_ops / BF16_FLOPS)
+    print(f"[times] flash_attention: B=1 Hq={cfg.n_heads} Hkv={cfg.n_kv_heads}"
+          f" S={S1} D={cfg.d_head} causal bf16: kernel alone {ms:.4f} ms, "
+          f"wrapper host {host_ms:.4f} ms per call, plain not run, library "
+          f"{library_ms:.4f} ms (scaled_dot_product_attention, alone), bound "
+          f"{bound:.6f} ms (operations: {n_bytes} B, {n_ops} ops) — card: "
+          f"{card}")
+    for S in ATTN_TIME_S:
+        n_bytes, n_ops = attn_work(*aq[S][:2])
+        print(f"[times] flash_attention bound at S={S}: bf16 "
+              f"{1e3 * n_ops / BF16_FLOPS:.4f} ms (989 TFLOP/s), float32 "
+              f"{1e3 * n_ops / FP32_FLOPS:.4f} ms (67 TFLOP/s), bytes "
+              f"{1e3 * n_bytes / HBM_BYTES_PER_S:.4f} ms")
 
     print("kernels " + " ".join(f"{r['name']}={r['launches']}" for r in rows))
     print(json.dumps({"kernels": rows}))

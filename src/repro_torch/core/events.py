@@ -46,7 +46,7 @@ def step_counts(times: np.ndarray, T: int) -> np.ndarray:
 
 
 def pack_events_batched(times: np.ndarray, T: int, e_max: int,
-                        device: str | torch.device = "cpu") -> EventFrames:
+                        device: str | torch.device) -> EventFrames:
     """(B, N) host spike times (T = never) -> packed frames on ``device``.
 
     Vectorized (no python loop over batch or time): an argsort by (time, id)

@@ -8,9 +8,13 @@ import os
 import pytest
 import torch
 
+from repro_torch.configs.registry import get_config, reduced
 from repro_torch.core.artifact import Artifact
 from repro_torch.core.lowering import lower
 from repro_torch.core.reference import SNNReference
+from repro_torch.launch import serve
+from repro_torch.models.model import LM
+from repro_torch.serving.engine import ServeEngine
 from repro_torch.serving.snn_engine import SNNServeEngine
 
 ROOT = os.path.normpath(os.path.join(os.path.dirname(__file__), ".."))
@@ -65,3 +69,17 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             make()
     assert lower(art, device="cpu").device == torch.device("cpu")
+
+
+def test_lm_entry_points_raise_without_cuda(monkeypatch):
+    """The LM path: the model, its serving engine and the launcher refuse to
+    fall back to the CPU; each runs there when asked for ``device="cpu"``."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = reduced(get_config("qwen3-8b"))
+    lm = LM(cfg, dtype=torch.float32, device="cpu")
+    for make in (lambda: LM(cfg), lambda: ServeEngine(lm),
+                 lambda: serve.main(["--arch", "qwen3-8b", "--reduced"])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+    assert ServeEngine(lm, device="cpu").lm.device == torch.device("cpu")
+    assert lm.device == torch.device("cpu")
