@@ -36,27 +36,43 @@ Phases (any failure exits non-zero; nothing is caught):
   4. overflow — the MNIST artifact with e_max = 8 must reroute rows to the
                dense path and still return the reference labels, with the
                fused and the staged kernels;
-  5. attention — the flash-attention kernel against its plain version on
-               the card, in float32 (tolerance 2e-5) and bfloat16 (2e-2, the
-               tolerances of tests/test_kernels.py): the five shapes of that
-               test's sweep, a ragged case, GQA group 8 with kv_len < Skv, a
-               window spanning several tiles, queries that see no key (the
-               mean of v) and Qwen3-8B's head shape read through (B, S, H, D)
-               views, as the model hands them over, at S 2048 and at the
-               prefill's own shape (B 2, S 4096);
+  5. attention — both flash-attention kernels against their plain version
+               on the card, each case's route asserted by the per-kernel
+               launch counters: every bfloat16 case of ATTN_CASES on the
+               tensor-core kernel (flash_attention_sm90, tolerance 2e-2) and
+               every float32 case on the CUDA-core kernel (flash_attention,
+               2e-5; the tolerances of tests/test_kernels.py): the five
+               shapes of that test's sweep, a ragged case, GQA group 8 with
+               kv_len < Skv, a window spanning several tiles, queries that
+               see no key (the mean of v), a non-causal cross case at D 128,
+               a ragged case at the 128-row tile's scale (Sq = Skv = 1111)
+               and Qwen3-8B's head shape, the last two read through
+               (B, S, H, D) views as the model hands them over, at S 2048
+               and at the prefill's own shape (B 2, S 4096). The bfloat16
+               inputs the tensor-core kernel does not take go to the
+               CUDA-core kernel, held at 2e-2: the sweep at D 16 and D 256,
+               and D 128 q, k, v with padded rows, a misaligned start or a
+               d stride of 2. Besides each element, every 128-row q tile of
+               every head is held by its relative error norm (ATTN_REL_TOL),
+               and the same check must catch a planted fault (the last q
+               tile's first visible key tile skipped) in every case that has
+               a key tile to skip;
   6. LM path — Qwen3-8B at full width and depth (36 layers, 8.19 B
                parameters drawn in bf16 on the card from a seeded generator):
                make_prefill_step on 2 x 4096 tokens of the TokenPipeline,
                with every launch counter set to 0 just before and read just
-               after (flash_attention once per layer, every other kernel
-               never), and each layer's attention output in that run held
-               to the plain version on the same q, k, v views (2e-2, bf16);
+               after (flash_attention_sm90 once per layer, every other
+               kernel never), and each layer's attention output in that run
+               held to the plain version on the same q, k, v views (2e-2,
+               bf16, and the q tiles' relative error norm, as in phase 5);
                the same model with attention on the plain version
                (max |logit difference| at most twice that between the plain
                version and SDPA on the same model, the same greedy last
                token on every row); the forward against token-by-token
                prefill at 4 layers of full width in float32 (within 2e-3, as
-               tests/test_models.py holds JAX); and ServeEngine.generate on 8
+               tests/test_models.py holds JAX; the forward is the float32
+               route's counted run: flash_attention once per layer, every
+               other kernel never); and ServeEngine.generate on 8
                prompts in float32, as the launcher serves, each served token
                the forward's greedy choice within that tolerance. Then where
                the LM's time goes: the bf16 prefill's wall time on the
@@ -72,11 +88,13 @@ Phases (any failure exits non-zero; nothing is caught):
                (CUDA events around one call, median of 50), the device time
                of the one PyTorch call that computes the same function where
                there is one (torch._int_mm for spike_matmul, scaled_dot_
-               product_attention for flash_attention), and the least time the
-               card could take for the same work (bound). Flash attention is
-               timed at (B 1, Hq 32, Hkv 8, S 4096, D 128, causal, bf16), and
-               once more at S 32,768 (fewer samples, no plain version: its
-               scores would take 137 GB).
+               product_attention for attention), and the least time the card
+               could take for the same work (bound). The tensor-core kernel
+               is timed at (B 1, Hq 32, Hkv 8, S 4096, D 128, causal, bf16),
+               and once more at S 32,768 (fewer samples, no plain version:
+               its scores would take 137 GB) and at the prefill's own
+               (B 2, the model's views), beside SDPA; the CUDA-core kernel
+               at (B 1, S 4096) in float32.
 
 The last lines are a ``kernels`` summary, one JSON object with every
 kernel's numbers, the card's name and power limit, and the result line
@@ -112,6 +130,8 @@ KERNELS = {
     "lif_fused": ("lif.cu", "lif/kernel.py:45"),
     "ttfs_decode": ("ttfs_decode.cu", "ttfs_decode/kernel.py:42"),
     "event_accum": ("event_accum.cu", "event_accum/kernel.py:42"),
+    "flash_attention_sm90": ("flash_attention_sm90.cu",
+                             "flash_attention/kernel.py:86"),
     "flash_attention": ("flash_attention.cu", "flash_attention/kernel.py:86"),
 }
 #: NVIDIA H100 SXM peaks (data sheet): HBM bytes/s; the 67 T/s float32 rate
@@ -133,24 +153,62 @@ BACK_TO_BACK = 20
 #: cycles the spin kernel holds the stream while launches are queued behind it
 SPIN_CYCLES = 20_000_000
 #: flash attention against its plain version: B, Hq, Hkv, Sq, Skv, D, causal,
-#: window, q_offset, kv_len, and whether q, k, v are (B, S, H, D) views
+#: window, q_offset, kv_len, and the layout of q, k and v ("contiguous"
+#: (B, H, S, D), or "movedim view": drawn (B, S, H, D) as the model's
+#: projections are and handed over as (B, H, S, D) views)
 ATTN_CASES = {
-    "sweep-1": (1, 4, 4, 128, 128, 64, True, None, 0, None, False),
+    "sweep-1": (1, 4, 4, 128, 128, 64, True, None, 0, None, "contiguous"),
     "sweep-2 gqa+offset": (2, 8, 2, 128, 256, 64, True, None, 128, None,
-                           False),
-    "sweep-3 window": (1, 4, 1, 256, 256, 128, True, 64, 0, None, False),
-    "sweep-4 cross": (1, 2, 2, 128, 384, 64, False, None, 0, None, False),
-    "sweep-5 short q": (2, 4, 4, 8, 128, 64, True, None, 120, None, False),
-    "ragged": (1, 4, 2, 100, 200, 128, True, None, 100, None, True),
-    "group8 kv_len": (2, 8, 1, 96, 320, 128, True, None, 224, 250, False),
-    "window 3 tiles": (1, 4, 2, 512, 512, 128, True, 150, 0, None, False),
-    "no visible key": (1, 4, 2, 8, 8, 128, True, 2, 20, None, False),
-    "qwen3-8b heads": (1, 32, 8, 2048, 2048, 128, True, None, 0, None, True),
+                           "contiguous"),
+    "sweep-3 window": (1, 4, 1, 256, 256, 128, True, 64, 0, None,
+                       "contiguous"),
+    "sweep-4 cross": (1, 2, 2, 128, 384, 64, False, None, 0, None,
+                      "contiguous"),
+    "sweep-5 short q": (2, 4, 4, 8, 128, 64, True, None, 120, None,
+                        "contiguous"),
+    "ragged": (1, 4, 2, 100, 200, 128, True, None, 100, None, "movedim view"),
+    "group8 kv_len": (2, 8, 1, 96, 320, 128, True, None, 224, 250,
+                      "contiguous"),
+    "window 3 tiles": (1, 4, 2, 512, 512, 128, True, 150, 0, None,
+                       "contiguous"),
+    "no visible key": (1, 4, 2, 8, 8, 128, True, 2, 20, None, "contiguous"),
+    "cross D128": (1, 2, 2, 128, 384, 128, False, None, 0, None,
+                   "contiguous"),
+    "ragged 1111": (2, 32, 8, 1111, 1111, 128, True, None, 0, None,
+                    "movedim view"),
+    "qwen3-8b heads": (1, 32, 8, 2048, 2048, 128, True, None, 0, None,
+                       "movedim view"),
     "qwen3-8b prefill": (2, 32, 8, 4096, 4096, 128, True, None, 0, None,
-                         True),
+                         "movedim view"),
 }
-#: the tolerance of each input type (tests/test_kernels.py's)
+#: bf16 inputs the tensor-core kernel does not take, which go to the
+#: CUDA-core kernel: the sweep at D 16 and D 256, and D 128 q, k and v that no
+#: TMA map describes (a row stride of D + 1 elements, data one element past a
+#: 16-byte boundary, a d stride of 2)
+ATTN_BF16_CUDA_CORE_CASES = {
+    **{f"{case} D{D}": (*ATTN_CASES[case][:5], D, *ATTN_CASES[case][6:])
+       for case in ATTN_CASES if case.startswith("sweep") for D in (16, 256)},
+    "padded row D128": (2, 8, 1, 96, 320, 128, True, None, 224, 250,
+                        "padded row"),
+    "misaligned D128": (1, 4, 2, 100, 200, 128, True, None, 100, None,
+                        "misaligned storage_offset"),
+    "d stride 2 D128": (1, 4, 2, 512, 512, 128, True, 150, 0, None,
+                        "d stride 2"),
+}
+#: the tolerance of each input type (tests/test_kernels.py's), element by
+#: element (atol = rtol), and the kernel each takes at ATTN_CASES' shapes:
+#: bf16 goes to the tensor cores, float32 (whose tolerance rules out TF32)
+#: to the CUDA cores
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+ATTN_ROUTE = {"float32": "flash_attention",
+              "bfloat16": "flash_attention_sm90"}
+#: the limit of the relative error norm ||got - want|| / ||want|| of every
+#: 128-row q tile of every head, where the elementwise tolerance is loose
+#: against the outputs' size (|out| ~ sqrt(e / keys), 0.03 at 4096 keys).
+#: Each case also prints what the same check reads for a planted fault, the
+#: plain version with the last q tile's first visible key tile (128 keys)
+#: skipped, and fails if the limit would not catch it.
+ATTN_REL_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 LM_ARCH = "qwen3-8b"
 PREFILL_B, PREFILL_S = 2, 4096
 #: the bf16 model on the kernel against the same model on the plain
@@ -167,7 +225,7 @@ PREFILL_FLOOR_FACTOR = 2.0
 DECODE_TOL = 2e-3
 ATTN_TIME_S = (4096, 32768)
 #: samples and back-to-back launches of attention's times at S = 4096, whose
-#: launches take milliseconds, not microseconds
+#: launches take up to milliseconds, not microseconds
 FEW_SAMPLES = (10, 5)
 
 
@@ -190,6 +248,8 @@ def card_line() -> str:
 
 
 def group_of(kernel: str) -> str:
+    if "flash_sm90_kernel" in kernel:
+        return "flash_attention_sm90 (csrc/flash_attention_sm90.cu)"
     if "flash_kernel" in kernel:
         return "flash_attention (csrc/flash_attention.cu)"
     if any(s in kernel.lower() for s in ("gemm", "nvjet", "xmma", "cutlass")):
@@ -606,46 +666,130 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
-    def attn_inputs(B, Hq, Hkv, Sq, Skv, D, dtype, views, seed):
-        """q, k, v on the card from a seeded generator; with ``views`` drawn
-        as (B, S, H, D) and handed over as (B, H, S, D) ``movedim`` views."""
+    def attn_inputs(B, Hq, Hkv, Sq, Skv, D, dtype, layout, seed):
+        """q, k, v on the card from a seeded generator, laid out as
+        ``layout`` says (ATTN_CASES, ATTN_BF16_CUDA_CORE_CASES)."""
         g = torch.Generator(dev).manual_seed(seed)
         out = []
         for H, S in ((Hq, Sq), (Hkv, Skv), (Hkv, Skv)):
-            shape = (B, S, H, D) if views else (B, H, S, D)
-            t = torch.randn(shape, generator=g, device=dev).to(dtype)
-            out.append(t.movedim(1, 2) if views else t)
+            def draw(*shape):
+                return torch.randn(shape, generator=g, device=dev).to(dtype)
+            if layout == "contiguous":
+                t = draw(B, H, S, D)
+            elif layout == "movedim view":
+                t = draw(B, S, H, D).movedim(1, 2)
+            elif layout == "padded row":
+                t = draw(B, H, S, D + 1)[..., :D]
+            elif layout == "misaligned storage_offset":
+                t = draw(B * H * S * D + 1)[1:].view(B, H, S, D)
+            else:
+                check(layout == "d stride 2", f"unknown layout {layout}")
+                t = draw(B, H, S, 2 * D)[..., ::2]
+            out.append(t)
         return out
 
-    max_err["flash_attention"] = 0.0
-    for dname, tol in ATTN_TOL.items():
-        for case, (B, Hq, Hkv, Sq, Skv, D, causal, window, qoff, kv_len,
-                   views) in ATTN_CASES.items():
-            q, k, v = attn_inputs(B, Hq, Hkv, Sq, Skv, D, dtypes[dname],
-                                  views, Sq + Skv)
-            kw = dict(causal=causal, window=window, q_offset=qoff,
-                      kv_len=kv_len)
-            got = fa.flash_attention(q, k, v, **kw)
-            want = fa_ref.flash_attention_ref(q, k, v, **kw)
-            torch.cuda.synchronize()
-            check(got.shape == q.shape and got.dtype == q.dtype,
-                  f"flash_attention {case} {dname}: shape or dtype")
-            err = float((got.float() - want.float()).abs().max())
-            max_err["flash_attention"] = max(max_err["flash_attention"], err)
-            check(torch.allclose(got.float(), want.float(), rtol=tol,
-                                 atol=tol),
-                  f"flash_attention differs from its plain version on {case} "
-                  f"{dname} (max |err| {err:.3g}, tolerance {tol})")
-            if case == "no visible key":
-                mean = v.float().mean(dim=2, keepdim=True).repeat_interleave(
-                    Hq // Hkv, dim=1).expand(got.shape)
-                check(torch.allclose(got.float(), mean, rtol=tol, atol=tol),
-                      f"flash_attention {dname}: a query that sees no key "
-                      f"must get the mean of v")
-            print(f"[attention] {case} {dname}: B={B} Hq={Hq} Hkv={Hkv} "
-                  f"Sq={Sq} Skv={Skv} D={D} causal={causal} window={window} "
-                  f"q_offset={qoff} kv_len={kv_len} views={views}: max |err| "
-                  f"{err:.3g} (tolerance {tol})")
+    def tile_rel_err(got, want) -> float:
+        """The largest ||got - want|| / ||want|| over the 128-row q tiles of
+        every batch row and head."""
+        B, H, S, D = want.shape
+        pad = (0, 0, 0, -S % 128)
+        diff = F.pad(got.float() - want.float(), pad).reshape(B, H, -1,
+                                                             128 * D)
+        want = F.pad(want.float(), pad).reshape(B, H, -1, 128 * D)
+        return float((diff.norm(dim=-1)
+                      / want.norm(dim=-1).clamp_min(1e-30)).max())
+
+    def skipped_tile(q, k, v, kw, want):
+        """``want`` with the rows of the last q tile recomputed by the plain
+        version as if the first key tile they see (128 keys) were skipped:
+        the fault the relative check must catch. None where no key would be
+        left to them."""
+        Sq, Skv = q.shape[2], k.shape[2]
+        r = Sq - (Sq - 1) // 128 * 128              # rows of the last tile
+        first_q = kw.get("q_offset", 0) + Sq - r
+        window, kv_len = kw.get("window"), kw.get("kv_len")
+        lo = max(0, first_q - window + 1) if window else 0
+        cut = (lo // 128 + 1) * 128
+        if cut >= Skv:
+            return None
+        out = want.clone()
+        out[:, :, Sq - r:] = fa_ref.flash_attention_ref(
+            q[:, :, Sq - r:], k[:, :, cut:], v[:, :, cut:],
+            causal=kw.get("causal", True), window=window,
+            q_offset=first_q - cut,
+            kv_len=None if kv_len is None else kv_len - cut)
+        return out
+
+    def hold_attention(kname, what, dname, q, k, v, kw, got, seen) -> str:
+        """``got`` against the plain version on the same inputs, element by
+        element and by the relative error norm of each q tile, with the
+        planted fault read by the same check; returns the readings and keeps
+        the largest relative error and the smallest fault in ``seen``."""
+        tol, rel_tol = ATTN_TOL[dname], ATTN_REL_TOL[dname]
+        want = fa_ref.flash_attention_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        check(got.shape == q.shape and got.dtype == q.dtype,
+              f"{kname} {what} {dname}: shape or dtype")
+        err = float((got.float() - want.float()).abs().max())
+        max_err[kname] = max(max_err[kname], err)
+        check(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
+              f"{kname} differs from its plain version on {what} {dname} "
+              f"(max |err| {err:.3g}, tolerance {tol})")
+        rel = tile_rel_err(got, want)
+        seen[0] = max(seen[0], rel)
+        check(rel <= rel_tol, f"{kname} differs from its plain version on "
+              f"{what} {dname}: relative error norm of a q tile {rel:.3g}, "
+              f"limit {rel_tol}")
+        fault = skipped_tile(q, k, v, kw, want)
+        fault_txt = "no fault planted (no key tile to skip)"
+        if fault is not None:
+            fault_rel = tile_rel_err(fault, want)
+            seen[1] = min(seen[1], fault_rel)
+            check(fault_rel > rel_tol, f"{what} {dname}: a skipped key tile "
+                  f"reads {fault_rel:.3g}, within the limit {rel_tol}")
+            fault_txt = f"a skipped key tile reads {fault_rel:.3g}"
+            del fault
+        return (f"max |err| {err:.3g} (tolerance {tol}), q tile relative "
+                f"error norm {rel:.3g} (limit {rel_tol}; {fault_txt})")
+
+    cases = [(case, dname, ATTN_ROUTE[dname], shape)
+             for dname in ATTN_TOL for case, shape in ATTN_CASES.items()]
+    cases += [(case, "bfloat16", "flash_attention", shape)
+              for case, shape in ATTN_BF16_CUDA_CORE_CASES.items()]
+    for kname in ATTN_ROUTE.values():
+        max_err[kname] = 0.0
+    rel_seen = {dname: [0.0, float("inf")] for dname in ATTN_TOL}
+    for case, dname, kname, (B, Hq, Hkv, Sq, Skv, D, causal, window, qoff,
+                             kv_len, layout) in cases:
+        q, k, v = attn_inputs(B, Hq, Hkv, Sq, Skv, D, dtypes[dname], layout,
+                              Sq + Skv)
+        kw = dict(causal=causal, window=window, q_offset=qoff, kv_len=kv_len)
+        check(fa.route(q, k, v) == kname, f"flash_attention {case} {dname} "
+              f"routes to {fa.route(q, k, v)}, not {kname}")
+        reset_launches()
+        got = fa.flash_attention(q, k, v, **kw)
+        counts = launch_counts()
+        check(counts == {**{n: 0 for n in KERNELS}, kname: 1},
+              f"flash_attention {case} {dname} launched {counts}, expected "
+              f"{kname} once")
+        readings = hold_attention(kname, case, dname, q, k, v, kw, got,
+                                  rel_seen[dname])
+        if case == "no visible key":
+            tol = ATTN_TOL[dname]
+            mean = v.float().mean(dim=2, keepdim=True).repeat_interleave(
+                Hq // Hkv, dim=1).expand(got.shape)
+            check(torch.allclose(got.float(), mean, rtol=tol, atol=tol),
+                  f"flash_attention {dname}: a query that sees no key must "
+                  f"get the mean of v")
+        print(f"[attention] {case} {dname} on {kname}: B={B} Hq={Hq} "
+              f"Hkv={Hkv} Sq={Sq} Skv={Skv} D={D} causal={causal} "
+              f"window={window} q_offset={qoff} kv_len={kv_len} "
+              f"layout={layout}: {readings}")
+        del q, k, v, got
+    for dname, (worst, least_fault) in rel_seen.items():
+        print(f"[attention] {dname}: largest q tile relative error norm "
+              f"{worst:.3g}, smallest planted fault {least_fault:.3g}, limit "
+              f"{ATTN_REL_TOL[dname]}")
 
     # ------------------------------------------------------- 6 LM main path
     cfg = get_config(LM_ARCH)
@@ -683,34 +827,31 @@ def main() -> int:
         counts = launch_counts()
     finally:
         layers.flash_attention = fa.flash_attention
-    check(counts["flash_attention"] == cfg.n_layers,
-          f"prefill launched flash_attention {counts['flash_attention']} "
-          f"times, expected one per layer ({cfg.n_layers})")
+    check(counts["flash_attention_sm90"] == cfg.n_layers,
+          f"prefill launched flash_attention_sm90 "
+          f"{counts['flash_attention_sm90']} times, expected one per layer "
+          f"({cfg.n_layers})")
     check(all(n == 0 for kname, n in counts.items()
-              if kname != "flash_attention"),
+              if kname != "flash_attention_sm90"),
           f"prefill launched another kernel: {counts}")
-    launches["flash_attention"] += counts["flash_attention"]
+    launches["flash_attention_sm90"] += counts["flash_attention_sm90"]
     check(logits.shape == (PREFILL_B, PREFILL_S, cfg.vocab)
           and bool(torch.isfinite(logits).all()),
           "prefill logits are not finite or not (B, S, V)")
     # each launch of the run against the plain version on its own inputs
-    tol = ATTN_TOL["bfloat16"]
     check(len(seen) == cfg.n_layers, "not one attention call per layer")
-    layer_err = 0.0
+    layer_rel = [0.0, float("inf")]
     for i, (q, k, v, kw, got) in enumerate(seen):
-        want = fa_ref.flash_attention_ref(q, k, v, **kw)
-        err = float((got.float() - want.float()).abs().max())
-        layer_err = max(layer_err, err)
-        check(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
-              f"layer {i}'s attention in the prefill differs from the plain "
-              f"version (max |err| {err:.3g}, tolerance {tol})")
-        del want
+        readings = hold_attention("flash_attention_sm90", f"prefill layer {i}",
+                                  "bfloat16", q, k, v, kw, got, layer_rel)
+        print(f"[lm] prefill layer {i} attention against the plain version "
+              f"on its own inputs: {readings}")
     q0, k0 = seen[0][:2]
-    print(f"[lm] prefill attention, all {len(seen)} layers against the plain "
-          f"version on their own inputs: q {tuple(q0.shape)} strides "
-          f"{q0.stride()}, k {tuple(k0.shape)}, {q0.dtype}, {seen[0][3]}: "
-          f"max |err| {layer_err:.3g} (tolerance {tol})")
-    max_err["flash_attention"] = max(max_err["flash_attention"], layer_err)
+    print(f"[lm] prefill attention, all {len(seen)} layers: q "
+          f"{tuple(q0.shape)} strides {q0.stride()}, k {tuple(k0.shape)}, "
+          f"{q0.dtype}, {seen[0][3]}: largest q tile relative error norm "
+          f"{layer_rel[0]:.3g}, smallest planted fault {layer_rel[1]:.3g}, "
+          f"limit {ATTN_REL_TOL['bfloat16']}")
     del seen, q0, k0, q, k, v, got
     torch.cuda.empty_cache()
     print(f"[lm] make_prefill_step on {PREFILL_B} x {PREFILL_S} tokens: "
@@ -780,13 +921,20 @@ def main() -> int:
     toks4 = torch.from_numpy(TokenPipeline(TokenPipelineConfig(
         vocab=cfg.vocab, seq_len=256, global_batch=2, seed=18))
         .global_batch_at(0)["tokens"]).to(dev)
+    reset_launches()
     full, _ = lm4.forward(toks4)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    check(counts == {**{n: 0 for n in KERNELS}, "flash_attention": 4},
+          f"the float32 forward at 4 layers launched {counts}, expected "
+          f"flash_attention once per layer")
+    launches["flash_attention"] += counts["flash_attention"]
     t0 = time.perf_counter()
     last, cache = lm4.prefill(toks4, s_max=256)
     torch.cuda.synchronize()
     derr = float((full[:, -1] - last[:, 0]).abs().max())
     print(f"[lm] {cfg.name} at 4 layers, float32, 2 x 256 tokens: forward "
-          f"(flash kernel) vs prefill (256 decode steps, "
+          f"(launches {counts}) vs prefill (256 decode steps, "
           f"{time.perf_counter() - t0:.2f} s) last logits max |err| "
           f"{derr:.3g} (tolerance {DECODE_TOL}), cache len {cache['len']}")
     check(derr < DECODE_TOL, f"decode differs from the forward by {derr}")
@@ -894,27 +1042,40 @@ def main() -> int:
             lambda: ea.event_accum(ids, prog.w_padded),
             lambda: ea_ref.event_accum_ref(ids, prog.w_padded), None),
     }
-    # attention at Qwen3-8B's head shape, causal, bf16, S = 4096 (and 32,768
-    # below): the kernel, its plain version, and SDPA as the library call
+    # attention at Qwen3-8B's head shape, causal, S = 4096 (and 32,768
+    # below): each kernel, its plain version, and SDPA as the library call;
+    # bf16 on the tensor-core kernel, float32 on the CUDA-core kernel
     aq = {}
     for S in ATTN_TIME_S:
         aq[S] = attn_inputs(1, cfg.n_heads, cfg.n_kv_heads, S, S, cfg.d_head,
-                            torch.bfloat16, False, S)
-
+                            torch.bfloat16, "contiguous", S)
     S0 = ATTN_TIME_S[0]
-    fns["flash_attention"] = (
+    aq32 = attn_inputs(1, cfg.n_heads, cfg.n_kv_heads, S0, S0, cfg.d_head,
+                       torch.float32, "contiguous", S0)
+    check(fa.route(*aq[S0]) == "flash_attention_sm90"
+          and fa.route(*aq32) == "flash_attention",
+          "the timed inputs do not take the routes they are timed for")
+    fns["flash_attention_sm90"] = (
         lambda: fa.flash_attention(*aq[S0]),
         lambda: fa_ref.flash_attention_ref(*aq[S0]),
         lambda: sdpa_attention(*aq[S0]))
+    fns["flash_attention"] = (
+        lambda: fa.flash_attention(*aq32),
+        lambda: fa_ref.flash_attention_ref(*aq32),
+        lambda: sdpa_attention(*aq32))
     check(set(fns) == set(KERNELS), "a kernel has no timing entry")
     tol = ATTN_TOL["bfloat16"]
     for S, (q, k, v) in aq.items():
         got = fa.flash_attention(q, k, v).float()
         lib = sdpa_attention(q, k, v).float()
         check(torch.allclose(got, lib, rtol=tol, atol=tol), f"SDPA, the "
-              f"yardstick, differs from flash_attention at S {S} by "
+              f"yardstick, differs from flash_attention_sm90 at S {S} by "
               f"{float((got - lib).abs().max())}")
         del got, lib
+    got, lib = fa.flash_attention(*aq32), sdpa_attention(*aq32)
+    print(f"[times] SDPA against flash_attention in float32 at S {S0}: max "
+          f"|difference| {float((got - lib).abs().max()):.3g}")
+    del got, lib
     check(torch.equal(torch._int_mm(raster_2d, prog.w_padded),
                       smm.spike_matmul(raster_2d, prog.w_padded)),
           "torch._int_mm, the yardstick, differs from spike_matmul")
@@ -1021,14 +1182,16 @@ def main() -> int:
         return (size * B_ * S_ * D_ * (2 * Hq + 2 * Hkv),
                 4 * B_ * Hq * (S_ * (S_ + 1) // 2) * D_)
 
-    work["flash_attention"] = (*attn_work(*aq[S0][:2]), BF16_FLOPS)
+    work["flash_attention_sm90"] = (*attn_work(*aq[S0][:2]), BF16_FLOPS)
+    work["flash_attention"] = (*attn_work(*aq32[:2]), FP32_FLOPS)
 
     rows = []
     for kname, (kern, plain, library) in fns.items():
         n_bytes, n_ops, op_rate = work[kname]
         t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / op_rate
-        runs, back = FEW_SAMPLES if kname == "flash_attention" else (
-            TIMING_RUNS, BACK_TO_BACK)
+        attention = kname.startswith("flash_attention")
+        runs, back = FEW_SAMPLES if attention else (TIMING_RUNS,
+                                                    BACK_TO_BACK)
         (ms, host_ms) = kernel_ms(kern, runs, back)
         whole_ms, plain_ms = call_ms(kern, runs), call_ms(plain, runs)
         library_ms = (kernel_ms(library, runs, back)[0]
@@ -1043,13 +1206,14 @@ def main() -> int:
                      "bound_ms": 1e3 * max(t_bytes, t_ops),
                      "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                      "library_ms": library_ms})
-        lib_name = {"spike_matmul": "torch._int_mm",
-                    "flash_attention": "scaled_dot_product_attention"}
+        lib_name = ("scaled_dot_product_attention" if attention
+                    else "torch._int_mm")
         lib_txt = ("none" if library_ms is None
-                   else f"{library_ms:.4f} ms ({lib_name[kname]}, alone)")
+                   else f"{library_ms:.4f} ms ({lib_name}, alone)")
         shape_txt = (f"B=1 Hq={cfg.n_heads} Hkv={cfg.n_kv_heads} S={S0} "
-                     f"D={cfg.d_head} causal bf16"
-                     if kname == "flash_attention" else
+                     f"D={cfg.d_head} causal "
+                     f"{'float32' if kname == 'flash_attention' else 'bf16'}"
+                     if attention else
                      f"B={B} T={T_} E_max={E} N_in={K} N_pad={N} (events "
                      f"{events} in full T, {int((steps_h).sum())} steps in "
                      f"latency mode)")
@@ -1065,17 +1229,30 @@ def main() -> int:
     # would take 137 GB)
     S1 = ATTN_TIME_S[1]
     n_bytes, n_ops = attn_work(*aq[S1][:2])
-    ms, host_ms = kernel_ms(lambda: fa.flash_attention(*aq[S1]), runs=3,
-                            back=1, warm=1)
+    ms, host_ms = kernel_ms(lambda: fa.flash_attention(*aq[S1]), runs=5,
+                            back=2, warm=1)
     library_ms = kernel_ms(lambda: sdpa_attention(*aq[S1]), runs=5, back=2,
                            warm=1)[0]
     bound = 1e3 * max(n_bytes / HBM_BYTES_PER_S, n_ops / BF16_FLOPS)
-    print(f"[times] flash_attention: B=1 Hq={cfg.n_heads} Hkv={cfg.n_kv_heads}"
+    print(f"[times] flash_attention_sm90: B=1 Hq={cfg.n_heads} "
+          f"Hkv={cfg.n_kv_heads}"
           f" S={S1} D={cfg.d_head} causal bf16: kernel alone {ms:.4f} ms, "
           f"wrapper host {host_ms:.4f} ms per call, plain not run, library "
           f"{library_ms:.4f} ms (scaled_dot_product_attention, alone), bound "
           f"{bound:.6f} ms (operations: {n_bytes} B, {n_ops} ops) — card: "
           f"{card}")
+    # the prefill's own shape: B 2, q, k, v the model's (B, S, H, D) views
+    qp = attn_inputs(PREFILL_B, cfg.n_heads, cfg.n_kv_heads, S0, S0,
+                     cfg.d_head, torch.bfloat16, "movedim view",
+                     S0 + 1)
+    n_bytes, n_ops = attn_work(*qp[:2])
+    ms = kernel_ms(lambda: fa.flash_attention(*qp), *FEW_SAMPLES)[0]
+    library_ms = kernel_ms(lambda: sdpa_attention(*qp), *FEW_SAMPLES)[0]
+    print(f"[times] flash_attention_sm90: B={PREFILL_B} Hq={cfg.n_heads} "
+          f"Hkv={cfg.n_kv_heads} S={S0} D={cfg.d_head} causal bf16, (B, S, "
+          f"H, D) views: kernel alone {ms:.4f} ms, library {library_ms:.4f} "
+          f"ms (scaled_dot_product_attention, alone), bound "
+          f"{1e3 * n_ops / BF16_FLOPS:.6f} ms (operations) — card: {card}")
     for S in ATTN_TIME_S:
         n_bytes, n_ops = attn_work(*aq[S][:2])
         print(f"[times] flash_attention bound at S={S}: bf16 "

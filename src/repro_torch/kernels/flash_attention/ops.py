@@ -1,15 +1,27 @@
-"""Public wrapper of the flash-attention kernel.
+"""Public wrapper of the flash-attention kernels.
 
 The port of ``repro.kernels.flash_attention.ops.flash_attention`` with its
 signature, plus ``kv_len`` (keys at or past it are masked), which the Pallas
-kernel takes. On CUDA tensors it launches the hand-written kernel
-(``csrc/flash_attention.cu``, built with nvcc on first use) or raises; on
-CPU tensors it runs the plain version in ``ref``. There is no padding: the
-kernel masks ragged Sq and Skv itself. It reads q, k and v through their
-strides and writes an output with q's strides (``torch.empty_like``), so the
-model's (B, S, H, D) projections viewed as (B, H, S, D) by ``movedim`` are
-read in place and the output comes back in the same layout: no copy either
-way. ``LAUNCHES`` counts the kernel's launches.
+kernel takes. On CUDA tensors it launches one of two hand-written kernels,
+built with nvcc on first use, or raises; on CPU tensors it runs the plain
+version in ``ref``. ``route`` picks the kernel from the inputs' dtype, head
+size, strides and alignment before the launch, and nothing falls back from
+one kernel to the other:
+
+* ``flash_attention_sm90`` (``csrc/flash_attention_sm90.cu``): bf16 with
+  D in {64, 128} and inputs a TMA tensor map can describe (d stride 1, every
+  other stride a multiple of 16 bytes, 16-byte aligned pointers): wgmma on
+  the tensor cores, TMA loads.
+* ``flash_attention`` (``csrc/flash_attention.cu``): everything else it
+  takes, float32 among it (its 2e-5 tolerance rules out TF32): the CUDA
+  cores.
+
+There is no padding: the kernels mask ragged Sq and Skv themselves. Both
+read q, k and v through their strides and write an output with q's strides
+(``torch.empty_like``), so the model's (B, S, H, D) projections viewed as
+(B, H, S, D) by ``movedim`` are read in place and the output comes back in
+the same layout: no copy either way. ``LAUNCHES`` counts each kernel's
+launches under its own name.
 """
 
 from __future__ import annotations
@@ -23,10 +35,16 @@ from repro_torch.kernels import build
 from repro_torch.kernels.common import P, I, L, raise_on, stream
 from repro_torch.kernels.flash_attention import ref as _ref
 
+SM90 = "flash_attention_sm90"
+CUDA_CORES = "flash_attention"
 #: kernel name -> launches since the last ``reset_launches()``
-LAUNCHES = {"flash_attention": 0}
-#: the input types the kernel takes, and the code its C entry point reads
+LAUNCHES = {CUDA_CORES: 0, SM90: 0}
+#: the input types the CUDA-core kernel takes, and the code its C entry reads
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: the head sizes the tensor-core kernel is built for
+SM90_HEAD_DIMS = (64, 128)
+#: TMA's alignment of every stride but the innermost, and of the base
+TMA_ALIGN = 16
 
 
 def reset_launches() -> None:
@@ -34,11 +52,46 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
+def tma_legal(t: torch.Tensor) -> bool:
+    """Whether a TMA tensor map can describe ``t`` (B, H, S, D) as it lies:
+    d stride 1, the other strides multiples of 16 bytes, the first element
+    16-byte aligned."""
+    e = t.element_size()
+    return (t.stride(3) == 1 and t.data_ptr() % TMA_ALIGN == 0
+            and all(s * e % TMA_ALIGN == 0 for s in t.stride()[:3]))
+
+
+def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The kernel that takes these inputs: ``SM90`` for bf16 with D in
+    ``SM90_HEAD_DIMS`` and TMA-legal q, k and v, else ``CUDA_CORES``. A pure
+    function of dtype, head size, strides and alignment."""
+    if q.dtype == torch.bfloat16 and q.shape[3] in SM90_HEAD_DIMS and \
+            all(tma_legal(t) for t in (q, k, v)):
+        return SM90
+    return CUDA_CORES
+
+
+def tma_geometry(t: torch.Tensor) -> tuple[int, ...]:
+    """The tensor map's view of ``t`` (B, H, S, D): its dims innermost first
+    (D, S, H, B), then the byte strides of S, H and B."""
+    B, H, S, D = t.shape
+    e = t.element_size()
+    return (D, S, H, B, t.stride(2) * e, t.stride(1) * e, t.stride(0) * e)
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    lib = build.load("flash_attention")
+    lib = build.load(CUDA_CORES)
     lib.flash_attention.argtypes = ([P] + [L] * 4) * 4 + [I] * 11 + [P]
     lib.flash_attention.restype = I
+    return lib
+
+
+@functools.cache
+def _lib_sm90() -> ctypes.CDLL:
+    lib = build.load(SM90)
+    lib.flash_attention_sm90.argtypes = [P] * 5 + [L] * 3 + [I] * 10 + [P]
+    lib.flash_attention_sm90.restype = I
     return lib
 
 
@@ -69,19 +122,27 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if not q.is_cuda:
         return _ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                         q_offset=q_offset, kv_len=kv_len)
-    if D % 8 or not 8 <= D <= 256:
+    name = route(q, k, v)
+    if name == CUDA_CORES and (D % 8 or not 8 <= D <= 256):
         raise ValueError(f"the kernel takes a head size D that is a multiple "
                          f"of 8 up to 256; got {D}")
     out = torch.empty_like(q)
-    if out.numel():
-        with torch.cuda.device(q.device):
+    if not out.numel():
+        return out
+    mask = (int(causal), 0 if window is None else int(window), int(q_offset),
+            Skv if kv_len is None else int(kv_len))
+    with torch.cuda.device(q.device):
+        if name == SM90:
+            geo = (ctypes.c_ulonglong * 21)(
+                *(g for t in (q, k, v) for g in tma_geometry(t)))
+            code = _lib_sm90().flash_attention_sm90(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), geo,
+                *out.stride()[:3], B, Hq, Hkv, Sq, Skv, D, *mask, stream(q))
+        else:
             code = _lib().flash_attention(
                 q.data_ptr(), *q.stride(), k.data_ptr(), *k.stride(),
                 v.data_ptr(), *v.stride(), out.data_ptr(), *out.stride(),
-                B, Hq, Hkv, Sq, Skv, D, int(causal),
-                0 if window is None else int(window), int(q_offset),
-                Skv if kv_len is None else int(kv_len), DTYPES[q.dtype],
-                stream(q))
-        raise_on(code, "flash_attention")
-        LAUNCHES["flash_attention"] += 1
+                B, Hq, Hkv, Sq, Skv, D, *mask, DTYPES[q.dtype], stream(q))
+    raise_on(code, name)
+    LAUNCHES[name] += 1
     return out

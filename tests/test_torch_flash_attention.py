@@ -2,8 +2,10 @@
 flash-attention wrapper against the JAX package's ``flash_attention_ref``
 (and, on two shapes, against the Pallas kernel itself in interpret mode),
 in float32 within 2e-5 and in bfloat16 within 2e-2, the tolerances of
-``tests/test_kernels.py``. The CUDA kernel is held against this plain
-version by chip_smoke.py on the card."""
+``tests/test_kernels.py``; and the wrapper's choice between its two CUDA
+kernels (``route``) and the tensor-map geometry it hands the tensor-core
+kernel, both pure functions of the inputs' layout. The CUDA kernels are
+held against this plain version by chip_smoke.py on the card."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -110,8 +112,11 @@ def test_plain_matches_pallas_interpret(shape, causal, window, qoff):
     np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
 
 
-def test_wrapper_on_cpu_is_the_plain_version_and_launches_nothing():
-    (_, _, _), (q, k, v), _ = _inputs((2, 8, 2, 40, 72, 16), "float32", 5)
+@pytest.mark.parametrize("dtype,D", [("float32", 16), ("bfloat16", 128)])
+def test_wrapper_on_cpu_is_the_plain_version_and_launches_nothing(dtype, D):
+    """On the CPU neither kernel runs, whichever route the inputs would take
+    on the card: every route's counter stays 0."""
+    (_, _, _), (q, k, v), _ = _inputs((2, 8, 2, 40, 72, D), dtype, 5)
     ops.reset_launches()
     for kw in (dict(causal=True), dict(causal=True, window=9, q_offset=32),
                dict(causal=False, kv_len=50)):
@@ -119,7 +124,7 @@ def test_wrapper_on_cpu_is_the_plain_version_and_launches_nothing():
         assert torch.equal(got, ref.flash_attention_ref(q, k, v, **kw))
         assert torch.equal(layers.chunked_attention(q, k, v, bq=8, bk=16,
                                                     gqa="repeat", **kw), got)
-    assert ops.LAUNCHES == {"flash_attention": 0}
+    assert ops.LAUNCHES == {"flash_attention": 0, "flash_attention_sm90": 0}
 
 
 def test_wrapper_reads_movedim_views():
@@ -149,3 +154,88 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(bad, err):
     args.update(bad)
     with pytest.raises(err):
         ops.flash_attention(args["q"], args["k"], args["v"], window=window)
+
+
+# ------------------------------------------------------------------ routing
+def _layout(shape, dtype, layout, bits=False):
+    """A (B, H, S, D) tensor of ``dtype`` laid out as ``layout`` says; with
+    ``bits``, its elements are distinct bit patterns (compare them through
+    ``.view(INT[dtype])``)."""
+    B, H, S, D = shape
+
+    def buf(m):
+        if bits:
+            return torch.arange(m, dtype=INT[dtype]).view(dtype)
+        return torch.arange(m, dtype=torch.float32).to(dtype)
+
+    n = B * H * S * D
+    if layout == "contiguous":
+        return buf(n).view(B, H, S, D)
+    if layout == "movedim view":        # the model's (B, S, H, D) projection
+        return buf(n).view(B, S, H, D).movedim(1, 2)
+    if layout == "misaligned storage_offset":
+        return buf(n + 1)[1:].view(B, H, S, D)
+    if layout == "d stride 2":
+        return buf(2 * n).view(B, H, S, 2 * D)[..., ::2]
+    assert layout == "padded row"       # row stride D + 1: not 16-byte
+    return buf(B * H * S * (D + 1)).view(B, H, S, D + 1)[..., :D]
+
+
+INT = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+LAYOUTS = ["contiguous", "movedim view", "misaligned storage_offset",
+           "d stride 2", "padded row"]
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("D", [64, 128, 16, 256])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_route_is_a_function_of_dtype_head_size_and_layout(dtype, D, layout):
+    """bf16 with D in {64, 128} and TMA-legal layouts (d stride 1, other
+    strides multiples of 16 bytes, 16-byte aligned data) go to the
+    tensor-core kernel; everything else to the CUDA-core kernel."""
+    q = _layout((2, 8, 24, D), dtype, layout)
+    k = _layout((2, 2, 40, D), dtype, layout)
+    v = _layout((2, 2, 40, D), dtype, layout)
+    legal = layout in ("contiguous", "movedim view")
+    want = ops.SM90 if dtype == torch.bfloat16 and D in (64, 128) and legal \
+        else ops.CUDA_CORES
+    assert ops.route(q, k, v) == want
+    if layout == "misaligned storage_offset":
+        assert q.data_ptr() % 16 != 0
+    # the route decides nothing about the result: on the CPU both are the
+    # plain version
+    got = ops.flash_attention(q, k, v)
+    assert torch.equal(got, ref.flash_attention_ref(q, k, v))
+
+
+@pytest.mark.parametrize("odd", ["q", "k", "v"])
+def test_route_needs_all_three_tensors_tma_legal(odd):
+    """One tensor that a tensor map cannot describe sends the call to the
+    CUDA-core kernel."""
+    shapes = {"q": (1, 4, 16, 128), "k": (1, 2, 16, 128),
+              "v": (1, 2, 16, 128)}
+    ts = {n: _layout(sh, torch.bfloat16, "padded row" if n == odd else
+                     "contiguous") for n, sh in shapes.items()}
+    assert ops.route(ts["q"], ts["k"], ts["v"]) == ops.CUDA_CORES
+    ts[odd] = _layout(shapes[odd], torch.bfloat16, "movedim view")
+    assert ops.route(ts["q"], ts["k"], ts["v"]) == ops.SM90
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "movedim view",
+                                    "padded row", "misaligned storage_offset"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_tma_geometry_rebuilds_the_tensor(dtype, layout):
+    """The tensor map's dims (D, S, H, B), innermost first, and its byte
+    strides of S, H and B, read back through ``torch.as_strided`` on the
+    same storage, give the same elements."""
+    t = _layout((2, 3, 5, 64), dtype, layout, bits=True)
+    D, S, H, B, ss, hs, bs = ops.tma_geometry(t)
+    assert (B, H, S, D) == tuple(t.shape)
+    e = t.element_size()
+    assert all(x % e == 0 for x in (ss, hs, bs))
+    rebuilt = torch.as_strided(t, (B, H, S, D), (bs // e, hs // e, ss // e, 1),
+                               t.storage_offset())
+    assert torch.equal(rebuilt.view(INT[dtype]), t.view(INT[dtype]))
+    assert ops.tma_legal(t) == (layout in ("contiguous", "movedim view"))
+    if ops.tma_legal(t):
+        assert all(x % ops.TMA_ALIGN == 0 for x in (ss, hs, bs))
