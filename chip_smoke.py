@@ -14,12 +14,26 @@ Phases (any failure exits non-zero; nothing is caught):
                row) and on the eight adversarial fuzz artifacts packed from
                the golden spike times (leak_shift 31 with negative
                membranes, never-spiking rows, both decode fallbacks,
-               tie-heavy rows), plus one 2,000-neuron layer that gives each
-               thread four lanes. event_accum also takes the frames with
-               their slots shuffled (PAD in the middle of a row), ttfs_decode
-               tie-heavy rows under both fallbacks, and spike_matmul a random
-               int8 product with ragged edges; the staged kernels' state must
-               equal the fused kernels';
+               tie-heavy rows), plus one 2,000-neuron layer (wide: four
+               lanes a thread), a flood layer (N_pad 4096: eight
+               lanes a thread and the shortest chunk; a row with every input
+               at one tick, an all-PAD row, a row spread over all T) and a
+               narrow one (N_pad 128, T 33: rows built to exit mid-chunk and
+               on a chunk's last step). Kernels 1-3 are held on their launch
+               plan (printed) and again on plans with chunks of 8 and of 1
+               step, with the row loads each launch takes asserted (vector
+               loads on every case above; bytewise on three layers whose
+               N_pad, 99, 130 and 1000, is not a multiple of a lane's
+               columns, and on the MNIST weights copied to an odd address);
+               a plan the kernels cannot run must be refused before the
+               launch by the wrapper and by the C entry point, and the
+               wrapper's check_plan and the entry points' own test must
+               agree on a grid of plans and altered plans. event_accum
+               also takes the frames with their slots shuffled (PAD in the
+               middle of a row), ttfs_decode tie-heavy rows under both
+               fallbacks, and spike_matmul a random int8 product with ragged
+               edges; the staged kernels' state must equal the fused
+               kernels';
   3. main path — five serving runs over the 10,000 procedural MNIST test
                images, each with every launch counter set to 0 just before
                its requests and read just after its flush: SNNServeEngine on
@@ -89,7 +103,10 @@ Phases (any failure exits non-zero; nothing is caught):
                of the one PyTorch call that computes the same function where
                there is one (torch._int_mm for spike_matmul, scaled_dot_
                product_attention for attention), and the least time the card
-               could take for the same work (bound). The tensor-core kernel
+               could take for the same work (bound), beside the launch floor
+               (a trivial kernel, zero_ on 64 int32, timed the same way);
+               then kernels 1 and 2 at a chunk of T and of 8 steps, in turns
+               (both take the longest chunk that fits). The tensor-core kernel
                is timed at (B 1, Hq 32, Hkv 8, S 4096, D 128, causal, bf16),
                and once more at S 32,768 (fewer samples, no plain version:
                its scores would take 137 GB) and at the prefill's own
@@ -428,6 +445,41 @@ def main() -> int:
                                w=torch.from_numpy(w).to(dev),
                                thr=torch.from_numpy(thr).to(dev)),
                   rng.randint(0, T + 1, (16, n_in))))
+    # flood: the widest layer (N_pad 4096: 8 lanes a thread, 8 warps a step,
+    # the shortest chunk) with every input at one tick in row 0 (one step of
+    # 1,024 events), an all-PAD row 1 and row 2 spread evenly over all T
+    n_in, n_out, n_pad, T = 1024, 4000, 4096, 32
+    w = np.zeros((n_in, n_pad), np.int8)
+    w[:, :n_out] = rng.randint(-127, 128, (n_in, n_out))
+    thr = np.full((n_pad,), 2**31 - 1, np.int32)
+    thr[:n_out] = rng.randint(2000, 60000, n_out)
+    times = rng.randint(0, T + 1, (8, n_in))
+    times[0], times[1], times[2] = 5, T, np.arange(n_in) % T
+    cases.append(("flood", dict(T=T, e_max=n_in, leak_shift=4, n_out=n_out,
+                                n_groups=16, per_group=250,
+                                fallback="membrane",
+                                w=torch.from_numpy(w).to(dev),
+                                thr=torch.from_numpy(thr).to(dev)), times))
+    # narrow: N_pad 128 and T 33, not a multiple of a chunk of 8. Input 0
+    # drives only lane 5, over its threshold in one step, so a row whose only
+    # spike is input 0 at t exits after step t: mid-chunk (t 10), on a
+    # chunk's last step (t 15 for chunks of 8, t 32 for every chunk); row 3
+    # never fires
+    n_in, n_out, n_pad, T = 64, 120, 128, 33
+    w = np.zeros((n_in, n_pad), np.int8)
+    w[1:, :n_out] = rng.randint(-127, 128, (n_in - 1, n_out))
+    w[0, 5] = 127
+    thr = np.full((n_pad,), 2**31 - 1, np.int32)
+    thr[:n_out] = rng.randint(300, 3000, n_out)
+    thr[5] = 100
+    times = rng.randint(0, T + 1, (8, n_in))
+    times[:4] = T
+    times[0, 0], times[1, 0], times[2, 0] = 10, 15, 32
+    NARROW_STEPS = (11, 16, 33, 33)
+    cases.append(("narrow", dict(T=T, e_max=n_in, leak_shift=2, n_out=n_out,
+                                 n_groups=8, per_group=15, fallback="zero",
+                                 w=torch.from_numpy(w).to(dev),
+                                 thr=torch.from_numpy(thr).to(dev)), times))
 
     max_err = {name: 0 for name in KERNELS}
 
@@ -441,6 +493,56 @@ def main() -> int:
     def same(got, want, what: str) -> None:
         check(all(torch.equal(g, x) for g, x in zip(got, want)), what)
 
+    lib = ops._lib()
+
+    def hold_fused(name, ids, count, wt, th, ls, dec_kw, vector):
+        """Kernels 1-3 on their launch plan and on plans with chunks of at
+        most 8 and of 1 step, each bit for bit against its plain version;
+        ``vector`` says which row loads the launches must take (a lane's
+        columns as one vector, or byte by byte). Returns the launch plan's
+        (LIFResult, labels, steps)."""
+        want_d = ref.fused_event_lif_decode_ref(ids, count, wt, th, ls,
+                                                **dec_kw)
+        want_x = ref.fused_event_lif_early_exit_ref(ids, count, wt, th, ls)
+        want_f = ref.fused_event_lif_ref(ids, count, wt, th, ls)
+        T_, E_, N_ = ids.shape[1], ids.shape[2], wt.shape[1]
+        load = lib.fused_event_lif_row_load_bytes(wt.data_ptr(), N_)
+        check((load > 1) == vector, f"{name}: rows load {load} bytes a lane "
+              f"at once, expected {'a vector' if vector else 'bytewise'}")
+        plan = ops.launch_plan(T_, E_, N_)
+        res, labels = ops.fused_event_lif_decode(ids, count, wt, th, ls,
+                                                 **dec_kw)
+        hold("fused_event_lif_decode", (res.first_spike, res.v_final, labels),
+             want_d, name)
+        res_x, steps = ops.fused_event_lif_early_exit(ids, count, wt, th, ls)
+        hold("fused_event_lif_early_exit",
+             (res_x.first_spike, res_x.v_final, steps), want_x, name)
+        full = ops.fused_event_lif(ids, count, wt, th, ls)
+        hold("fused_event_lif", full, want_f, name)
+        same(full, res, f"fused_event_lif differs from the decode kernel's "
+             f"first/v on {name}")
+        others = sorted({ops.launch_plan(T_, E_, N_, c) for c in (8, 1)}
+                        - {plan}, key=lambda p: -p.chunk)
+        for p in others:
+            on = f"{name}, chunk {p.chunk}"
+            r_p, l_p = ops.fused_event_lif_decode(ids, count, wt, th, ls,
+                                                  **dec_kw, plan=p)
+            hold("fused_event_lif_decode", (r_p.first_spike, r_p.v_final,
+                                            l_p), want_d, on)
+            x_p, s_p = ops.fused_event_lif_early_exit(ids, count, wt, th, ls,
+                                                      plan=p)
+            hold("fused_event_lif_early_exit",
+                 (x_p.first_spike, x_p.v_final, s_p), want_x, on)
+            hold("fused_event_lif", ops.fused_event_lif(ids, count, wt, th,
+                                                        ls, plan=p),
+                 want_f, on)
+        print(f"[kernels] {name}: launch plan {tuple(plan)} (threads, lanes "
+              f"a thread, chunk, shared bytes); kernels 1-3 also held on "
+              f"{[tuple(p) for p in others]}; row loads "
+              f"{f'{load}-byte vectors' if vector else 'bytewise'}; steps "
+              f"{steps.tolist() if len(steps) <= 16 else '...'}")
+        return res, labels, steps
+
     no_spike = {"membrane": 0, "zero": 0}
     negative_v = 0
     for name, a, times in cases:
@@ -450,21 +552,13 @@ def main() -> int:
         wt, th, ls = a["w"], a["thr"], a["leak_shift"]
         dec_kw = dict(n_out=a["n_out"], n_groups=a["n_groups"],
                       per_group=a["per_group"], fallback=a["fallback"])
-        # the fused kernels (1-3)
-        res, labels = ops.fused_event_lif_decode(ids, count, wt, th, ls,
-                                                 **dec_kw)
-        hold("fused_event_lif_decode", (res.first_spike, res.v_final, labels),
-             ref.fused_event_lif_decode_ref(ids, count, wt, th, ls, **dec_kw),
-             name)
-        res_x, steps = ops.fused_event_lif_early_exit(ids, count, wt, th, ls)
-        hold("fused_event_lif_early_exit",
-             (res_x.first_spike, res_x.v_final, steps),
-             ref.fused_event_lif_early_exit_ref(ids, count, wt, th, ls), name)
-        full = ops.fused_event_lif(ids, count, wt, th, ls)
-        hold("fused_event_lif", full,
-             ref.fused_event_lif_ref(ids, count, wt, th, ls), name)
-        same(full, res, f"fused_event_lif differs from the decode kernel's "
-             f"first/v on {name}")
+        E_, N_ = ids.shape[2], wt.shape[1]
+        res, labels, steps = hold_fused(name, ids, count, wt, th, ls, dec_kw,
+                                        vector=True)
+        if name == "narrow":
+            check(tuple(steps[:4].tolist()) == NARROW_STEPS,
+                  f"narrow: rows 0-3 exit after {steps[:4].tolist()} steps, "
+                  f"built to exit after {NARROW_STEPS}")
         # the staged kernels (4-7)
         cur = ea.event_accum(ids, wt)
         hold("event_accum", (cur,), (ea_ref.event_accum_ref(ids, wt),), name)
@@ -505,6 +599,98 @@ def main() -> int:
               f"leak_shift={ls} fallback={a['fallback']} "
               f"events={int(count.sum())} no-spike rows={int(silent.sum())}: "
               f"all seven kernels bit-exact")
+    # rows loaded byte by byte (kernels 1-3 only): an N_pad that is not a
+    # multiple of the columns a lane owns (99: 4 a lane; 130: 8, T 33; 1000:
+    # 16, 2 lanes a thread and 2 warps a step), thresholds from thr_lo up
+    # that spread the early exits over T, each with an all-PAD row; and the
+    # MNIST case with its weights copied to an odd address
+    for n_in, n_pad, n_groups, per_group, T_b, thr_lo in (
+            (50, 99, 8, 12, 16, 250), (200, 130, 10, 13, 33, 600),
+            (300, 1000, 10, 100, 32, 1000)):
+        n_out = n_groups * per_group
+        w = np.zeros((n_in, n_pad), np.int8)
+        w[:, :n_out] = rng.randint(-127, 128, (n_in, n_out))
+        thr = np.full((n_pad,), 2**31 - 1, np.int32)
+        thr[:n_out] = rng.randint(thr_lo, 8 * thr_lo, n_out)
+        times = rng.randint(0, T_b + 1, (12, n_in))
+        times[-1] = T_b
+        frames = pack_events_batched(times, T_b, n_in, device=dev)
+        hold_fused(f"ragged{n_pad}", frames.ids, frames.count,
+                   torch.from_numpy(w).to(dev), torch.from_numpy(thr).to(dev),
+                   3, dict(n_out=n_out, n_groups=n_groups,
+                           per_group=per_group, fallback="membrane"),
+                   vector=False)
+    _, a, times = cases[0]
+    frames = pack_events_batched(times, a["T"], a["e_max"], device=dev)
+    odd = torch.empty(a["w"].numel() + 1, dtype=torch.int8, device=dev)
+    w_odd = odd[1:].view(a["w"].shape)
+    w_odd.copy_(a["w"])
+    check(w_odd.is_contiguous() and w_odd.data_ptr() % 2 == 1,
+          "the MNIST weights' copy is not contiguous at an odd address")
+    hold_fused("mnist, w at an odd address", frames.ids, frames.count, w_odd,
+               a["thr"], a["leak_shift"],
+               dict(n_out=a["n_out"], n_groups=a["n_groups"],
+                    per_group=a["per_group"], fallback=a["fallback"]),
+               vector=False)
+    # a plan the kernels cannot run is refused before the launch: by the
+    # wrapper (ValueError), and by the C entry point (cudaErrorInvalidValue,
+    # outputs untouched)
+    bad = ops.launch_plan(T_, E_, N_)._replace(threads=48)
+    try:
+        ops.fused_event_lif_early_exit(ids, count, wt, th, ls, plan=bad)
+        fail(f"the wrapper launched the plan {tuple(bad)}")
+    except ValueError:
+        pass
+    untouched = torch.full((ids.shape[0], N_), -7, dtype=torch.int32,
+                           device=dev)
+    outs = [untouched.clone(), untouched.clone(),
+            untouched[:, 0].clone().contiguous()]
+    code = ops._lib().fused_event_lif_early_exit(
+        ids.data_ptr(), count.data_ptr(), wt.data_ptr(), th.data_ptr(),
+        *(o.data_ptr() for o in outs), ids.shape[0], T_, E_, wt.shape[0], N_,
+        ls, *bad, torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    check(code == 1 and all(bool((o == -7).all()) for o in outs),
+          f"the C entry point took the plan {tuple(bad)} (code {code})")
+    print(f"[kernels] the plan {tuple(bad)} is refused before the launch: "
+          f"ValueError from the wrapper, cudaErrorInvalidValue from the "
+          f"entry point, outputs untouched")
+    # the host's test of a plan (ops.check_plan) and the entry points'
+    # (fused_event_lif_plan_ok) agree: each launch plan is taken, and so is
+    # each change of one of its fields exactly when check_plan takes it
+    n_plans = 0
+    for T_p in (1, 8, 32, 33, 64):
+        for E_p in (1, 128, 1024):
+            for N_p in (1, 99, 128, 130, 256, 1000, 2048, 4096):
+                for c in (None, 8, 1):
+                    p = ops.launch_plan(T_p, E_p, N_p, c)
+                    variants = [p] + [
+                        p._replace(threads=x) for x in (
+                            p.threads - 32, p.threads + 32, 48, 1024)] + [
+                        p._replace(lanes_per_thread=x)
+                        for x in (1, 2, 3, 4, 8, 16)] + [
+                        p._replace(chunk=x, smem_bytes=4 * x * N_p)
+                        for x in (0, T_p, T_p + 1)] + [
+                        p._replace(smem_bytes=p.smem_bytes + 4)]
+                    for q in variants:
+                        try:
+                            ops.check_plan(q, T_p, E_p, N_p)
+                            host_ok = True
+                        except ValueError:
+                            host_ok = False
+                        card_ok = lib.fused_event_lif_plan_ok(
+                            T_p, E_p, N_p, *q) == 1
+                        check(card_ok == host_ok and (card_ok or q != p),
+                              f"plan {tuple(q)} for T={T_p}, E_max={E_p}, "
+                              f"N_pad={N_p}: check_plan "
+                              f"{'takes' if host_ok else 'refuses'} it, the "
+                              f"entry points "
+                              f"{'take' if card_ok else 'refuse'} it")
+                        n_plans += 1
+    check(lib.fused_event_lif_plan_ok(32, 128, 4097, 512, 8, 1, 4 * 4097) == 0,
+          "the entry points take N_pad 4097")
+    print(f"[kernels] ops.check_plan and the entry points' test agree on "
+          f"{n_plans} plans (every launch plan taken)")
     check(negative_v > 0, "no negative membrane was exercised")
     check(no_spike["membrane"] > 0 and no_spike["zero"] > 0,
           "both decode fallbacks must be exercised")
@@ -1185,6 +1371,13 @@ def main() -> int:
     work["flash_attention_sm90"] = (*attn_work(*aq[S0][:2]), BF16_FLOPS)
     work["flash_attention"] = (*attn_work(*aq32[:2]), FP32_FLOPS)
 
+    # the practical floor of one launch: a trivial kernel (zero_ on 64
+    # int32) timed the same way
+    zeros64 = torch.zeros(64, dtype=torch.int32, device=dev)
+    floor_ms = kernel_ms(lambda: zeros64.zero_())[0]
+    print(f"[times] launch floor: zero_() on a (64,) int32 tensor alone "
+          f"{floor_ms:.4f} ms — card: {card}")
+
     rows = []
     for kname, (kern, plain, library) in fns.items():
         n_bytes, n_ops, op_rate = work[kname]
@@ -1222,8 +1415,24 @@ def main() -> int:
               f"{host_ms:.4f} ms per call, one call {whole_ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, library {lib_txt}, bound "
               f"{rows[-1]['bound_ms']:.6f} ms ({rows[-1]['bound_by']}: "
-              f"{n_bytes} B, {n_ops} ops), main-path launches "
-              f"{launches[kname]} — card: {card}")
+              f"{n_bytes} B, {n_ops} ops)"
+              f"{'' if attention else f', launch floor {floor_ms:.4f} ms'}, "
+              f"main-path launches {launches[kname]} — card: {card}")
+
+    # kernels 1 and 2 at a chunk of T (one gather phase, the launch plan's)
+    # and of 8 steps, in turns (T, 8, T, 8)
+    default = ops.launch_plan(T_, E, N)
+    for kname, fn in (
+            ("fused_event_lif_decode",
+             lambda p: ops.fused_event_lif_decode(*args, **dec_kw, plan=p)),
+            ("fused_event_lif_early_exit",
+             lambda p: ops.fused_event_lif_early_exit(*args, plan=p))):
+        for c in (T_, 8, T_, 8):
+            p = ops.launch_plan(T_, E, N, c)
+            ms = kernel_ms(lambda: fn(p))[0]
+            print(f"[times] {kname} at chunk {c}, plan {tuple(p)}: kernel "
+                  f"alone {ms:.4f} ms{' (its plan)' if p == default else ''}"
+                  f" — card: {card}")
 
     # attention at S = 32,768: a few samples, no plain version (its scores
     # would take 137 GB)

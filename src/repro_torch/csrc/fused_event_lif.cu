@@ -5,52 +5,99 @@
 //   fused_event_lif_early_exit  <- fused_event_lif_early_exit_kernel (latency mode)
 //   fused_event_lif             <- fused_event_lif_kernel            (full T, no label)
 // and computes exactly what they compute. For each batch row b and step t:
-//   i[n]  = sum over e < count[b,t] with ids[b,t,e] >= 0 of w[ids[b,t,e], n]   (int32)
+//   i[n]  = sum over e < count[b,t] with ids[b,t,e] in [0, n_in) of w[ids[b,t,e], n]
 //   v     = v - (v >> leak_shift) + i        (arithmetic shift on signed int)
 //   first = t where (v >= thr && first == T) (first-spike latch; T = never)
 // The decode kernel then applies the grouped-TTFS comparator of lif_step.cuh
 // to the logical lanes [0, n_out); fused_event_lif is the same kernel compiled
-// without that epilogue (a template flag). The early-exit kernel stops a row after the first step at which ANY of its
-// n_pad lanes has fired and reports v at exit and the steps executed.
+// without that epilogue (a template flag). The early-exit kernel stops a row
+// after the first step at which ANY of its n_pad lanes has fired and reports v
+// at exit and the steps executed.
 //
-// What bounds it on the H100. Per image the kernel must read the weight rows
-// of its events (events x n_pad int8 bytes, e.g. ~520 x 256 B for an MNIST
-// digit), the step's ids (at most T*E_max*4 bytes, only count[b,t] of them are
-// read) and write 2*n_pad*4 bytes of state. That is a few hundred KB for a
-// batch of 64: far below what the memory system moves in the time of the
-// T = 32 dependent steps, so the kernel is bound by latency (the T sequential
-// steps, each waiting on its ids and then on their weight rows), not by bytes
-// or operations.
+// What bounds it on the H100. A row must read the weight rows of its events
+// (events x n_pad int8 bytes, ~520 x 256 B for an MNIST digit), its ids and
+// counts, and write 2 x n_pad x 4 bytes of state: a few hundred KB for a
+// batch of 64, far below what the memory system moves in a microsecond, and
+// few operations. Gathering each step after the last would pay three
+// dependent loads (count, ids, rows) and two barriers per step, T steps in
+// series. Here only the membrane recurrence is serial, and what bounds a
+// block (one batch row on one SM) is the gather: about 20 instructions an
+// event per warp, most of them on the integer pipe, so the SM's issue rate
+// and the warp of the heaviest step (the dim pixels of an MNIST digit share
+// a few late steps), behind a fixed cost of launch, count and id latency.
 //
-// What the design does about it. One block per batch row; each thread owns
-// LPT lanes tid, tid + blockDim, ... (n_pad <= 4096), with v and first in
-// registers for the whole T loop: the (T, n_pad) currents tensor of the staged
-// pipeline is never materialized. At each step the block first copies the
-// step's ids into shared memory in one coalesced load; then every thread walks
-// them (a broadcast read) and loads its own bytes of each weight row, so a
-// warp reads 32 consecutive bytes of one row and, since the row loads no
-// longer wait on one id load each, several rows are in flight at once. The
-// weight matrix stays in device memory and is served from the 50 MB L2 (the
-// MNIST w_padded is 784 x 256 = 200,704 B, nearly all of the 227 KB of shared
-// memory a block may hold; staging it is a later redesign). Rows run in
-// parallel across SMs; steps cannot, since each depends on the last.
+// The design. The currents i[t] do not depend on the membrane, so a row's T
+// steps are cut into chunks of C steps (the host's launch plan picks C from
+// T and n_pad within the 227 KB of shared memory a block may hold; C = T at
+// the MNIST shape, 32 KB) and each chunk runs in two phases:
+//  1. gather: every step of the chunk at once, one warp per step (a group of
+//     warps when the row is wider than 32 lanes x 16 bytes), a loop for more
+//     steps than warps. The warp loads count[b,t] and the step's first 32 ids
+//     together (coalesced 4-byte loads, no shared-memory staging, no
+//     barrier), the next step's under this one's rows, and broadcasts each id
+//     with a shuffle. Each lane loads its 4, 8 or 16 bytes of an event's row
+//     as one predicated vector load (bytewise where n_pad or w is not
+//     aligned for that), 8 to 32 rows in flight a lane, the next 32 ids
+//     loading under them. Lanes sum the bytes as offset binary, two columns
+//     to a 32-bit word (five integer instructions per four bytes, exact for
+//     256 events between flushes; integer addition in any order is
+//     bit-exact) and flush the step's int32 currents to shared memory,
+//     C x n_pad. One barrier closes the phase.
+//  2. scan: each thread owns LPT lanes tid, tid + blockDim, ... (only the
+//     threads that own a lane), with thr, v and first in registers across
+//     chunks, and runs the update and latch of lif_step.cuh over the chunk's
+//     steps from shared memory. The early-exit kernel scans a chunk through
+//     with no barrier; each thread offers the first step at which one of its
+//     lanes fired (a shared atomicMin, one barrier), and if the row's earliest
+//     lies in the chunk every thread scans the chunk again from the state it
+//     started with, up to that step: exactly the state the step-by-step test
+//     (any of the n_pad lanes fired) leaves, and currents gathered past the
+//     exit are never added.
+// One block of 512 threads serves one batch row; rows run in parallel.
+//
+// The weight matrix is not staged in shared memory: TTFS gives each input at
+// most one spike per image, so a row reads each weight row at most once and
+// a one-row block would gain no reuse from a copy. It is served from the 50
+// MB L2 across the batch's blocks.
+//
+// Measured beside this design (PERF.md): the early-exit kernel at C = T and
+// at C = 8 (C = T is faster, chip_smoke.py phase 7); and, in probe builds
+// that are not kept, 1024 threads (spills at 64 registers), 16 rows in
+// flight, sign-extended int32 sums and dp4a sums, a barrier after every
+// step of the exit test, a step's events balanced over the warps (by shared
+// atomics, or by a private slot for each 32 events) and a row split over a
+// 2-block cluster that gathers half the steps on each SM: none was
+// measurably faster.
 //
 // Integer semantics: the update and latch of lif_step.cuh (wrapping like XLA,
-// arithmetic shift). Ids outside [0, n_in) are skipped (PAD is -1), so a bad
-// id cannot read outside w.
+// arithmetic shift). Ids outside [0, n_in) are skipped (PAD is -1) and read
+// nothing, so a bad id cannot read outside w.
 //
-// Each C entry point launches on the given stream and returns
-// cudaGetLastError(); it allocates nothing and does not synchronise.
+// Each C entry point takes the launch plan (threads, lanes per thread, chunk
+// steps, shared bytes) chosen on the host, returns cudaErrorInvalidValue
+// before any launch if the kernel cannot run it, sets the kernel's
+// shared-memory limit once per device, launches on the given stream and
+// returns cudaGetLastError(); it allocates nothing and does not synchronise.
+// Two queries launch nothing: fused_event_lif_plan_ok (the entry points'
+// test of a plan, which chip_smoke.py holds to ops.py's check_plan) and
+// fused_event_lif_row_load_bytes (which row loads a launch takes).
+
+#include <atomic>
 
 #include "lif_step.cuh"
 
 namespace {
 
-// 512 threads keep a block within the SM's 65,536 registers at up to 128
-// registers a thread (__launch_bounds__ holds the compiler to that)
+// 512 threads leave a thread 128 registers (__launch_bounds__): 32 of them
+// hold the rows in flight
 constexpr int MAX_THREADS = 512;
-constexpr int MAX_LPT = 8;     // lanes per thread: n_pad <= 4096
-constexpr int ID_CHUNK = 256;  // ids staged in shared memory at a time
+constexpr int MAX_LPT = 8;                 // lanes per thread: n_pad <= 4096
+constexpr int IN_FLIGHT_REGS = 32;         // a lane's registers of row loads
+// the most dynamic shared memory a plan may ask for: the H100's 227 KB
+// opt-in limit a block (232,448 B) less 1 KB for the static shared memory of
+// the decode reduction and the exit test
+constexpr int MAX_CUR_BYTES = 232448 - 1024;
+constexpr unsigned FULL = 0xffffffffu;
 
 struct RowArgs {
   const int32_t* ids;      // (B, T, E) row-major
@@ -58,56 +105,216 @@ struct RowArgs {
   const int8_t* w;         // (n_in, n_pad)
   const int32_t* thr;      // (n_pad,)
   int T, E, n_in, n_pad, leak_shift;
+  int chunk;               // steps gathered before they are scanned
+  int group;               // warps that gather one step
+  bool vec;                // rows are loaded as CPL-byte vectors
 };
 
-// Sum of the step's gathered rows for this thread's LPT lanes. Every thread
-// of the block calls it with the same (b, t): it synchronises the block.
-template <int LPT>
-__device__ __forceinline__ void gather_step(const RowArgs& a, int b, int t,
-                                            int32_t* s_ids,
-                                            int32_t (&acc)[LPT]) {
+// int8 columns each gathering lane owns: a warp covers 128, 256 or 512 of
+// a row's bytes, so a step of a wider row takes a group of warps
+__host__ __device__ constexpr int cols_per_lane(int n_pad) {
+  return n_pad <= 128 ? 4 : n_pad <= 256 ? 8 : 16;
+}
+
+// Rows a lane has in flight: IN_FLIGHT_REGS registers of CPL / 4 words each
+template <int CPL>
+__host__ __device__ constexpr int rows_in_flight() {
+  return IN_FLIGHT_REGS * 4 / CPL < 32 ? IN_FLIGHT_REGS * 4 / CPL : 32;
+}
+
+// Each int8 is summed as offset binary, u = s + 128 in 0..255, two columns
+// to a 32-bit word (16 bits each): a plain 32-bit add sums two columns, and
+// 256 events (at most 65,280) never carry from one half into the other. A
+// flush takes 128 for each event back off, in int32.
+constexpr uint32_t BIAS = 0x80808080u;
+constexpr int FLUSH_EVENTS = 256;
+
+// This lane's CPL bytes of row `id` (wcol = w + col0), four to a word
+// (little-endian: column col0 + j is byte j % 4 of word j / 4); BIAS for an
+// id outside [0, n_in_lane) and past n_pad, which adds nothing. The vector
+// load is one predicated ld.global.nc, not a branch, so the loads of a
+// round issue back to back.
+template <int CPL, bool VEC>
+__device__ __forceinline__ void load_row(const int8_t* wcol, int n_pad,
+                                         unsigned n_in_lane, int col0, int id,
+                                         uint32_t (&x)[CPL / 4]) {
+  const bool ok = (unsigned)id < n_in_lane;
+  const int8_t* p = wcol + (long long)id * n_pad;   // read only if ok
 #pragma unroll
-  for (int k = 0; k < LPT; ++k) acc[k] = 0;
-  const int n_ev = __ldg(a.count + (size_t)b * a.T + t);
-  const int32_t* step_ids = a.ids + ((size_t)b * a.T + t) * a.E;
-  for (int base = 0; base < n_ev; base += ID_CHUNK) {
-    const int m = min(ID_CHUNK, n_ev - base);
-    __syncthreads();                     // the last chunk's readers are done
-    for (int e = threadIdx.x; e < m; e += blockDim.x)
-      s_ids[e] = __ldg(step_ids + base + e);
-    __syncthreads();
-#pragma unroll 8
-    for (int e = 0; e < m; ++e) {
-      const int id = s_ids[e];
-      const bool ok = (unsigned)id < (unsigned)a.n_in;
-      // a skipped id reads row 0 and adds nothing: no branch between loads
-      const int8_t* row = a.w + (size_t)(ok ? id : 0) * a.n_pad;
+  for (int k = 0; k < CPL / 4; ++k) x[k] = BIAS;
+  if constexpr (VEC) {
+    if constexpr (CPL == 4) {
+      asm("{.reg .pred q; setp.ne.b32 q, %2, 0;\n\t"
+          "@q ld.global.nc.u32 %0, [%1];}"
+          : "+r"(x[0]) : "l"(p), "r"((int)ok));
+    } else if constexpr (CPL == 8) {
+      asm("{.reg .pred q; setp.ne.b32 q, %3, 0;\n\t"
+          "@q ld.global.nc.v2.u32 {%0, %1}, [%2];}"
+          : "+r"(x[0]), "+r"(x[1]) : "l"(p), "r"((int)ok));
+    } else {
+      asm("{.reg .pred q; setp.ne.b32 q, %5, 0;\n\t"
+          "@q ld.global.nc.v4.u32 {%0, %1, %2, %3}, [%4];}"
+          : "+r"(x[0]), "+r"(x[1]), "+r"(x[2]), "+r"(x[3])
+          : "l"(p), "r"((int)ok));
+    }
+  } else if (ok) {
 #pragma unroll
-      for (int k = 0; k < LPT; ++k) {
-        const int lane = threadIdx.x + k * blockDim.x;
-        const int32_t x = lane < a.n_pad ? (int32_t)__ldg(row + lane) : 0;
-        acc[k] += ok ? x : 0;
-      }
+    for (int k = 0; k < CPL / 4; ++k) x[k] = 0;
+#pragma unroll
+    for (int j = 0; j < CPL; ++j) {
+      const uint32_t byte = col0 + j < n_pad ? (uint8_t)__ldg(p + j) : 0x80u;
+      x[j / 4] |= byte << (8 * (j % 4));
     }
   }
 }
 
-// One LIF step on this thread's lanes; returns whether any of them has fired
-// so far.
+// even[k] += columns 4k and 4k + 2 of x, odd[k] += 4k + 1 and 4k + 3, each
+// as u = s + 128 in a 16-bit half
+template <int CPL>
+__device__ __forceinline__ void add_row(const uint32_t (&x)[CPL / 4],
+                                        uint32_t (&even)[CPL / 4],
+                                        uint32_t (&odd)[CPL / 4]) {
+#pragma unroll
+  for (int k = 0; k < CPL / 4; ++k) {
+    const uint32_t u = x[k] ^ BIAS;
+    even[k] += __byte_perm(u, 0, 0x4240);    // bytes 0 and 2, zero-extended
+    odd[k] += __byte_perm(u, 0, 0x4341);     // bytes 1 and 3
+  }
+}
+
+// The int32 sums of `n` events in even/odd into this lane's columns of the
+// step's currents (added to what an earlier flush stored unless `first`);
+// clears even/odd.
+template <int CPL, bool VEC>
+__device__ __forceinline__ void flush(int n_pad, int col0,
+                                      uint32_t (&even)[CPL / 4],
+                                      uint32_t (&odd)[CPL / 4], int n,
+                                      bool first, int32_t* dst) {
+  int32_t out[CPL];
+#pragma unroll
+  for (int k = 0; k < CPL / 4; ++k) {
+    out[4 * k] = (int32_t)(even[k] & 0xffffu) - 128 * n;
+    out[4 * k + 1] = (int32_t)(odd[k] & 0xffffu) - 128 * n;
+    out[4 * k + 2] = (int32_t)(even[k] >> 16) - 128 * n;
+    out[4 * k + 3] = (int32_t)(odd[k] >> 16) - 128 * n;
+    even[k] = odd[k] = 0;
+  }
+  if constexpr (VEC) {
+    if (col0 >= n_pad) return;
+    int4* d = reinterpret_cast<int4*>(dst);
+#pragma unroll
+    for (int q = 0; q < CPL / 4; ++q) {
+      int4 r = make_int4(out[4 * q], out[4 * q + 1], out[4 * q + 2],
+                         out[4 * q + 3]);
+      if (!first) {
+        const int4 o = d[q];
+        r.x += o.x; r.y += o.y; r.z += o.z; r.w += o.w;
+      }
+      d[q] = r;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < CPL; ++j)
+      if (col0 + j < n_pad) dst[j] = first ? out[j] : dst[j] + out[j];
+  }
+}
+
+// Phase 1: the currents of steps t0 .. t0 + n_steps - 1 of row b into
+// s_cur[c * n_pad + lane]: a step to a warp group, the steps in turn. The
+// step's ids arrive 32 at a time, the next 32 loading under the rows of
+// these; each round issues the loads of U rows before it adds any.
+template <int CPL, bool VEC>
+__device__ __forceinline__ void gather_chunk(const RowArgs& a, int b, int t0,
+                                             int n_steps, int32_t* s_cur) {
+  constexpr int U = rows_in_flight<CPL>();
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int n_groups = (int)(blockDim.x / 32) / a.group;
+  const int g = warp / a.group;
+  if (g >= n_groups) return;
+  const int col0 = ((warp - g * a.group) * 32 + lane) * CPL;
+  const int8_t* wcol = a.w + col0;
+  const unsigned n_in_lane = col0 < a.n_pad ? a.n_in : 0;
+  // a step's count and first 32 ids are loaded together (slots past the
+  // count are read but never used), the next step's under this one's rows
+  auto fetch = [&](int c, int& count, int& ids32) {
+    const size_t bt = (size_t)b * a.T + t0 + c;
+    count = __ldg(a.count + bt);
+    ids32 = lane < a.E ? __ldg(a.ids + bt * a.E + lane) : -1;
+  };
+  int count_c = 0, ids_c = -1;
+  if (g < n_steps) fetch(g, count_c, ids_c);
+  for (int c = g; c < n_steps; c += n_groups) {
+    const int32_t* step_ids = a.ids + ((size_t)b * a.T + t0 + c) * a.E;
+    int32_t* dst = s_cur + (size_t)c * a.n_pad + col0;
+    const int n_ev = min(count_c, a.E);
+    int next = ids_c;
+    if (c + n_groups < n_steps) fetch(c + n_groups, count_c, ids_c);
+    uint32_t even[CPL / 4] = {}, odd[CPL / 4] = {};
+    int added = 0;                 // events in even/odd since the last flush
+    bool first = true;
+    for (int base = 0; base < n_ev; base += 32) {
+      const int id_lane = base + lane < n_ev ? next : -1;
+      const int ahead = base + 32 + lane;
+      next = ahead < n_ev ? __ldg(step_ids + ahead) : -1;   // under the rows
+      added += __popc(__ballot_sync(FULL, (unsigned)id_lane <
+                                              (unsigned)a.n_in));
+      const int m = min(32, n_ev - base);
+      for (int e0 = 0; e0 < m; e0 += U) {
+        int id[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u)      // e0 + u < 32; past m the id is -1
+          id[u] = __shfl_sync(FULL, id_lane, e0 + u);
+        uint32_t x[U][CPL / 4];
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+          load_row<CPL, VEC>(wcol, a.n_pad, n_in_lane, col0, id[u], x[u]);
+#pragma unroll
+        for (int u = 0; u < U; ++u) add_row<CPL>(x[u], even, odd);
+      }
+      if ((base + 32) % FLUSH_EVENTS == 0 && base + 32 < n_ev) {
+        flush<CPL, VEC>(a.n_pad, col0, even, odd, added, first, dst);
+        added = 0;
+        first = false;
+      }
+    }
+    flush<CPL, VEC>(a.n_pad, col0, even, odd, added, first, dst);
+  }
+}
+
+template <int CPL>
+__device__ __forceinline__ void gather(const RowArgs& a, int b, int t0,
+                                       int n_steps, int32_t* s_cur) {
+  if (a.vec)
+    gather_chunk<CPL, true>(a, b, t0, n_steps, s_cur);
+  else
+    gather_chunk<CPL, false>(a, b, t0, n_steps, s_cur);
+}
+
+// Phase 2: the LIF update and latch of steps t0 .. t0 + n - 1 on this
+// thread's lanes, from the chunk's currents. Each lane's column pointer is
+// formed once and stepped by n_pad.
 template <int LPT>
-__device__ __forceinline__ bool lif_step(const RowArgs& a, int t,
-                                         const int32_t (&acc)[LPT],
-                                         const int32_t (&thr)[LPT],
-                                         int32_t (&v)[LPT],
-                                         int32_t (&first)[LPT]) {
-  bool any = false;
+__device__ __forceinline__ void scan(const RowArgs& a, const int32_t* s_cur,
+                                     int t0, int n, const int32_t (&thr)[LPT],
+                                     int32_t (&v)[LPT], int32_t (&first)[LPT]) {
+  const int32_t* col[LPT];
+  bool live[LPT];
 #pragma unroll
   for (int k = 0; k < LPT; ++k) {
-    v[k] = lif_update(v[k], acc[k], a.leak_shift);
-    lif_latch(v[k], thr[k], first[k], t, a.T);
-    any |= first[k] != a.T;
+    const int lane = threadIdx.x + k * blockDim.x;
+    live[k] = lane < a.n_pad;
+    col[k] = s_cur + (live[k] ? lane : 0);
   }
-  return any;
+#pragma unroll 4
+  for (int c = 0; c < n; ++c) {
+#pragma unroll
+    for (int k = 0; k < LPT; ++k) {
+      const int32_t i = live[k] ? *col[k] : 0;
+      col[k] += a.n_pad;
+      v[k] = lif_update(v[k], i, a.leak_shift);
+      lif_latch(v[k], thr[k], first[k], t0 + c, a.T);
+    }
+  }
 }
 
 template <int LPT>
@@ -142,17 +349,21 @@ __device__ __forceinline__ void store_state(const RowArgs& a, int b,
 }
 
 // Full T; with DECODE the grouped-TTFS label of the row is written too.
-template <int LPT, bool DECODE>
-__global__ void __launch_bounds__(MAX_THREADS)
+template <int CPL, int LPT, bool DECODE>
+__global__ void __launch_bounds__(MAX_THREADS, 1)
 fused_full_kernel(RowArgs a, int n_out, int per_group, int fallback_membrane,
                   int32_t* first_out, int32_t* v_out, int32_t* labels) {
-  __shared__ int32_t s_ids[ID_CHUNK];
+  extern __shared__ __align__(16) int32_t s_cur[];   // chunk x n_pad currents
   const int b = blockIdx.x;
-  int32_t thr[LPT], v[LPT], first[LPT], acc[LPT];
+  int32_t thr[LPT], v[LPT], first[LPT];
   load_state<LPT>(a, thr, v, first);
-  for (int t = 0; t < a.T; ++t) {
-    gather_step<LPT>(a, b, t, s_ids, acc);
-    lif_step<LPT>(a, t, acc, thr, v, first);
+  for (int t0 = 0; t0 < a.T; t0 += a.chunk) {
+    const int n = min(a.chunk, a.T - t0);
+    if (t0 > 0) __syncthreads();          // the last chunk's scan is done
+    gather<CPL>(a, b, t0, n, s_cur);
+    __syncthreads();
+    // a thread past n_pad owns no lane
+    if (threadIdx.x < a.n_pad) scan<LPT>(a, s_cur, t0, n, thr, v, first);
   }
   store_state<LPT>(a, b, v, first, first_out, v_out);
   if constexpr (DECODE) {
@@ -168,76 +379,166 @@ fused_full_kernel(RowArgs a, int n_out, int per_group, int fallback_membrane,
   }
 }
 
-template <int LPT>
-__global__ void __launch_bounds__(MAX_THREADS)
+// Latency mode. A chunk is scanned through with no barrier; each thread
+// then offers the first step at which one of its lanes fired, and if the
+// row's earliest lies in the chunk, every thread scans the chunk again from
+// the state it started with, up to that step: the state the step-by-step
+// exit test leaves (currents past the exit are never added).
+template <int CPL, int LPT>
+__global__ void __launch_bounds__(MAX_THREADS, 1)
 fused_early_exit_kernel(RowArgs a, int32_t* first_out, int32_t* v_out,
                         int32_t* steps) {
-  __shared__ int32_t s_ids[ID_CHUNK];
+  extern __shared__ __align__(16) int32_t s_cur[];   // chunk x n_pad currents
+  __shared__ int s_exit[2];      // by chunk parity: the row's first firing
   const int b = blockIdx.x;
-  int32_t thr[LPT], v[LPT], first[LPT], acc[LPT];
+  int32_t thr[LPT], v[LPT], first[LPT];
   load_state<LPT>(a, thr, v, first);
-  int t = 0;
-  while (t < a.T) {
-    gather_step<LPT>(a, b, t, s_ids, acc);
-    const bool fired = lif_step<LPT>(a, t, acc, thr, v, first);
-    ++t;
-    // the exit test spans all n_pad lanes of the row, as jnp.all(first == T)
-    // does over the padded block; every thread takes the same branch
-    if (__syncthreads_or(fired)) break;
+  int t_end = a.T;
+  for (int t0 = 0, k = 0; t0 < a.T; t0 += a.chunk, ++k) {
+    const int n = min(a.chunk, a.T - t0);
+    // no barrier first: every thread's scan of the last chunk ended before
+    // that chunk's exit test, and each thread read the test's slot before
+    // this chunk's barrier, after which only the chunk after next resets it
+    if (threadIdx.x == 0) s_exit[k & 1] = INT32_MAX;
+    gather<CPL>(a, b, t0, n, s_cur);
+    __syncthreads();
+    int32_t v0[LPT], first0[LPT];
+    if (threadIdx.x < a.n_pad) {          // a thread past n_pad owns no lane
+#pragma unroll
+      for (int j = 0; j < LPT; ++j) {
+        v0[j] = v[j];
+        first0[j] = first[j];
+      }
+      scan<LPT>(a, s_cur, t0, n, thr, v, first);
+      int fired = INT32_MAX;              // no lane fired before this chunk
+#pragma unroll
+      for (int j = 0; j < LPT; ++j) fired = min(fired, first[j]);
+      if (fired < a.T) atomicMin(&s_exit[k & 1], fired);
+    }
+    __syncthreads();
+    const int exit_t = s_exit[k & 1];
+    if (exit_t != INT32_MAX) {
+      if (threadIdx.x < a.n_pad) {
+#pragma unroll
+        for (int j = 0; j < LPT; ++j) {
+          v[j] = v0[j];
+          first[j] = first0[j];
+        }
+        scan<LPT>(a, s_cur, t0, exit_t - t0 + 1, thr, v, first);
+      }
+      t_end = exit_t + 1;
+      break;
+    }
   }
   store_state<LPT>(a, b, v, first, first_out, v_out);
-  if (threadIdx.x == 0) steps[b] = t;
+  if (threadIdx.x == 0) steps[b] = t_end;
 }
 
-// Threads per block (a multiple of 32) and lanes per thread (a power of two)
-// for n_pad lanes; false if n_pad is out of range.
-bool launch_shape(int n_pad, int* threads, int* lpt) {
-  if (n_pad <= 0 || n_pad > MAX_THREADS * MAX_LPT) return false;
-  int l = 1;
-  while (l * MAX_THREADS < n_pad) l *= 2;
-  const int per = (n_pad + l - 1) / l;
-  *threads = ((per + 31) / 32) * 32;
-  *lpt = l;
-  return true;
+struct Plan {
+  int threads, lpt, chunk, smem;
+};
+
+// Whether the kernels can run `p` for rows of T steps, E slots and n_pad
+// lanes: the host's launch_plan (kernels/fused_event_lif/ops.py) gives only
+// plans this accepts.
+bool plan_ok(int T, int E, int n_pad, const Plan& p) {
+  if (T <= 0 || E <= 0 || n_pad <= 0 || n_pad > MAX_THREADS * MAX_LPT)
+    return false;
+  const int cpl = cols_per_lane(n_pad);
+  const int group = (n_pad + 32 * cpl - 1) / (32 * cpl);
+  const bool lpt_ok =
+      p.lpt == 1 || (cpl == 16 && (p.lpt == 2 || p.lpt == 4 || p.lpt == 8));
+  return lpt_ok && p.threads % 32 == 0 && p.threads >= 32 * group &&
+         p.threads <= MAX_THREADS && (long long)p.lpt * p.threads >= n_pad &&
+         p.chunk >= 1 && p.chunk <= T &&
+         (long long)p.chunk * n_pad * 4 == p.smem && p.smem <= MAX_CUR_BYTES;
 }
 
-template <int LPT, bool DECODE>
-void launch_full(const RowArgs& a, int B, int threads, int n_out,
-                 int per_group, int fallback_membrane, int32_t* first_out,
-                 int32_t* v_out, int32_t* labels, cudaStream_t stream) {
-  fused_full_kernel<LPT, DECODE><<<B, threads, 0, stream>>>(
+// Whether a lane loads its CPL bytes of a row as one vector: n_pad a
+// multiple of CPL and w 16-byte aligned; bytewise otherwise
+bool vector_rows(const int8_t* w, int n_pad) {
+  return n_pad % cols_per_lane(n_pad) == 0 && (uintptr_t)w % 16 == 0;
+}
+
+RowArgs row_args(const int32_t* ids, const int32_t* count, const int8_t* w,
+                 const int32_t* thr, int T, int E, int n_in, int n_pad,
+                 int leak_shift, const Plan& p) {
+  const int cpl = cols_per_lane(n_pad);
+  return RowArgs{ids, count, w, thr, T, E, n_in, n_pad, leak_shift, p.chunk,
+                 (n_pad + 32 * cpl - 1) / (32 * cpl), vector_rows(w, n_pad)};
+}
+
+// Raise the kernel's dynamic shared-memory limit to MAX_CUR_BYTES on a
+// device's first launch (bit dev of `ready`; every launch past device 63).
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, std::atomic<unsigned long long>& ready) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
+  if (ready.load() & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             MAX_CUR_BYTES);
+  if (err == cudaSuccess) ready.fetch_or(bit);
+  return err;
+}
+
+template <int CPL, int LPT, bool DECODE>
+int launch_full(const RowArgs& a, const Plan& p, int B, int n_out,
+                int per_group, int fallback_membrane, int32_t* first_out,
+                int32_t* v_out, int32_t* labels, cudaStream_t s) {
+  static std::atomic<unsigned long long> ready{0};
+  const cudaError_t err = allow_smem(fused_full_kernel<CPL, LPT, DECODE>,
+                                     ready);
+  if (err != cudaSuccess) return (int)err;
+  fused_full_kernel<CPL, LPT, DECODE><<<B, p.threads, p.smem, s>>>(
       a, n_out, per_group, fallback_membrane, first_out, v_out, labels);
+  return (int)cudaGetLastError();
 }
 
 template <bool DECODE>
-void dispatch_full(const RowArgs& a, int B, int threads, int lpt, int n_out,
-                   int per_group, int fallback_membrane, int32_t* first_out,
-                   int32_t* v_out, int32_t* labels, cudaStream_t s) {
-  switch (lpt) {
-    case 1: launch_full<1, DECODE>(a, B, threads, n_out, per_group,
-                                   fallback_membrane, first_out, v_out, labels,
-                                   s);
-            break;
-    case 2: launch_full<2, DECODE>(a, B, threads, n_out, per_group,
-                                   fallback_membrane, first_out, v_out, labels,
-                                   s);
-            break;
-    case 4: launch_full<4, DECODE>(a, B, threads, n_out, per_group,
-                                   fallback_membrane, first_out, v_out, labels,
-                                   s);
-            break;
-    default: launch_full<8, DECODE>(a, B, threads, n_out, per_group,
-                                    fallback_membrane, first_out, v_out,
-                                    labels, s);
+int dispatch_full(const RowArgs& a, const Plan& p, int B, int n_out,
+                  int per_group, int fallback_membrane, int32_t* first_out,
+                  int32_t* v_out, int32_t* labels, cudaStream_t s) {
+  switch (cols_per_lane(a.n_pad) * 8 + p.lpt) {
+    case 4 * 8 + 1:
+      return launch_full<4, 1, DECODE>(a, p, B, n_out, per_group,
+                                       fallback_membrane, first_out, v_out,
+                                       labels, s);
+    case 8 * 8 + 1:
+      return launch_full<8, 1, DECODE>(a, p, B, n_out, per_group,
+                                       fallback_membrane, first_out, v_out,
+                                       labels, s);
+    case 16 * 8 + 1:
+      return launch_full<16, 1, DECODE>(a, p, B, n_out, per_group,
+                                        fallback_membrane, first_out, v_out,
+                                        labels, s);
+    case 16 * 8 + 2:
+      return launch_full<16, 2, DECODE>(a, p, B, n_out, per_group,
+                                        fallback_membrane, first_out, v_out,
+                                        labels, s);
+    case 16 * 8 + 4:
+      return launch_full<16, 4, DECODE>(a, p, B, n_out, per_group,
+                                        fallback_membrane, first_out, v_out,
+                                        labels, s);
+    default:
+      return launch_full<16, 8, DECODE>(a, p, B, n_out, per_group,
+                                        fallback_membrane, first_out, v_out,
+                                        labels, s);
   }
 }
 
-template <int LPT>
-void launch_early_exit(const RowArgs& a, int B, int threads,
-                       int32_t* first_out, int32_t* v_out, int32_t* steps,
-                       cudaStream_t stream) {
-  fused_early_exit_kernel<LPT><<<B, threads, 0, stream>>>(a, first_out, v_out,
-                                                          steps);
+template <int CPL, int LPT>
+int launch_early_exit(const RowArgs& a, const Plan& p, int B,
+                      int32_t* first_out, int32_t* v_out, int32_t* steps,
+                      cudaStream_t s) {
+  static std::atomic<unsigned long long> ready{0};
+  const cudaError_t err = allow_smem(fused_early_exit_kernel<CPL, LPT>, ready);
+  if (err != cudaSuccess) return (int)err;
+  fused_early_exit_kernel<CPL, LPT><<<B, p.threads, p.smem, s>>>(
+      a, first_out, v_out, steps);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -249,53 +550,72 @@ int fused_event_lif_decode(const int32_t* ids, const int32_t* count,
                            int32_t* first_out, int32_t* v_out, int32_t* labels,
                            int B, int T, int E, int n_in, int n_pad,
                            int leak_shift, int n_out, int per_group,
-                           int fallback_membrane, void* stream) {
-  int threads, lpt;
-  if (B <= 0 || T <= 0 || E <= 0 || n_out <= 0 || n_out > n_pad ||
-      per_group <= 0 || leak_shift < 0 || leak_shift > 31 ||
-      !launch_shape(n_pad, &threads, &lpt))
+                           int fallback_membrane, int threads, int lpt,
+                           int chunk, int smem, void* stream) {
+  const Plan p{threads, lpt, chunk, smem};
+  if (B <= 0 || n_out <= 0 || n_out > n_pad || per_group <= 0 ||
+      leak_shift < 0 || leak_shift > 31 || !plan_ok(T, E, n_pad, p))
     return (int)cudaErrorInvalidValue;
-  const RowArgs a{ids, count, w, thr, T, E, n_in, n_pad, leak_shift};
-  dispatch_full<true>(a, B, threads, lpt, n_out, per_group, fallback_membrane,
-                      first_out, v_out, labels, (cudaStream_t)stream);
-  return (int)cudaGetLastError();
+  const RowArgs a = row_args(ids, count, w, thr, T, E, n_in, n_pad,
+                             leak_shift, p);
+  return dispatch_full<true>(a, p, B, n_out, per_group, fallback_membrane,
+                             first_out, v_out, labels, (cudaStream_t)stream);
 }
 
 int fused_event_lif(const int32_t* ids, const int32_t* count, const int8_t* w,
                     const int32_t* thr, int32_t* first_out, int32_t* v_out,
                     int B, int T, int E, int n_in, int n_pad, int leak_shift,
-                    void* stream) {
-  int threads, lpt;
-  if (B <= 0 || T <= 0 || E <= 0 || leak_shift < 0 || leak_shift > 31 ||
-      !launch_shape(n_pad, &threads, &lpt))
+                    int threads, int lpt, int chunk, int smem, void* stream) {
+  const Plan p{threads, lpt, chunk, smem};
+  if (B <= 0 || leak_shift < 0 || leak_shift > 31 || !plan_ok(T, E, n_pad, p))
     return (int)cudaErrorInvalidValue;
-  const RowArgs a{ids, count, w, thr, T, E, n_in, n_pad, leak_shift};
-  dispatch_full<false>(a, B, threads, lpt, 0, 1, 0, first_out, v_out, nullptr,
-                       (cudaStream_t)stream);
-  return (int)cudaGetLastError();
+  const RowArgs a = row_args(ids, count, w, thr, T, E, n_in, n_pad,
+                             leak_shift, p);
+  return dispatch_full<false>(a, p, B, 0, 1, 0, first_out, v_out, nullptr,
+                              (cudaStream_t)stream);
 }
 
 int fused_event_lif_early_exit(const int32_t* ids, const int32_t* count,
                                const int8_t* w, const int32_t* thr,
                                int32_t* first_out, int32_t* v_out,
                                int32_t* steps, int B, int T, int E, int n_in,
-                               int n_pad, int leak_shift, void* stream) {
-  int threads, lpt;
-  if (B <= 0 || T <= 0 || E <= 0 || leak_shift < 0 || leak_shift > 31 ||
-      !launch_shape(n_pad, &threads, &lpt))
+                               int n_pad, int leak_shift, int threads, int lpt,
+                               int chunk, int smem, void* stream) {
+  const Plan p{threads, lpt, chunk, smem};
+  if (B <= 0 || leak_shift < 0 || leak_shift > 31 || !plan_ok(T, E, n_pad, p))
     return (int)cudaErrorInvalidValue;
-  const RowArgs a{ids, count, w, thr, T, E, n_in, n_pad, leak_shift};
+  const RowArgs a = row_args(ids, count, w, thr, T, E, n_in, n_pad,
+                             leak_shift, p);
   const cudaStream_t s = (cudaStream_t)stream;
-  switch (lpt) {
-    case 1: launch_early_exit<1>(a, B, threads, first_out, v_out, steps, s);
-            break;
-    case 2: launch_early_exit<2>(a, B, threads, first_out, v_out, steps, s);
-            break;
-    case 4: launch_early_exit<4>(a, B, threads, first_out, v_out, steps, s);
-            break;
-    default: launch_early_exit<8>(a, B, threads, first_out, v_out, steps, s);
+  switch (cols_per_lane(n_pad) * 8 + lpt) {
+    case 4 * 8 + 1:
+      return launch_early_exit<4, 1>(a, p, B, first_out, v_out, steps, s);
+    case 8 * 8 + 1:
+      return launch_early_exit<8, 1>(a, p, B, first_out, v_out, steps, s);
+    case 16 * 8 + 1:
+      return launch_early_exit<16, 1>(a, p, B, first_out, v_out, steps, s);
+    case 16 * 8 + 2:
+      return launch_early_exit<16, 2>(a, p, B, first_out, v_out, steps, s);
+    case 16 * 8 + 4:
+      return launch_early_exit<16, 4>(a, p, B, first_out, v_out, steps, s);
+    default:
+      return launch_early_exit<16, 8>(a, p, B, first_out, v_out, steps, s);
   }
-  return (int)cudaGetLastError();
+}
+
+// 1 if the kernels take the plan (threads, lpt, chunk, smem) for rows of T
+// steps, E slots and n_pad lanes, 0 if every entry point refuses it
+int fused_event_lif_plan_ok(int T, int E, int n_pad, int threads, int lpt,
+                            int chunk, int smem) {
+  return plan_ok(T, E, n_pad, Plan{threads, lpt, chunk, smem});
+}
+
+// The bytes of a weight row a gathering lane loads at once from `w` with
+// n_pad lanes: its CPL columns as one vector, or 1 where it loads them
+// byte by byte; 0 for an n_pad the kernels do not take
+int fused_event_lif_row_load_bytes(const int8_t* w, int n_pad) {
+  if (n_pad <= 0 || n_pad > MAX_THREADS * MAX_LPT) return 0;
+  return vector_rows(w, n_pad) ? cols_per_lane(n_pad) : 1;
 }
 
 }  // extern "C"

@@ -49,37 +49,47 @@ __device__ __forceinline__ void decode_fold(DecodeKeys& k, int32_t first,
   k.vkey = vk > k.vkey ? vk : k.vkey;
 }
 
-// Block-wide min (is_min) or max of one int64 per thread; every thread gets
-// the result. blockDim.x is a multiple of 32 and at most 1024.
-__device__ __forceinline__ long long block_reduce(long long x, bool is_min) {
-  __shared__ long long part[32];
+// Warp-wide min of `lo` and max of `hi` (one int64 each a lane); every lane
+// gets both.
+__device__ __forceinline__ void warp_min_max(long long& lo, long long& hi) {
   const unsigned full = 0xffffffffu;
   for (int off = 16; off > 0; off >>= 1) {
-    const long long y = __shfl_down_sync(full, x, off);
-    x = is_min ? (y < x ? y : x) : (y > x ? y : x);
+    const long long a = __shfl_xor_sync(full, lo, off);
+    const long long b = __shfl_xor_sync(full, hi, off);
+    lo = a < lo ? a : lo;
+    hi = b > hi ? b : hi;
   }
-  const int warp = threadIdx.x / 32, n_warps = blockDim.x / 32;
-  __syncthreads();                       // part[] may hold a previous result
-  if ((threadIdx.x & 31) == 0) part[warp] = x;
-  __syncthreads();
-  x = part[0];
-  for (int i = 1; i < n_warps; ++i) {
-    const long long y = part[i];
-    x = is_min ? (y < x ? y : x) : (y > x ? y : x);
-  }
-  return x;
 }
 
-// Reduce every thread's keys over the block and return the row's label (the
-// same value in every thread).
+// Reduce every thread's keys over the block and return the row's label in
+// thread 0 (the other threads return 0: the divisions run once). A warp
+// whose keys are all untouched skips its fold; warp 0 alone folds the
+// warps' partials. blockDim.x is a multiple of 32 and at most 1024; every
+// thread of the block calls it once.
 __device__ __forceinline__ int decode_label(DecodeKeys k, int n, int per_group,
                                             int sentinel,
                                             int fallback_membrane) {
-  const long long key = block_reduce(k.key, true);
-  const long long vkey = block_reduce(k.vkey, false);
+  __shared__ long long part[2][32];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int n_warps = blockDim.x / 32;
+  long long key = k.key, vkey = k.vkey;
+  if (__any_sync(0xffffffffu, key != LLONG_MAX || vkey != LLONG_MIN))
+    warp_min_max(key, vkey);
+  if (lane == 0) {
+    part[0][warp] = key;
+    part[1][warp] = vkey;
+  }
+  __syncthreads();
+  if (warp != 0) return 0;
+  // partials past n_warps are filled with warp 0's: min and max do not
+  // change for a repeat
+  key = part[0][lane < n_warps ? lane : 0];
+  vkey = part[1][lane < n_warps ? lane : 0];
+  warp_min_max(key, vkey);
+  if (threadIdx.x != 0) return 0;
   if (key < (long long)sentinel * n) {             // some lane fired
-    const long long lane = ((key % n) + n) % n;    // floor mod: first < 0 too
-    return (int)(lane / per_group);
+    const long long at = ((key % n) + n) % n;      // floor mod: first < 0 too
+    return (int)(at / per_group);
   }
   if (fallback_membrane)
     return (INT32_MAX - (int)(vkey & 0xffffffffLL)) / per_group;

@@ -8,13 +8,16 @@ PyTorch version in ``ref``. There is no fallback from one to the other.
 
 Each wrapper counts its kernel launches in ``LAUNCHES`` (only where the
 kernel is launched, never on the CPU path), so a run can show that its main
-path went through the kernels.
+path went through the kernels. ``launch_plan`` picks each launch's block
+shape and chunk of steps on the host (cached per shape); a plan the kernel
+cannot run raises ``ValueError`` before the launch.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -30,6 +33,72 @@ LAUNCHES = {"fused_event_lif": 0, "fused_event_lif_decode": 0,
 _SOURCE = "fused_event_lif"
 #: widest padded layer the kernels take (512 threads x 8 lanes per thread)
 MAX_N_PAD = 4096
+#: threads a block (the kernels' __launch_bounds__)
+MAX_THREADS = 512
+#: shared memory one H100 block may hold (227 KB), and what a plan may take
+#: of it for the chunk's currents: 1 KB stays for the decode reduction
+SMEM_PER_BLOCK = 232_448
+MAX_CUR_BYTES = SMEM_PER_BLOCK - 1024
+
+
+class LaunchPlan(NamedTuple):
+    """One launch of the fused kernels: a block of ``threads`` per batch
+    row, each scanning ``lanes_per_thread`` lanes; the row's steps gathered
+    ``chunk`` at a time into ``smem_bytes`` of shared memory."""
+    threads: int
+    lanes_per_thread: int
+    chunk: int
+    smem_bytes: int
+
+
+def _cols_per_lane(n_pad: int) -> int:
+    """int8 columns one gathering lane owns (csrc: ``cols_per_lane``)."""
+    return 4 if n_pad <= 128 else 8 if n_pad <= 256 else 16
+
+
+def _warps_per_step(n_pad: int) -> int:
+    return -(-n_pad // (32 * _cols_per_lane(n_pad)))
+
+
+@functools.cache
+def launch_plan(T: int, e_max: int, n_pad: int,
+                max_chunk: int | None = None) -> LaunchPlan:
+    """The plan for rows of ``T`` steps, ``e_max`` slots a step and ``n_pad``
+    lanes: the longest chunk of steps (at most ``max_chunk``) whose int32
+    currents fit in shared memory, and enough warps to gather every step of
+    a chunk at once (one warp per 128, 256 or 512 columns of a step), up to
+    512 threads."""
+    if T < 1 or e_max < 1:
+        raise ValueError(f"T={T} and E_max={e_max} must be at least 1")
+    if not 1 <= n_pad <= MAX_N_PAD:
+        raise ValueError(f"N_pad={n_pad} is not in 1..{MAX_N_PAD}, the widths "
+                         f"the CUDA kernels take")
+    if max_chunk is not None and max_chunk < 1:
+        raise ValueError(f"max_chunk={max_chunk} must be at least 1")
+    chunk = min(T, max_chunk or T, MAX_CUR_BYTES // (4 * n_pad))
+    lpt = 1
+    while lpt * MAX_THREADS < n_pad:
+        lpt *= 2
+    gather_warps = _warps_per_step(n_pad) * chunk
+    scan_warps = -(-n_pad // (32 * lpt))
+    threads = 32 * min(MAX_THREADS // 32, max(gather_warps, scan_warps))
+    return LaunchPlan(threads, lpt, chunk, 4 * chunk * n_pad)
+
+
+def check_plan(plan: LaunchPlan, T: int, e_max: int, n_pad: int) -> None:
+    """Raise ``ValueError`` if the kernels cannot run ``plan``: the test the
+    C entry points make before a launch (``fused_event_lif_plan_ok``, which
+    chip_smoke.py holds to this one on the card)."""
+    threads, lpt, chunk, smem = plan
+    big = _cols_per_lane(n_pad) == 16
+    if not (T >= 1 and e_max >= 1 and 1 <= n_pad <= MAX_N_PAD
+            and (lpt == 1 or (big and lpt in (2, 4, 8)))
+            and threads % 32 == 0
+            and 32 * _warps_per_step(n_pad) <= threads <= MAX_THREADS
+            and lpt * threads >= n_pad and 1 <= chunk <= T
+            and smem == 4 * chunk * n_pad <= MAX_CUR_BYTES):
+        raise ValueError(f"the fused kernels cannot run {plan} for T={T}, "
+                         f"E_max={e_max}, N_pad={n_pad}")
 
 
 def reset_launches() -> None:
@@ -40,18 +109,23 @@ def reset_launches() -> None:
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = build.load(_SOURCE)
-    lib.fused_event_lif.argtypes = [P] * 6 + [I] * 6 + [P]
-    lib.fused_event_lif_decode.argtypes = [P] * 7 + [I] * 9 + [P]
-    lib.fused_event_lif_early_exit.argtypes = [P] * 7 + [I] * 6 + [P]
+    lib.fused_event_lif.argtypes = [P] * 6 + [I] * 10 + [P]
+    lib.fused_event_lif_decode.argtypes = [P] * 7 + [I] * 13 + [P]
+    lib.fused_event_lif_early_exit.argtypes = [P] * 7 + [I] * 10 + [P]
+    lib.fused_event_lif_plan_ok.argtypes = [I] * 7
+    lib.fused_event_lif_row_load_bytes.argtypes = [P, I]
     for fn in (lib.fused_event_lif, lib.fused_event_lif_decode,
-               lib.fused_event_lif_early_exit):
+               lib.fused_event_lif_early_exit, lib.fused_event_lif_plan_ok,
+               lib.fused_event_lif_row_load_bytes):
         fn.restype = I
     return lib
 
 
 def _check(ids: torch.Tensor, count: torch.Tensor, w: torch.Tensor,
-           thresholds: torch.Tensor, leak_shift: int) -> None:
-    """Shapes, dtypes, one device, contiguity: what the kernel assumes."""
+           thresholds: torch.Tensor, leak_shift: int,
+           plan: LaunchPlan | None) -> None:
+    """Shapes, dtypes, one device, contiguity, a plan the kernel can run:
+    what the kernel assumes."""
     if ids.dim() != 3 or count.shape != ids.shape[:2]:
         raise ValueError(f"ids must be (B, T, E_max) and count (B, T); got "
                          f"{tuple(ids.shape)} and {tuple(count.shape)}")
@@ -67,23 +141,25 @@ def _check(ids: torch.Tensor, count: torch.Tensor, w: torch.Tensor,
             raise ValueError(f"{name} must be contiguous")
     if not 0 <= int(leak_shift) <= 31:
         raise ValueError(f"leak_shift={leak_shift} is not in 0..31")
-    if ids.is_cuda and w.shape[1] > MAX_N_PAD:
-        raise ValueError(f"N_pad={w.shape[1]} > {MAX_N_PAD}, the widest "
-                         f"layer the CUDA kernels take")
+    if plan is not None:
+        check_plan(plan, ids.shape[1], ids.shape[2], w.shape[1])
 
 
 def fused_event_lif(ids: torch.Tensor, count: torch.Tensor, w: torch.Tensor,
-                    thresholds: torch.Tensor, leak_shift: int) -> LIFResult:
+                    thresholds: torch.Tensor, leak_shift: int, *,
+                    plan: LaunchPlan | None = None) -> LIFResult:
     """Full-T fused pass, no decode. ids (B, T, E_max) int32 (PAD = -1),
     count (B, T) int32, w (N_in, N_pad) int8, thresholds (N_pad,) int32 ->
-    LIFResult over (B, N_pad)."""
-    _check(ids, count, w, thresholds, leak_shift)
+    LIFResult over (B, N_pad). ``plan`` replaces ``launch_plan``'s on the
+    card (to measure another one); it is checked on either device."""
+    _check(ids, count, w, thresholds, leak_shift, plan)
     if not ids.is_cuda:
         first, v = _ref.fused_event_lif_ref(ids, count, w, thresholds,
                                             leak_shift)
         return LIFResult(first_spike=first, v_final=v)
     B, T, E = ids.shape
     n_in, n_pad = w.shape
+    plan = plan or launch_plan(T, E, n_pad)
     first = torch.empty((B, n_pad), dtype=torch.int32, device=ids.device)
     v = torch.empty_like(first)
     if B:
@@ -91,7 +167,7 @@ def fused_event_lif(ids: torch.Tensor, count: torch.Tensor, w: torch.Tensor,
             code = _lib().fused_event_lif(
                 ids.data_ptr(), count.data_ptr(), w.data_ptr(),
                 thresholds.data_ptr(), first.data_ptr(), v.data_ptr(), B, T,
-                E, n_in, n_pad, int(leak_shift), stream(ids))
+                E, n_in, n_pad, int(leak_shift), *plan, stream(ids))
         raise_on(code, "fused_event_lif")
         LAUNCHES["fused_event_lif"] += 1
     return LIFResult(first_spike=first, v_final=v)
@@ -100,13 +176,15 @@ def fused_event_lif(ids: torch.Tensor, count: torch.Tensor, w: torch.Tensor,
 def fused_event_lif_decode(ids: torch.Tensor, count: torch.Tensor,
                            w: torch.Tensor, thresholds: torch.Tensor,
                            leak_shift: int, *, n_out: int, n_groups: int,
-                           per_group: int, fallback: str = "membrane"
+                           per_group: int, fallback: str = "membrane",
+                           plan: LaunchPlan | None = None
                            ) -> tuple[LIFResult, torch.Tensor]:
     """Full-T megakernel with the grouped-TTFS comparator fused after the
     T-loop. ids (B, T, E_max) int32 (PAD = -1), count (B, T) int32,
     w (N_in, N_pad) int8, thresholds (N_pad,) int32 ->
-    (LIFResult over (B, N_pad), labels (B,) int32)."""
-    _check(ids, count, w, thresholds, leak_shift)
+    (LIFResult over (B, N_pad), labels (B,) int32). ``plan`` as in
+    ``fused_event_lif``."""
+    _check(ids, count, w, thresholds, leak_shift, plan)
     if n_out > w.shape[1] or n_out != n_groups * per_group:
         raise ValueError(f"n_out={n_out} must equal n_groups*per_group and "
                          f"fit in N_pad={w.shape[1]}")
@@ -119,6 +197,7 @@ def fused_event_lif_decode(ids: torch.Tensor, count: torch.Tensor,
         return LIFResult(first_spike=first, v_final=v), labels
     B, T, E = ids.shape
     n_in, n_pad = w.shape
+    plan = plan or launch_plan(T, E, n_pad)
     first = torch.empty((B, n_pad), dtype=torch.int32, device=ids.device)
     v = torch.empty_like(first)
     labels = torch.empty((B,), dtype=torch.int32, device=ids.device)
@@ -128,7 +207,8 @@ def fused_event_lif_decode(ids: torch.Tensor, count: torch.Tensor,
                 ids.data_ptr(), count.data_ptr(), w.data_ptr(),
                 thresholds.data_ptr(), first.data_ptr(), v.data_ptr(),
                 labels.data_ptr(), B, T, E, n_in, n_pad, int(leak_shift),
-                n_out, per_group, int(fallback == "membrane"), stream(ids))
+                n_out, per_group, int(fallback == "membrane"), *plan,
+                stream(ids))
         raise_on(code, "fused_event_lif_decode")
         LAUNCHES["fused_event_lif_decode"] += 1
     return LIFResult(first_spike=first, v_final=v), labels
@@ -136,17 +216,20 @@ def fused_event_lif_decode(ids: torch.Tensor, count: torch.Tensor,
 
 def fused_event_lif_early_exit(ids: torch.Tensor, count: torch.Tensor,
                                w: torch.Tensor, thresholds: torch.Tensor,
-                               leak_shift: int
+                               leak_shift: int, *,
+                               plan: LaunchPlan | None = None
                                ) -> tuple[LIFResult, torch.Tensor]:
     """Latency mode: each row stops at its first output spike. Returns
-    (LIFResult with v at exit, steps (B,) int32)."""
-    _check(ids, count, w, thresholds, leak_shift)
+    (LIFResult with v at exit, steps (B,) int32). ``plan`` as in
+    ``fused_event_lif``."""
+    _check(ids, count, w, thresholds, leak_shift, plan)
     if not ids.is_cuda:
         first, v, steps = _ref.fused_event_lif_early_exit_ref(
             ids, count, w, thresholds, leak_shift)
         return LIFResult(first_spike=first, v_final=v), steps
     B, T, E = ids.shape
     n_in, n_pad = w.shape
+    plan = plan or launch_plan(T, E, n_pad)
     first = torch.empty((B, n_pad), dtype=torch.int32, device=ids.device)
     v = torch.empty_like(first)
     steps = torch.empty((B,), dtype=torch.int32, device=ids.device)
@@ -156,7 +239,7 @@ def fused_event_lif_early_exit(ids: torch.Tensor, count: torch.Tensor,
                 ids.data_ptr(), count.data_ptr(), w.data_ptr(),
                 thresholds.data_ptr(), first.data_ptr(), v.data_ptr(),
                 steps.data_ptr(), B, T, E, n_in, n_pad, int(leak_shift),
-                stream(ids))
+                *plan, stream(ids))
         raise_on(code, "fused_event_lif_early_exit")
         LAUNCHES["fused_event_lif_early_exit"] += 1
     return LIFResult(first_spike=first, v_final=v), steps

@@ -10,7 +10,10 @@ these; on the card ``chip_smoke.py`` holds each kernel against them.
 
 The T-loop is a Python loop with one (B, E_max, N_pad) int8 gather per step,
 so the (B, T, N_pad) currents tensor is never materialized: the weight
-matrix gets one zero row and every skipped slot points at it.
+matrix gets one zero row and every skipped slot points at it. With
+``chunk=C`` (tests only) the full-T and early-exit versions follow the CUDA
+kernels' order of work instead: the currents of C steps are gathered before
+those steps are scanned, and an early exit drops what was gathered past it.
 """
 
 from __future__ import annotations
@@ -37,13 +40,24 @@ def _augment(w: torch.Tensor) -> torch.Tensor:
 
 
 def _step_currents(rows_t: torch.Tensor, w_aug: torch.Tensor) -> torch.Tensor:
-    """rows_t (B, E) row indices -> (B, N_pad) int32 currents."""
+    """rows_t (..., E) row indices -> (..., N_pad) int32 currents."""
     return w_aug[rows_t].sum(dim=-2, dtype=torch.int32)
+
+
+def _currents(rows: torch.Tensor, w_aug: torch.Tensor, chunk: int | None):
+    """Yield (t, (B, N_pad) currents of step t): one step gathered at a time,
+    or, with ``chunk``, the steps of each chunk gathered together first."""
+    T = rows.shape[1]
+    for t0 in range(0, T, chunk or 1):
+        gathered = _step_currents(rows[:, t0:t0 + (chunk or 1)], w_aug)
+        for c in range(gathered.shape[1]):
+            yield t0 + c, gathered[:, c]
 
 
 def fused_event_lif_ref(ids: torch.Tensor, count: torch.Tensor,
                         w: torch.Tensor, thresholds: torch.Tensor,
-                        leak_shift: int) -> tuple[torch.Tensor, torch.Tensor]:
+                        leak_shift: int, *, chunk: int | None = None
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """ids (B, T, E_max) int32, count (B, T) int32, w (N_in, N_pad) int8,
     thresholds (N_pad,) int32 -> (first_spike, v_final), (B, N_pad) int32."""
     B, T, _ = ids.shape
@@ -51,9 +65,8 @@ def fused_event_lif_ref(ids: torch.Tensor, count: torch.Tensor,
     w_aug = _augment(w)
     v = torch.zeros((B, w.shape[1]), dtype=torch.int32, device=w.device)
     first = torch.full_like(v, T)
-    for t in range(T):
-        v, first = lif_step(v, first, _step_currents(rows[:, t], w_aug),
-                            thresholds, leak_shift, t, T)
+    for t, i_t in _currents(rows, w_aug, chunk):
+        v, first = lif_step(v, first, i_t, thresholds, leak_shift, t, T)
     return first, v
 
 
@@ -74,7 +87,7 @@ def fused_event_lif_decode_ref(ids: torch.Tensor, count: torch.Tensor,
 
 def fused_event_lif_early_exit_ref(ids: torch.Tensor, count: torch.Tensor,
                                    w: torch.Tensor, thresholds: torch.Tensor,
-                                   leak_shift: int
+                                   leak_shift: int, *, chunk: int | None = None
                                    ) -> tuple[torch.Tensor, torch.Tensor,
                                               torch.Tensor]:
     """Latency mode: each row integrates until ANY of its N_pad lanes has
@@ -87,11 +100,10 @@ def fused_event_lif_early_exit_ref(ids: torch.Tensor, count: torch.Tensor,
     first = torch.full_like(v, T)
     steps = torch.zeros((B,), dtype=torch.int32, device=w.device)
     active = torch.ones((B,), dtype=torch.bool, device=w.device)
-    for t in range(T):
+    for t, i_t in _currents(rows, w_aug, chunk):
         if not bool(active.any()):
             break
-        v_t, first_t = lif_step(v, first, _step_currents(rows[:, t], w_aug),
-                                thresholds, leak_shift, t, T)
+        v_t, first_t = lif_step(v, first, i_t, thresholds, leak_shift, t, T)
         v = torch.where(active[:, None], v_t, v)
         first = torch.where(active[:, None], first_t, first)
         steps += active.to(torch.int32)
