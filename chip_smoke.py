@@ -7,7 +7,11 @@ Phases (any failure exits non-zero; nothing is caught):
 
   1. build   — compile every CUDA source (csrc/*.cu) with nvcc (sm_90a), one
                process each, all at once; print the wall time and the ptxas
-               report;
+               report; count the int8 warpgroup MMAs (IGMMA ... S8.S8) in
+               the built spike_matmul library's SASS (cuobjdump -sass: must
+               be non-zero) and check that event_accum's kernels hold no
+               shared memory (no ids staged, nothing that grows with
+               E_max);
   2. kernels — each of the seven SNN kernels against its plain PyTorch version
                on the card, bit for bit (tolerance 0: all arithmetic is
                integer), at the MNIST serving shape (B = 64, with an all-PAD
@@ -33,7 +37,18 @@ Phases (any failure exits non-zero; nothing is caught):
                middle of a row), ttfs_decode tie-heavy rows under both
                fallbacks, and spike_matmul a random int8 product with ragged
                edges; the staged kernels' state must equal the fused
-               kernels';
+               kernels'. Rows wider than one block run on a thread-block
+               cluster: flood layers at N_pad 8192 (2 blocks) and at
+               MAX_N_PAD 32,768 (8 blocks), each with a row whose only
+               early exit fires in a lane of the cluster's last block; a
+               straddle layer (N_pad 8192) whose winning group spans the
+               two blocks, with ties across them, under both fallbacks; and
+               N_pad 4097 (the smallest cluster, bytewise row loads). The
+               plan grid adds cluster plans and wide rows. event_accum also
+               takes E_max 16,384 and the bytewise layers; spike_matmul its
+               TMA and its masked route (asserted by ops.ROUTES) on ragged
+               M/K/N, K 140,000 and 131,075, a misaligned raster, and an
+               int8 product whose int32 sums wrap;
   3. main path — five serving runs over the 10,000 procedural MNIST test
                images, each with every launch counter set to 0 just before
                its requests and read just after its flush: SNNServeEngine on
@@ -41,7 +56,9 @@ Phases (any failure exits non-zero; nothing is caught):
                CUDA kernels (kernel="cuda", full-T and latency mode), and
                ServingScheduler(spec="accelerator-batch", kernel="cuda").
                Each run must launch each kernel of its path once per served
-               batch and no other kernel, and serve the JAX reference's
+               batch and no other kernel (batch-cuda's spike_matmul on its
+               TMA route, reading the program's K-major weight copy), and
+               serve the JAX reference's
                labels (and latency steps), exported in src/repro_torch/
                assets. Outside the counted runs, the fuzz artifacts are
                served and run through the fused and both -cuda accelerator
@@ -101,12 +118,17 @@ Phases (any failure exits non-zero; nothing is caught):
                one wrapper call as a caller pays it, its plain version's time
                (CUDA events around one call, median of 50), the device time
                of the one PyTorch call that computes the same function where
-               there is one (torch._int_mm for spike_matmul, scaled_dot_
-               product_attention for attention), and the least time the card
+               there is one (torch._int_mm for spike_matmul, F.embedding_bag
+               (mode "sum", padding_idx n_in, float32 weights with a zero
+               row, ids remapped: exact while 127 * E_max < 2**24) for
+               event_accum, scaled_dot_product_attention for attention), and
+               the least time the card
                could take for the same work (bound), beside the launch floor
                (a trivial kernel, zero_ on 64 int32, timed the same way);
                then kernels 1 and 2 at a chunk of T and of 8 steps, in turns
-               (both take the longest chunk that fits). The tensor-core kernel
+               (both take the longest chunk that fits), and on the serving
+               batch's events with random weights of N_pad 4096, 8192 and
+               32,768 (one block, clusters of 2 and of 8). The tensor-core kernel
                is timed at (B 1, Hq 32, Hkv 8, S 4096, D 128, causal, bf16),
                and once more at S 32,768 (fewer samples, no plain version:
                its scores would take 137 GB) and at the prefill's own
@@ -125,6 +147,7 @@ import hashlib
 import io
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -391,6 +414,21 @@ def main() -> int:
           f"{time.perf_counter() - t0:.2f} s")
     for log in build.build_logs.values():
         print(log.rstrip())
+    # spike_matmul runs on the int8 tensor cores: its SASS holds int8
+    # warpgroup MMAs; event_accum stages nothing in shared memory
+    cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass",
+                           str(build.library_path("spike_matmul"))],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout.splitlines()
+    igmma = [ln.strip() for ln in sass if "IGMMA" in ln and "S8.S8" in ln]
+    check(len(igmma) > 0, "spike_matmul's SASS holds no int8 warpgroup MMA")
+    print(f"[build] spike_matmul SASS: {len(igmma)} int8 warpgroup MMA "
+          f"instructions, e.g. {igmma[0].split(';')[0]}")
+    check(re.search(r"\d+ bytes smem", build.build_logs["event_accum"])
+          is None, "an event_accum kernel holds shared memory")
+    print("[build] event_accum's kernels: no shared memory (ptxas; the "
+          "launch asks for no dynamic shared memory either)")
 
     # ------------------------------------------------------------ fixtures
     art = Artifact.load(os.path.join(ASSETS, "mnist_ttfs.npz"))
@@ -481,6 +519,63 @@ def main() -> int:
                                  w=torch.from_numpy(w).to(dev),
                                  thr=torch.from_numpy(thr).to(dev)), times))
 
+    # wide flood layers on a thread-block cluster (N_pad 8192: 2 blocks;
+    # MAX_N_PAD: 8), the flood's rows 0-2 plus row 3, whose only input
+    # (input 0, at t 10) drives only lane L of the cluster's last block over
+    # its threshold: the row's only early exit, after step 11, is found in
+    # that block
+    FLOOD_EXIT_STEPS = 11
+    for n_pad, B_f, per_group in ((8192, 8, 500), (ops.MAX_N_PAD, 4, 2000)):
+        n_in, n_out, T = 1024, 16 * per_group, 32
+        lane_l = n_out - 5
+        plan_f = ops.launch_plan(T, n_in, n_pad)
+        check(lane_l >= (plan_f.cluster - 1) * ops.slice_lanes(
+            n_pad, plan_f.cluster), f"flood{n_pad}: lane {lane_l} is not in "
+              f"the cluster's last block")
+        w = np.zeros((n_in, n_pad), np.int8)
+        w[1:, :n_out] = rng.randint(-127, 128, (n_in - 1, n_out))
+        w[0, lane_l] = 127
+        thr = np.full((n_pad,), 2**31 - 1, np.int32)
+        thr[:n_out] = rng.randint(2000, 60000, n_out)
+        thr[lane_l] = 100
+        times = rng.randint(0, T + 1, (B_f, n_in))
+        times[0], times[1], times[2] = 5, T, np.arange(n_in) % T
+        times[3] = T
+        times[3, 0] = FLOOD_EXIT_STEPS - 1
+        cases.append((f"flood{n_pad}", dict(
+            T=T, e_max=n_in, leak_shift=4, n_out=n_out, n_groups=16,
+            per_group=per_group, fallback="membrane",
+            w=torch.from_numpy(w).to(dev), thr=torch.from_numpy(thr).to(dev)),
+            times))
+    # straddle: N_pad 8192 on 2 blocks of 4096 lanes, groups of 12, so group
+    # 341 spans lanes 4092-4103 across the blocks. Input 0 drives lane 4100
+    # (block 1, group 341) over its threshold, input 1 lane 4091 (block 0,
+    # group 340); inputs 2 and 3 drive both below it (ties in v, and lane
+    # 4100 ahead). Rows: only 4100 fires (341); both fire at one step, the
+    # first lane wins (340); 4100 fires first (341); no spike, v tied across
+    # the blocks (membrane: 340); no spike, 4100 ahead (membrane: 341); an
+    # all-PAD row (membrane: lane 0's group). Held under both fallbacks.
+    n_in, n_pad, per_group, T = 16, 8192, 12, 16
+    n_out = 682 * per_group
+    w = np.zeros((n_in, n_pad), np.int8)
+    w[0, 4100] = w[1, 4091] = 127
+    w[2, 4100] = w[2, 4091] = 50
+    w[3, 4100], w[3, 4091] = 60, 50
+    thr = np.full((n_pad,), 2**31 - 1, np.int32)
+    thr[4091] = thr[4100] = 100
+    times = np.full((6, n_in), T)
+    times[0, 0] = times[1, 0] = times[1, 1] = 3
+    times[2, 0], times[2, 1] = 2, 5
+    times[3, 2] = times[4, 3] = 4
+    STRADDLE_LABELS = {"membrane": [341, 340, 341, 340, 341, 0],
+                       "zero": [341, 340, 341, 0, 0, 0]}
+    for fallback in STRADDLE_LABELS:
+        cases.append((f"straddle/{fallback}", dict(
+            T=T, e_max=n_in, leak_shift=4, n_out=n_out, n_groups=682,
+            per_group=per_group, fallback=fallback,
+            w=torch.from_numpy(w).to(dev), thr=torch.from_numpy(thr).to(dev)),
+            times))
+
     max_err = {name: 0 for name in KERNELS}
 
     def hold(kname: str, got, want, case: str) -> None:
@@ -543,6 +638,21 @@ def main() -> int:
               f"{steps.tolist() if len(steps) <= 16 else '...'}")
         return res, labels, steps
 
+    def hold_event_accum(name, ids, wt, vector):
+        """event_accum bit for bit against its plain version, with the row
+        loads the launch must take (``vector`` or bytewise) asserted."""
+        cur = ea.event_accum(ids, wt)
+        load = ea._lib().event_accum_row_load_bytes(
+            wt.data_ptr(), cur.data_ptr(), wt.shape[1])
+        check((load > 1) == vector, f"event_accum on {name}: rows load "
+              f"{load} bytes a lane at once, expected "
+              f"{'a vector' if vector else 'bytewise'}")
+        hold("event_accum", (cur,), (ea_ref.event_accum_ref(ids, wt),), name)
+        print(f"[kernels] event_accum on {name}: E_max={ids.shape[-1]} "
+              f"N_pad={wt.shape[1]}, row loads "
+              f"{f'{load}-byte vectors' if vector else 'bytewise'}: bit-exact")
+        return cur
+
     no_spike = {"membrane": 0, "zero": 0}
     negative_v = 0
     for name, a, times in cases:
@@ -559,9 +669,16 @@ def main() -> int:
             check(tuple(steps[:4].tolist()) == NARROW_STEPS,
                   f"narrow: rows 0-3 exit after {steps[:4].tolist()} steps, "
                   f"built to exit after {NARROW_STEPS}")
+        if name.startswith("flood") and name != "flood":
+            check(int(steps[3]) == FLOOD_EXIT_STEPS,
+                  f"{name}: row 3 exits after {int(steps[3])} steps, built "
+                  f"to exit after {FLOOD_EXIT_STEPS} in the last block")
+        if name.startswith("straddle/"):
+            want_l = STRADDLE_LABELS[a["fallback"]]
+            check(labels.tolist() == want_l, f"{name}: labels "
+                  f"{labels.tolist()}, built to be {want_l}")
         # the staged kernels (4-7)
-        cur = ea.event_accum(ids, wt)
-        hold("event_accum", (cur,), (ea_ref.event_accum_ref(ids, wt),), name)
+        cur = hold_event_accum(name, ids, wt, vector=True)
         perm = torch.from_numpy(np.random.RandomState(1).permutation(
             ids.shape[2])).to(dev)
         shuffled = ids[..., perm].contiguous()        # PAD mid-row
@@ -599,14 +716,15 @@ def main() -> int:
               f"leak_shift={ls} fallback={a['fallback']} "
               f"events={int(count.sum())} no-spike rows={int(silent.sum())}: "
               f"all seven kernels bit-exact")
-    # rows loaded byte by byte (kernels 1-3 only): an N_pad that is not a
-    # multiple of the columns a lane owns (99: 4 a lane; 130: 8, T 33; 1000:
-    # 16, 2 lanes a thread and 2 warps a step), thresholds from thr_lo up
-    # that spread the early exits over T, each with an all-PAD row; and the
-    # MNIST case with its weights copied to an odd address
+    # rows loaded byte by byte (kernels 1-3 and event_accum): an N_pad that
+    # is not a multiple of the columns a lane owns (99: 4 a lane; 130: 8,
+    # T 33; 1000: 16, 2 lanes a thread and 2 warps a step; 4097: the
+    # smallest cluster, 2 blocks of 2064 and 2033 lanes), thresholds from
+    # thr_lo up that spread the early exits over T, each with an all-PAD
+    # row; and the MNIST case with its weights copied to an odd address
     for n_in, n_pad, n_groups, per_group, T_b, thr_lo in (
             (50, 99, 8, 12, 16, 250), (200, 130, 10, 13, 33, 600),
-            (300, 1000, 10, 100, 32, 1000)):
+            (300, 1000, 10, 100, 32, 1000), (300, 4097, 16, 256, 32, 1000)):
         n_out = n_groups * per_group
         w = np.zeros((n_in, n_pad), np.int8)
         w[:, :n_out] = rng.randint(-127, 128, (n_in, n_out))
@@ -615,11 +733,13 @@ def main() -> int:
         times = rng.randint(0, T_b + 1, (12, n_in))
         times[-1] = T_b
         frames = pack_events_batched(times, T_b, n_in, device=dev)
-        hold_fused(f"ragged{n_pad}", frames.ids, frames.count,
-                   torch.from_numpy(w).to(dev), torch.from_numpy(thr).to(dev),
+        w_r = torch.from_numpy(w).to(dev)
+        hold_fused(f"ragged{n_pad}", frames.ids, frames.count, w_r,
+                   torch.from_numpy(thr).to(dev),
                    3, dict(n_out=n_out, n_groups=n_groups,
                            per_group=per_group, fallback="membrane"),
                    vector=False)
+        hold_event_accum(f"ragged{n_pad}", frames.ids, w_r, vector=False)
     _, a, times = cases[0]
     frames = pack_events_batched(times, a["T"], a["e_max"], device=dev)
     odd = torch.empty(a["w"].numel() + 1, dtype=torch.int8, device=dev)
@@ -632,6 +752,16 @@ def main() -> int:
                dict(n_out=a["n_out"], n_groups=a["n_groups"],
                     per_group=a["per_group"], fallback=a["fallback"]),
                vector=False)
+    hold_event_accum("mnist, w at an odd address", frames.ids, w_odd,
+                     vector=False)
+    # E_max 16,384 (past the 12,000 slots the first kernel staged in shared
+    # memory): PAD in the middle of every row and ids at or past N_in
+    ids_e = rng.randint(0, 300, (4, 2, 16_384)).astype(np.int32)
+    ids_e[..., 5000:9000] = -1
+    ids_e[:, 1, ::7] = 300 + 7
+    hold_event_accum("E_max 16384", torch.from_numpy(ids_e).to(dev),
+                     torch.from_numpy(rng.randint(-127, 128, (300, 256))
+                                      .astype(np.int8)).to(dev), vector=True)
     # a plan the kernels cannot run is refused before the launch: by the
     # wrapper (ValueError), and by the C entry point (cudaErrorInvalidValue,
     # outputs untouched)
@@ -658,20 +788,27 @@ def main() -> int:
     # the host's test of a plan (ops.check_plan) and the entry points'
     # (fused_event_lif_plan_ok) agree: each launch plan is taken, and so is
     # each change of one of its fields exactly when check_plan takes it
+    # (a cluster with its slice's shared memory, or with the plan's own)
     n_plans = 0
     for T_p in (1, 8, 32, 33, 64):
         for E_p in (1, 128, 1024):
-            for N_p in (1, 99, 128, 130, 256, 1000, 2048, 4096):
+            for N_p in (1, 99, 128, 130, 256, 1000, 2048, 4096, 4097, 8192,
+                        12_289, ops.MAX_N_PAD):
                 for c in (None, 8, 1):
                     p = ops.launch_plan(T_p, E_p, N_p, c)
+                    width = ops.slice_lanes(N_p, p.cluster)
                     variants = [p] + [
                         p._replace(threads=x) for x in (
                             p.threads - 32, p.threads + 32, 48, 1024)] + [
                         p._replace(lanes_per_thread=x)
                         for x in (1, 2, 3, 4, 8, 16)] + [
-                        p._replace(chunk=x, smem_bytes=4 * x * N_p)
+                        p._replace(chunk=x, smem_bytes=4 * x * width)
                         for x in (0, T_p, T_p + 1)] + [
-                        p._replace(smem_bytes=p.smem_bytes + 4)]
+                        p._replace(smem_bytes=p.smem_bytes + 4)] + [
+                        p._replace(cluster=k, smem_bytes=4 * p.chunk
+                                   * ops.slice_lanes(N_p, k))
+                        for k in (1, 2, 3, 4, 8, 16)] + [
+                        p._replace(cluster=k) for k in (0, 2, 4)]
                     for q in variants:
                         try:
                             ops.check_plan(q, T_p, E_p, N_p)
@@ -687,8 +824,11 @@ def main() -> int:
                               f"entry points "
                               f"{'take' if card_ok else 'refuse'} it")
                         n_plans += 1
-    check(lib.fused_event_lif_plan_ok(32, 128, 4097, 512, 8, 1, 4 * 4097) == 0,
-          "the entry points take N_pad 4097")
+    over = ops.MAX_N_PAD + 1
+    check(all(lib.fused_event_lif_plan_ok(32, 128, over, 512, 8, 1,
+                                          4 * ops.slice_lanes(over, k),
+                                          k) == 0 for k in (8, 16)),
+          f"the entry points take N_pad {over}")
     print(f"[kernels] ops.check_plan and the entry points' test agree on "
           f"{n_plans} plans (every launch plan taken)")
     check(negative_v > 0, "no negative membrane was exercised")
@@ -706,15 +846,42 @@ def main() -> int:
         hold("ttfs_decode", (dec.ttfs_decode(first_t, v_t, **dkw),),
              (dec_ref.ttfs_decode_ref(first_t, v_t, **dkw),),
              f"ties/{fallback}")
-    # any int8 with ragged edges: M = 777, K = 129, N = 200
-    a8 = torch.from_numpy(rng.randint(-128, 128, (7, 111, 129))
-                          .astype(np.int8)).to(dev)
-    b8 = torch.from_numpy(rng.randint(-128, 128, (129, 200))
-                          .astype(np.int8)).to(dev)
-    hold("spike_matmul", (smm.spike_matmul(a8, b8),),
-         (smm_ref.spike_matmul_ref(a8, b8),), "random int8 777x129x200")
+    # spike_matmul on both routes (ops.ROUTES): any int8 with ragged edges,
+    # K past 131,072, a raster at a misaligned address, and sums that wrap
+    def int8s(shape, lo=-128, hi=128):
+        return torch.from_numpy(rng.randint(lo, hi, shape)
+                                .astype(np.int8)).to(dev)
+
+    misaligned = int8s((70 * 144 + 1,))[1:].view(70, 144)
+    wrap_a = torch.full((4, 140_000), -128, dtype=torch.int8, device=dev)
+    wrap_a[1] = 127
+    for what, a8, b8, route in (
+            ("random int8 777x129x200", int8s((7, 111, 129)),
+             int8s((129, 200)), "masked"),
+            ("random int8 777x144x200", int8s((7, 111, 144)),
+             int8s((144, 200)), "tma"),
+            ("{0,1} 100x140000x72", int8s((100, 140_000), 0, 2),
+             int8s((140_000, 72)), "tma"),
+            ("random int8 70x131075x24", int8s((70, 131_075)),
+             int8s((131_075, 24)), "masked"),
+            ("misaligned raster 70x144x40", misaligned, int8s((144, 40)),
+             "masked"),
+            ("int32 wrap 4x140000x16", wrap_a,
+             torch.full((140_000, 16), -128, dtype=torch.int8, device=dev),
+             "tma")):
+        smm.reset_launches()
+        got = smm.spike_matmul(a8, b8)
+        check(smm.ROUTES[route] == 1 and sum(smm.ROUTES.values()) == 1,
+              f"spike_matmul on {what}: routes {smm.ROUTES}, expected "
+              f"{route}")
+        want = smm_ref.spike_matmul_ref(a8, b8)
+        if what.startswith("int32 wrap"):        # 140,000 * 128 * 128 wraps
+            check(int(want[0, 0]) == 140_000 * 128 * 128 - 2**32,
+                  "the plain version does not wrap the int32 sum")
+        hold("spike_matmul", (got,), (want,), what)
+        print(f"[kernels] spike_matmul {what}: {route} route, bit-exact")
     print(f"[kernels] negative membranes {negative_v}, no-spike rows per "
-          f"fallback {no_spike}; tie-heavy decode and a ragged int8 product "
+          f"fallback {no_spike}; tie-heavy decode and the int8 products "
           f"bit-exact; max |err| {max_err}")
 
     # ------------------------------------------------------------ 3 main path
@@ -764,6 +931,10 @@ def main() -> int:
             launches[kname] += n
         check(all(counts[k] > 0 for k in per_batch),
               f"{run}: a kernel of the path was never launched")
+        if "spike_matmul" in per_batch:        # the tensor maps' route
+            check(smm.ROUTES == {"tma": counts["spike_matmul"], "masked": 0},
+                  f"{run}: spike_matmul routes {smm.ROUTES}, expected every "
+                  f"launch on TMA")
         labels = np.asarray([r.label for r in reqs], np.int32)
         steps = np.asarray([r.steps for r in reqs], np.int32)
         latency = run.endswith("latency")
@@ -1203,6 +1374,19 @@ def main() -> int:
     v_l = state.v_final[:, :prog.n_out]
     raster = frames_from_times(torch.from_numpy(times).to(dev), prog.T)
     raster_2d = raster.view(-1, prog.n_in)
+    w_t = smm.k_major(prog.w_padded)      # the batch path's cached copy
+    # event_accum's library call: one embedding_bag over float32 weights
+    # with a zero row at n_in, the skipped slots pointing at it (exact while
+    # 127 * E_max < 2**24)
+    check(127 * prog.e_max < 2**24, "E_max too large for a float32 sum")
+    w_bag = torch.cat([prog.w_padded.float(),
+                       prog.w_padded.new_zeros((1, prog.n_pad)).float()])
+    ids_bag = torch.where((ids >= 0) & (ids < prog.n_in), ids,
+                          prog.n_in).view(-1, ids.shape[-1])
+
+    def embedding_bag():
+        return F.embedding_bag(ids_bag, w_bag, mode="sum",
+                               padding_idx=prog.n_in)
     fns = {
         "fused_event_lif_decode": (
             lambda: ops.fused_event_lif_decode(*args, **dec_kw),
@@ -1214,7 +1398,7 @@ def main() -> int:
             lambda: ops.fused_event_lif(*args),
             lambda: ref.fused_event_lif_ref(*args), None),
         "spike_matmul": (
-            lambda: smm.spike_matmul(raster, prog.w_padded),
+            lambda: smm.spike_matmul(raster, prog.w_padded, w_t=w_t),
             lambda: smm_ref.spike_matmul_ref(raster, prog.w_padded),
             lambda: torch._int_mm(raster_2d, prog.w_padded)),
         "lif_fused": (
@@ -1226,8 +1410,13 @@ def main() -> int:
             lambda: dec_ref.ttfs_decode_ref(first_l, v_l, **dkw), None),
         "event_accum": (
             lambda: ea.event_accum(ids, prog.w_padded),
-            lambda: ea_ref.event_accum_ref(ids, prog.w_padded), None),
+            lambda: ea_ref.event_accum_ref(ids, prog.w_padded),
+            embedding_bag),
     }
+    LIBRARY = {"spike_matmul": "torch._int_mm",
+               "event_accum": "F.embedding_bag",
+               "flash_attention_sm90": "scaled_dot_product_attention",
+               "flash_attention": "scaled_dot_product_attention"}
     # attention at Qwen3-8B's head shape, causal, S = 4096 (and 32,768
     # below): each kernel, its plain version, and SDPA as the library call;
     # bf16 on the tensor-core kernel, float32 on the CUDA-core kernel
@@ -1263,8 +1452,10 @@ def main() -> int:
           f"|difference| {float((got - lib).abs().max()):.3g}")
     del got, lib
     check(torch.equal(torch._int_mm(raster_2d, prog.w_padded),
-                      smm.spike_matmul(raster_2d, prog.w_padded)),
+                      smm.spike_matmul(raster_2d, prog.w_padded, w_t=w_t)),
           "torch._int_mm, the yardstick, differs from spike_matmul")
+    check(torch.equal(embedding_bag().to(torch.int32).view(cur.shape), cur),
+          "F.embedding_bag, the yardstick, differs from event_accum")
 
     def call_ms(fn, runs=TIMING_RUNS, warm=5) -> float:
         """One call as a caller pays it: CUDA events around the call, host
@@ -1399,10 +1590,8 @@ def main() -> int:
                      "bound_ms": 1e3 * max(t_bytes, t_ops),
                      "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                      "library_ms": library_ms})
-        lib_name = ("scaled_dot_product_attention" if attention
-                    else "torch._int_mm")
         lib_txt = ("none" if library_ms is None
-                   else f"{library_ms:.4f} ms ({lib_name}, alone)")
+                   else f"{library_ms:.4f} ms ({LIBRARY[kname]}, alone)")
         shape_txt = (f"B=1 Hq={cfg.n_heads} Hkv={cfg.n_kv_heads} S={S0} "
                      f"D={cfg.d_head} causal "
                      f"{'float32' if kname == 'flash_attention' else 'bf16'}"
@@ -1433,6 +1622,39 @@ def main() -> int:
             print(f"[times] {kname} at chunk {c}, plan {tuple(p)}: kernel "
                   f"alone {ms:.4f} ms{' (its plan)' if p == default else ''}"
                   f" — card: {card}")
+
+    # kernels 1 and 2 on rows wider than one block: the serving batch's
+    # events through random weights of N_pad 4096 (one block), 8192 (a
+    # cluster of 2) and MAX_N_PAD (8), each held once to its plain version
+    for n_pad in (4096, 8192, ops.MAX_N_PAD):
+        g = torch.Generator(dev).manual_seed(n_pad)
+        w_w = torch.randint(-127, 128, (prog.n_in, n_pad), generator=g,
+                            device=dev, dtype=torch.int8)
+        thr_w = torch.randint(2000, 20000, (n_pad,), generator=g, device=dev,
+                              dtype=torch.int32)
+        args_w = (ids, count, w_w, thr_w, prog.leak_shift)
+        kw_w = dict(n_out=n_pad, n_groups=16, per_group=n_pad // 16)
+        p = ops.launch_plan(T_, E, n_pad)
+        r_w, l_w = ops.fused_event_lif_decode(*args_w, **kw_w)
+        same((r_w.first_spike, r_w.v_final, l_w),
+             ref.fused_event_lif_decode_ref(*args_w, **kw_w),
+             f"kernel 1 differs from the plain version at N_pad {n_pad}")
+        x_w, s_w = ops.fused_event_lif_early_exit(*args_w)
+        same((x_w.first_spike, x_w.v_final, s_w),
+             ref.fused_event_lif_early_exit_ref(*args_w),
+             f"kernel 2 differs from the plain version at N_pad {n_pad}")
+        for kname, fn in (
+                ("fused_event_lif_decode",
+                 lambda: ops.fused_event_lif_decode(*args_w, **kw_w)),
+                ("fused_event_lif_early_exit",
+                 lambda: ops.fused_event_lif_early_exit(*args_w))):
+            ms = kernel_ms(fn)[0]
+            print(f"[times] {kname} at N_pad {n_pad}, plan {tuple(p)} "
+                  f"(cluster {p.cluster}), B={B} T={T_} E_max={E} "
+                  f"N_in={K}, steps in latency mode "
+                  f"{int(s_w.sum())}: kernel alone {ms:.4f} ms — card: "
+                  f"{card}")
+        del w_w
 
     # attention at S = 32,768: a few samples, no plain version (its scores
     # would take 137 GB)

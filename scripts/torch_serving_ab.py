@@ -14,10 +14,13 @@ once on 256 images to warm up, and then:
     serving paths of chip_smoke.py's phase 3 and keeps each path's system
     and accelerator µs per image (``SNNServeEngine``/``ServingScheduler``
     stats);
-  * times one wrapper call of the fused kernels 1-3 at the serving shape
-    (B 64): the kernel alone and the wrapper's host time a call, 20 calls
-    queued behind a spin kernel, median of 50, as chip_smoke.py's phase 7
-    does; and, where the tree has one, the cached ``launch_plan`` lookup.
+  * times one wrapper call of the fused kernels 1-3, ``event_accum`` and
+    ``spike_matmul`` at the serving shape (B 64): the kernel alone and the
+    wrapper's host time a call, 20 calls queued behind a spin kernel, median
+    of 50, as chip_smoke.py's phase 7 does (``spike_matmul`` with the
+    weights' K-major copy where the tree's wrapper takes one, as its batch
+    path does); and, where the tree has one, the cached ``launch_plan``
+    lookup.
 
 Each process prints one JSON line; the last line of the whole run is one
 JSON object with, per metric and tree, every sample, the median and the
@@ -59,10 +62,12 @@ def one(tree: str) -> dict:
     from repro_torch.core.artifact import Artifact
     from repro_torch.core.events import pack_events_batched
     from repro_torch.core.lowering import lower
-    from repro_torch.core.ttfs import encode_ttfs
+    from repro_torch.core.ttfs import encode_ttfs, frames_from_times
     from repro_torch.data import mnist
     from repro_torch.kernels import build
+    from repro_torch.kernels.event_accum import ops as ea
     from repro_torch.kernels.fused_event_lif import ops
+    from repro_torch.kernels.spike_matmul import ops as smm
     from repro_torch.serving.scheduler import ServingScheduler
     from repro_torch.serving.snn_engine import SNNServeEngine
 
@@ -122,7 +127,15 @@ def one(tree: str) -> dict:
                lambda: ops.fused_event_lif_decode(*args, **dec_kw),
            "fused_event_lif_early_exit":
                lambda: ops.fused_event_lif_early_exit(*args),
-           "fused_event_lif": lambda: ops.fused_event_lif(*args)}
+           "fused_event_lif": lambda: ops.fused_event_lif(*args),
+           "event_accum": lambda: ea.event_accum(frames.ids, prog.w_padded)}
+    raster = frames_from_times(torch.from_numpy(times).to(dev), prog.T)
+    if hasattr(smm, "k_major"):
+        w_t = smm.k_major(prog.w_padded)
+        fns["spike_matmul"] = lambda: smm.spike_matmul(raster, prog.w_padded,
+                                                       w_t=w_t)
+    else:
+        fns["spike_matmul"] = lambda: smm.spike_matmul(raster, prog.w_padded)
     for kname, fn in fns.items():
         for _ in range(5):
             fn()

@@ -23,7 +23,9 @@ planner emitted:
     ``spike_matmul`` (batch mode) writes the (B, T, N_pad) int32 currents,
     then ``lif_fused`` and ``ttfs_decode``. Latency mode replaces
     ``lif_fused`` by the per-row early-exit scan in PyTorch, as JAX runs
-    ``lif_scan_early_exit`` in ``jnp``. No float32 weight copy is built.
+    ``lif_scan_early_exit`` in ``jnp``. No float32 weight copy is built;
+    batch mode keeps the weights' K-major int8 copy, which the tensor cores
+    read, in the program cache's bundle tier.
   * ``"torch"`` — the same staged pipeline in plain PyTorch (the kernels'
     plain versions); batch mode's product is float32 (exact; see
     ``core.reference``), with the weight copy in the program cache's bundle
@@ -86,12 +88,19 @@ class SNNAccelerator:
         self.n_out = prog.n_out
         self.w_padded = prog.w_padded          # (N_in, N_pad) int8
         self.thr_padded = prog.thr_padded      # (N_pad,) int32
-        if mode == "batch" and kernel == "torch":
+        if mode == "batch":
+            # the product's weight copy, made once per program: float32 for
+            # the plain product, K-major int8 for the tensor-core kernel
+            make = ((lambda: {"w_t": smm_ops.k_major(prog.w_padded)})
+                    if kernel == "cuda" else
+                    (lambda: {"w_f32": prog.w_padded.to(torch.float32)}))
             bundle, self.cache_hit = get_cache().bundle(
-                ("accelerator", *prog.cache_key, mode, kernel),
-                lambda: {"w_f32": prog.w_padded.to(torch.float32)},
+                ("accelerator", *prog.cache_key, mode, kernel), make,
                 nbytes=program_nbytes(prog))
-            self._w_f32 = bundle["w_f32"]
+            if kernel == "cuda":
+                self._w_t = bundle["w_t"]
+            else:
+                self._w_f32 = bundle["w_f32"]
 
     # ------------------------------------------------------------- pipelines
     def _decode(self, first: torch.Tensor, v: torch.Tensor, steps):
@@ -129,7 +138,8 @@ class SNNAccelerator:
         times = ttfs.encode_ttfs(images, self.T, self.x_min)
         raster = ttfs.frames_from_times(times, self.T)         # (B, T, N_in)
         if self.kernel == "cuda":
-            currents = smm_ops.spike_matmul(raster, self.w_padded)
+            currents = smm_ops.spike_matmul(raster, self.w_padded,
+                                            w_t=self._w_t)
         else:
             currents = spike_currents(raster, self._w_f32)     # (B, T, N_pad)
         return self._staged(currents, latency_mode=False)

@@ -156,9 +156,10 @@ def program_fingerprint(art_fp: str, scalars: dict[str, Any]) -> str:
 REQUIRED_ARRAYS = ("w_float", "w_int8", "thresholds", "w_padded",
                    "thr_padded")
 
-#: the integer GEMM runs as a float32 product of the {0,1} raster and the
-#: int8 weights; every partial sum is an integer of magnitude at most
-#: 127 * n_in, exact in float32 while that stays below 2**24
+#: the plain integer GEMM runs as float32 products of the {0,1} raster and
+#: the int8 weights over slices of at most this many inputs: every partial
+#: sum of a slice is an integer of magnitude at most 127 * rows, exact in
+#: float32 while that stays below 2**24 (``core.reference.spike_currents``)
 MAX_EXACT_N_IN = (2 ** 24 - 1) // 127
 
 
@@ -197,10 +198,6 @@ def _lower_uncached(art: Artifact, device: torch.device) -> LoweredProgram:
         raise LoweringError(
             f"readout geometry n_groups*per_group = {n_groups}*{per_group} "
             f"!= model.n_out = {n_out}")
-    if n_in > MAX_EXACT_N_IN:
-        raise LoweringError(
-            f"model.n_in={n_in} > {MAX_EXACT_N_IN}: 127*n_in reaches 2**24 "
-            f"and the float32 integer GEMM would no longer be exact")
     n_pad = int(art["thr_padded"].shape[0])
     if art["w_padded"].shape != (n_in, n_pad):
         raise LoweringError(

@@ -8,9 +8,12 @@ The per-step synaptic currents are an integer product of the {0,1} spike
 raster and the int8 weights. torch has no exact int32 GEMM on the card
 (``int8 @ int8`` wraps to int8), so the product runs in float32 and is cast
 back to int32: every partial sum is an integer of magnitude at most
-127 * n_in, exact in float32 while that stays below 2**24 (``lower`` rejects
-wider inputs). The reference sets ``torch.backends.cuda.matmul.allow_tf32 =
-False`` for this product, so the float32 GEMM runs in full float32.
+127 * K, exact in float32 while that stays below 2**24. Wider inputs are
+split over K in slices of at most ``MAX_EXACT_N_IN`` rows, each an exact
+float32 product, whose int32 partial sums are added (at MNIST's n_in of 784
+one slice, one product). The reference sets
+``torch.backends.cuda.matmul.allow_tf32 = False`` for this product, so the
+float32 GEMM runs in full float32.
 
 The float32 weight copy lives in the program cache's bundle tier, so two
 ``SNNReference`` instances over one program on one device share it. The
@@ -24,8 +27,8 @@ import torch
 from repro_torch.core import ttfs
 from repro_torch.core.artifact import Artifact
 from repro_torch.core.lif_dynamics import lif_scan
-from repro_torch.core.lowering import (LoweredProgram, get_cache, lower,
-                                       program_nbytes)
+from repro_torch.core.lowering import (MAX_EXACT_N_IN, LoweredProgram,
+                                       get_cache, lower, program_nbytes)
 from repro_torch.core.types import SNNOutput, decode_output
 
 
@@ -34,7 +37,13 @@ def spike_currents(raster: torch.Tensor, w_f32: torch.Tensor) -> torch.Tensor:
     -> (B, T, N) int32 currents, exact (see the module docstring)."""
     if w_f32.is_cuda:
         torch.backends.cuda.matmul.allow_tf32 = False
-    return torch.matmul(raster.to(torch.float32), w_f32).to(torch.int32)
+    x = raster.to(torch.float32)
+    out = None
+    for k0 in range(0, w_f32.shape[0], MAX_EXACT_N_IN):
+        part = torch.matmul(x[..., k0:k0 + MAX_EXACT_N_IN],
+                            w_f32[k0:k0 + MAX_EXACT_N_IN]).to(torch.int32)
+        out = part if out is None else out + part
+    return out
 
 
 def as_images(images, device: torch.device) -> torch.Tensor:

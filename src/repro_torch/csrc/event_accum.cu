@@ -17,14 +17,20 @@
 // N_pad) are far below the ALU rate. The write of the currents is the one
 // cost the fused kernel (fused_event_lif.cu) does not pay.
 //
-// What the design does about it. One block per step row, one thread per lane
-// (a thread takes lanes tid, tid + blockDim, ... when n_pad > 512). The block
-// first compacts the row's live ids into shared memory (a shared counter;
-// the order of integer additions does not change the sum), so the loop over
-// them has no branch and no load for a PAD slot; each thread then loads its
-// own byte of each live row, so a warp reads 32 consecutive bytes of one row
-// from L2, eight rows in flight (unroll 8). The currents are written once,
-// coalesced along the lanes.
+// The design: the fused kernels' gather (event_gather.cuh) with every slot
+// tested. A warp gathers one step row (a group of 2, 4 or 8 warps a row
+// wider than a warp's 128, 256 or 512 columns; blockIdx.y takes the next
+// 4,096 columns of a wider row): the ids of 128 slots at once, broadcast
+// by shuffle, a round of 32 slots with no live id skipped (so a packed
+// row costs its events, not E_max), 4-, 8- or 16-byte predicated row
+// loads, offset-binary packed sums; the int32 sums of a row stay in
+// registers across flushes and are written once, 16 bytes a lane, so a
+// warp stores its row's columns contiguously. Nothing is staged per row in
+// shared memory, so E_max has no limit. A block of 256 threads takes 8, 4,
+// 2 or 1 step rows at a time; the grid strides over the rows.
+//
+// Measured beside it (PERF.md): the busiest rows' slots shared by 2 or 4
+// warps, their sums added in shared memory, was slower.
 //
 // The C entry point launches on the given stream and returns
 // cudaGetLastError(); it allocates nothing and does not synchronise.
@@ -32,36 +38,63 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "event_gather.cuh"
+
 namespace {
 
-constexpr int MAX_THREADS = 512;
-// ids of one step row staged in dynamic shared memory, within the 48 KB a
-// block gets without opting in
-constexpr int MAX_E = 12000;
+constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
+constexpr int MAX_BLOCKS = 1 << 20;        // step-row blocks, then a stride
 
-__global__ void __launch_bounds__(MAX_THREADS)
-event_accum_kernel(const int32_t* __restrict__ ids,
-                   const int8_t* __restrict__ w, int32_t* __restrict__ out,
-                   int E, int n_in, int n_pad) {
-  extern __shared__ int32_t s_ids[];
-  __shared__ int s_live;
-  const size_t row = blockIdx.x;
-  if (threadIdx.x == 0) s_live = 0;
-  __syncthreads();
-  for (int e = threadIdx.x; e < E; e += blockDim.x) {
-    const int id = __ldg(ids + row * E + e);
-    if ((unsigned)id < (unsigned)n_in) s_ids[atomicAdd(&s_live, 1)] = id;
-  }
-  __syncthreads();
-  const int live = s_live;
-  for (int lane = threadIdx.x; lane < n_pad; lane += blockDim.x) {
-    // at most MAX_E * 127 in magnitude: no int32 overflow
-    int32_t acc = 0;
-#pragma unroll 8
-    for (int e = 0; e < live; ++e)
-      acc += (int32_t)__ldg(w + (size_t)s_ids[e] * n_pad + lane);
-    out[row * n_pad + lane] = acc;
-  }
+// warps that gather one step row's columns in a block: 1, 2, 4 or 8
+int row_group(int n_pad) {
+  const int cpl = event_gather::cols_per_lane(n_pad);
+  const int need = (n_pad + 32 * cpl - 1) / (32 * cpl);
+  int g = 1;
+  while (g < need && g < WARPS) g *= 2;
+  return g;
+}
+
+// 2 blocks an SM at least: a thread keeps up to 128 registers, so the rows
+// in flight do not spill
+template <int CPL, bool VEC>
+__global__ void __launch_bounds__(THREADS, 2)
+event_accum_kernel(event_gather::Rows a, int32_t* __restrict__ out,
+                   int rows, int group) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int per_block = WARPS / group;     // step rows a block takes at once
+  const int g = warp / group;
+  const int col0 = ((blockIdx.y * group + warp % group) * 32 + lane) * CPL;
+  const int cols = a.n_pad - col0;
+  int32_t acc[CPL];
+  event_gather::gather_rows<CPL, VEC, false>(
+      a, col0, a.n_pad, blockIdx.x * per_block + g, gridDim.x * per_block,
+      rows, [&](int s, const int32_t (&sums)[CPL], bool first, bool last) {
+#pragma unroll
+        for (int j = 0; j < CPL; ++j)
+          acc[j] = first ? sums[j] : acc[j] + sums[j];
+        if (last)
+          event_gather::store_sums<CPL, VEC>(
+              out + (size_t)s * a.n_pad + col0, acc, true, cols);
+      });
+}
+
+template <int CPL>
+int launch(const event_gather::Rows& a, int32_t* out, int rows, bool vec,
+           cudaStream_t s) {
+  const int group = row_group(a.n_pad);
+  const int per_block = WARPS / group;
+  const long long need = (rows + per_block - 1) / per_block;
+  const dim3 grid((unsigned)(need < MAX_BLOCKS ? need : MAX_BLOCKS),
+                  (unsigned)((a.n_pad + group * 32 * CPL - 1) /
+                             (group * 32 * CPL)));
+  if (vec)
+    event_accum_kernel<CPL, true><<<grid, THREADS, 0, s>>>(a, out, rows,
+                                                          group);
+  else
+    event_accum_kernel<CPL, false><<<grid, THREADS, 0, s>>>(a, out, rows,
+                                                           group);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -69,16 +102,34 @@ event_accum_kernel(const int32_t* __restrict__ ids,
 extern "C" {
 
 // ids (rows, E) int32 row-major, rows = B*T; w (n_in, n_pad) int8;
-// out (rows, n_pad) int32.
+// out (rows, n_pad) int32 (16-byte aligned).
 int event_accum(const int32_t* ids, const int8_t* w, int32_t* out, int rows,
                 int E, int n_in, int n_pad, void* stream) {
-  if (rows <= 0 || E <= 0 || E > MAX_E || n_in <= 0 || n_pad <= 0)
+  if (rows <= 0 || E <= 0 || n_in <= 0 || n_pad <= 0 ||
+      (n_pad + 4095) / 4096 > 65535)
     return (int)cudaErrorInvalidValue;
-  const int threads = n_pad < MAX_THREADS ? ((n_pad + 31) / 32) * 32
-                                          : MAX_THREADS;
-  event_accum_kernel<<<rows, threads, (size_t)E * sizeof(int32_t),
-                       (cudaStream_t)stream>>>(ids, w, out, E, n_in, n_pad);
-  return (int)cudaGetLastError();
+  const event_gather::Rows a{ids, nullptr, w, E, n_in, n_pad};
+  const int cpl = event_gather::cols_per_lane(n_pad);
+  // a lane's columns as one vector: n_pad a multiple of them, w and out
+  // 16-byte aligned
+  const bool vec = n_pad % cpl == 0 && (uintptr_t)w % 16 == 0 &&
+                   (uintptr_t)out % 16 == 0;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (cpl == 4) return launch<4>(a, out, rows, vec, s);
+  if (cpl == 8) return launch<8>(a, out, rows, vec, s);
+  return launch<16>(a, out, rows, vec, s);
+}
+
+// The bytes of a weight row a gathering lane loads at once: its columns as
+// one vector, or 1 where it loads them byte by byte
+int event_accum_row_load_bytes(const int8_t* w, const int32_t* out,
+                               int n_pad) {
+  if (n_pad <= 0) return 0;
+  const int cpl = event_gather::cols_per_lane(n_pad);
+  return n_pad % cpl == 0 && (uintptr_t)w % 16 == 0 &&
+                 (uintptr_t)out % 16 == 0
+             ? cpl
+             : 1;
 }
 
 }  // extern "C"

@@ -61,14 +61,13 @@ __device__ __forceinline__ void warp_min_max(long long& lo, long long& hi) {
   }
 }
 
-// Reduce every thread's keys over the block and return the row's label in
-// thread 0 (the other threads return 0: the divisions run once). A warp
-// whose keys are all untouched skips its fold; warp 0 alone folds the
-// warps' partials. blockDim.x is a multiple of 32 and at most 1024; every
-// thread of the block calls it once.
-__device__ __forceinline__ int decode_label(DecodeKeys k, int n, int per_group,
-                                            int sentinel,
-                                            int fallback_membrane) {
+// The keys every thread folded, reduced over the block, in thread 0 (the
+// other threads get keys that are no reduction). A warp whose keys are all
+// untouched skips its fold; warp 0 alone folds the warps' partials.
+// blockDim.x is a multiple of 32 and at most 1024; every thread of the block
+// calls it once. The keys are associative, so the blocks of a cluster
+// combine theirs the same way (decode_combine).
+__device__ __forceinline__ DecodeKeys decode_reduce(DecodeKeys k) {
   __shared__ long long part[2][32];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int n_warps = blockDim.x / 32;
@@ -80,18 +79,43 @@ __device__ __forceinline__ int decode_label(DecodeKeys k, int n, int per_group,
     part[1][warp] = vkey;
   }
   __syncthreads();
-  if (warp != 0) return 0;
+  if (warp != 0) return k;
   // partials past n_warps are filled with warp 0's: min and max do not
   // change for a repeat
   key = part[0][lane < n_warps ? lane : 0];
   vkey = part[1][lane < n_warps ? lane : 0];
   warp_min_max(key, vkey);
-  if (threadIdx.x != 0) return 0;
-  if (key < (long long)sentinel * n) {             // some lane fired
-    const long long at = ((key % n) + n) % n;      // floor mod: first < 0 too
+  DecodeKeys r;
+  r.key = key;
+  r.vkey = vkey;
+  return r;
+}
+
+__device__ __forceinline__ void decode_combine(DecodeKeys& k,
+                                               const DecodeKeys& o) {
+  k.key = o.key < k.key ? o.key : k.key;
+  k.vkey = o.vkey > k.vkey ? o.vkey : k.vkey;
+}
+
+// The row's label from its reduced keys
+__device__ __forceinline__ int decode_pick(const DecodeKeys& k, int n,
+                                           int per_group, int sentinel,
+                                           int fallback_membrane) {
+  if (k.key < (long long)sentinel * n) {           // some lane fired
+    const long long at = ((k.key % n) + n) % n;    // floor mod: first < 0 too
     return (int)(at / per_group);
   }
   if (fallback_membrane)
-    return (INT32_MAX - (int)(vkey & 0xffffffffLL)) / per_group;
+    return (INT32_MAX - (int)(k.vkey & 0xffffffffLL)) / per_group;
   return 0;
+}
+
+// Reduce every thread's keys over the block and return the row's label in
+// thread 0 (the other threads return 0: the divisions run once).
+__device__ __forceinline__ int decode_label(DecodeKeys k, int n, int per_group,
+                                            int sentinel,
+                                            int fallback_membrane) {
+  k = decode_reduce(k);
+  if (threadIdx.x != 0) return 0;
+  return decode_pick(k, n, per_group, sentinel, fallback_membrane);
 }

@@ -3,8 +3,9 @@
 The port of ``repro.kernels.event_accum.ops.event_accum``: on CUDA tensors it
 launches the hand-written kernel (``csrc/event_accum.cu``, built with nvcc on
 first use) or raises; on CPU tensors it runs the plain version in ``ref``.
-There is no fallback from one to the other. ``LAUNCHES`` counts the kernel's
-launches (never the CPU path's calls).
+There is no fallback from one to the other. The kernel stages nothing per
+row in shared memory, so a row may hold any number of event slots.
+``LAUNCHES`` counts the kernel's launches (never the CPU path's calls).
 """
 
 from __future__ import annotations
@@ -21,9 +22,6 @@ from repro_torch.kernels.event_accum import ref as _ref
 #: kernel name -> launches since the last ``reset_launches()``
 LAUNCHES = {"event_accum": 0}
 
-#: most event slots a step row may have on the card (staged in shared memory)
-MAX_E = 12000
-
 
 def reset_launches() -> None:
     for name in LAUNCHES:
@@ -35,6 +33,8 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("event_accum")
     lib.event_accum.argtypes = [P] * 3 + [I] * 4 + [P]
     lib.event_accum.restype = I
+    lib.event_accum_row_load_bytes.argtypes = [P, P, I]
+    lib.event_accum_row_load_bytes.restype = I
     return lib
 
 
@@ -53,8 +53,6 @@ def event_accum(ids: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return _ref.event_accum_ref(ids, w)
     E = ids.shape[-1]
     n_in, n_pad = w.shape
-    if E > MAX_E:
-        raise ValueError(f"E_max={E} > {MAX_E}, the most the kernel stages")
     if not (ids.is_contiguous() and w.is_contiguous()):
         raise ValueError("ids and w must be contiguous")
     out = torch.empty(ids.shape[:-1] + (n_pad,), dtype=torch.int32,

@@ -9,8 +9,10 @@ PyTorch version in ``ref``. There is no fallback from one to the other.
 Each wrapper counts its kernel launches in ``LAUNCHES`` (only where the
 kernel is launched, never on the CPU path), so a run can show that its main
 path went through the kernels. ``launch_plan`` picks each launch's block
-shape and chunk of steps on the host (cached per shape); a plan the kernel
-cannot run raises ``ValueError`` before the launch.
+shape, chunk of steps and, for rows wider than 4096 lanes, the thread-block
+cluster that splits a row, on the host (cached per shape); a plan the
+kernel cannot run raises ``ValueError`` before the launch. The widest row
+the kernels take is ``MAX_N_PAD`` (32,768) lanes.
 """
 
 from __future__ import annotations
@@ -31,8 +33,12 @@ LAUNCHES = {"fused_event_lif": 0, "fused_event_lif_decode": 0,
             "fused_event_lif_early_exit": 0}
 
 _SOURCE = "fused_event_lif"
-#: widest padded layer the kernels take (512 threads x 8 lanes per thread)
-MAX_N_PAD = 4096
+#: lanes one block scans (512 threads x 8 lanes per thread)
+MAX_SLICE = 4096
+#: blocks a row may take (a portable thread-block cluster)
+MAX_CLUSTER = 8
+#: widest padded layer the kernels take: a cluster of 8 blocks of 4096 lanes
+MAX_N_PAD = MAX_CLUSTER * MAX_SLICE
 #: threads a block (the kernels' __launch_bounds__)
 MAX_THREADS = 512
 #: shared memory one H100 block may hold (227 KB), and what a plan may take
@@ -42,13 +48,16 @@ MAX_CUR_BYTES = SMEM_PER_BLOCK - 1024
 
 
 class LaunchPlan(NamedTuple):
-    """One launch of the fused kernels: a block of ``threads`` per batch
-    row, each scanning ``lanes_per_thread`` lanes; the row's steps gathered
-    ``chunk`` at a time into ``smem_bytes`` of shared memory."""
+    """One launch of the fused kernels: ``cluster`` blocks of ``threads``
+    per batch row (a thread-block cluster when more than 1), each owning a
+    slice of the row's lanes (``slice_lanes``) and scanning
+    ``lanes_per_thread`` of them a thread; the row's steps gathered
+    ``chunk`` at a time into ``smem_bytes`` of shared memory a block."""
     threads: int
     lanes_per_thread: int
     chunk: int
     smem_bytes: int
+    cluster: int = 1
 
 
 def _cols_per_lane(n_pad: int) -> int:
@@ -56,47 +65,68 @@ def _cols_per_lane(n_pad: int) -> int:
     return 4 if n_pad <= 128 else 8 if n_pad <= 256 else 16
 
 
-def _warps_per_step(n_pad: int) -> int:
-    return -(-n_pad // (32 * _cols_per_lane(n_pad)))
+def slice_lanes(n_pad: int, cluster: int) -> int:
+    """Lanes each block of a row's cluster owns (csrc: ``slice_lanes``): the
+    whole row for one block, else an even share rounded up to 16 (the last
+    block's slice is shorter)."""
+    if cluster == 1:
+        return n_pad
+    return (-(-n_pad // cluster) + 15) // 16 * 16
+
+
+def _warps_per_step(n_pad: int, cluster: int = 1) -> int:
+    return -(-slice_lanes(n_pad, cluster) // (32 * _cols_per_lane(n_pad)))
 
 
 @functools.cache
 def launch_plan(T: int, e_max: int, n_pad: int,
                 max_chunk: int | None = None) -> LaunchPlan:
     """The plan for rows of ``T`` steps, ``e_max`` slots a step and ``n_pad``
-    lanes: the longest chunk of steps (at most ``max_chunk``) whose int32
-    currents fit in shared memory, and enough warps to gather every step of
-    a chunk at once (one warp per 128, 256 or 512 columns of a step), up to
-    512 threads."""
+    lanes: one block a row up to 4096 lanes, else the smallest cluster of
+    2, 4 or 8 blocks whose slices hold 4096 lanes at most; the longest chunk
+    of steps (at most ``max_chunk``) whose int32 currents of a slice fit in
+    shared memory, and enough warps to gather every step of a chunk at once
+    (one warp per 128, 256 or 512 columns of a step), up to 512 threads."""
     if T < 1 or e_max < 1:
         raise ValueError(f"T={T} and E_max={e_max} must be at least 1")
     if not 1 <= n_pad <= MAX_N_PAD:
         raise ValueError(f"N_pad={n_pad} is not in 1..{MAX_N_PAD}, the widths "
-                         f"the CUDA kernels take")
+                         f"the CUDA kernels take (a cluster of {MAX_CLUSTER} "
+                         f"blocks of {MAX_SLICE} lanes)")
     if max_chunk is not None and max_chunk < 1:
         raise ValueError(f"max_chunk={max_chunk} must be at least 1")
-    chunk = min(T, max_chunk or T, MAX_CUR_BYTES // (4 * n_pad))
+    cluster = 1
+    while cluster * MAX_SLICE < n_pad:
+        cluster *= 2
+    width = slice_lanes(n_pad, cluster)
+    chunk = min(T, max_chunk or T, MAX_CUR_BYTES // (4 * width))
     lpt = 1
-    while lpt * MAX_THREADS < n_pad:
+    while lpt * MAX_THREADS < width:
         lpt *= 2
-    gather_warps = _warps_per_step(n_pad) * chunk
-    scan_warps = -(-n_pad // (32 * lpt))
+    gather_warps = _warps_per_step(n_pad, cluster) * chunk
+    scan_warps = -(-width // (32 * lpt))
     threads = 32 * min(MAX_THREADS // 32, max(gather_warps, scan_warps))
-    return LaunchPlan(threads, lpt, chunk, 4 * chunk * n_pad)
+    return LaunchPlan(threads, lpt, chunk, 4 * chunk * width, cluster)
 
 
 def check_plan(plan: LaunchPlan, T: int, e_max: int, n_pad: int) -> None:
     """Raise ``ValueError`` if the kernels cannot run ``plan``: the test the
     C entry points make before a launch (``fused_event_lif_plan_ok``, which
     chip_smoke.py holds to this one on the card)."""
-    threads, lpt, chunk, smem = plan
+    threads, lpt, chunk, smem, cluster = plan
     big = _cols_per_lane(n_pad) == 16
-    if not (T >= 1 and e_max >= 1 and 1 <= n_pad <= MAX_N_PAD
-            and (lpt == 1 or (big and lpt in (2, 4, 8)))
-            and threads % 32 == 0
-            and 32 * _warps_per_step(n_pad) <= threads <= MAX_THREADS
-            and lpt * threads >= n_pad and 1 <= chunk <= T
-            and smem == 4 * chunk * n_pad <= MAX_CUR_BYTES):
+    ok = (T >= 1 and e_max >= 1 and 1 <= n_pad <= MAX_N_PAD
+          and (cluster == 1 or (big and cluster in (2, 4, 8))))
+    if ok:
+        width = slice_lanes(n_pad, cluster)
+        ok = (width <= MAX_SLICE and width * (cluster - 1) < n_pad
+              and (lpt == 1 or (big and lpt in (2, 4, 8)))
+              and threads % 32 == 0
+              and 32 * _warps_per_step(n_pad, cluster) <= threads
+              <= MAX_THREADS
+              and lpt * threads >= width and 1 <= chunk <= T
+              and smem == 4 * chunk * width <= MAX_CUR_BYTES)
+    if not ok:
         raise ValueError(f"the fused kernels cannot run {plan} for T={T}, "
                          f"E_max={e_max}, N_pad={n_pad}")
 
@@ -109,10 +139,10 @@ def reset_launches() -> None:
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = build.load(_SOURCE)
-    lib.fused_event_lif.argtypes = [P] * 6 + [I] * 10 + [P]
-    lib.fused_event_lif_decode.argtypes = [P] * 7 + [I] * 13 + [P]
-    lib.fused_event_lif_early_exit.argtypes = [P] * 7 + [I] * 10 + [P]
-    lib.fused_event_lif_plan_ok.argtypes = [I] * 7
+    lib.fused_event_lif.argtypes = [P] * 6 + [I] * 11 + [P]
+    lib.fused_event_lif_decode.argtypes = [P] * 7 + [I] * 14 + [P]
+    lib.fused_event_lif_early_exit.argtypes = [P] * 7 + [I] * 11 + [P]
+    lib.fused_event_lif_plan_ok.argtypes = [I] * 8
     lib.fused_event_lif_row_load_bytes.argtypes = [P, I]
     for fn in (lib.fused_event_lif, lib.fused_event_lif_decode,
                lib.fused_event_lif_early_exit, lib.fused_event_lif_plan_ok,

@@ -181,10 +181,104 @@ def test_launch_plan_is_one_the_kernels_run(T, e_max, n_pad):
         8, plan.chunk)
 
 
-@pytest.mark.parametrize("n_pad", [0, 4097, 8192])
+@pytest.mark.parametrize("n_pad", [0, ops.MAX_N_PAD + 1, 2 * ops.MAX_N_PAD])
 def test_launch_plan_refuses_what_the_kernels_do_not_take(n_pad):
-    with pytest.raises(ValueError, match="N_pad"):
+    with pytest.raises(ValueError, match=f"N_pad={n_pad} is not in "
+                       f"1..{ops.MAX_N_PAD}"):
         ops.launch_plan(32, 128, n_pad)
+
+
+@pytest.mark.parametrize("n_pad", [4097, 6000, 8192, 8193, 12_289, 16_384,
+                                   20_000, 32_767, ops.MAX_N_PAD])
+@pytest.mark.parametrize("T", [1, 8, 32])
+def test_launch_plan_splits_a_wide_row_over_a_cluster(T, n_pad):
+    """A row wider than one block's 4096 lanes runs on the smallest cluster
+    of 2, 4 or 8 blocks, each owning a slice of at most 4096 lanes (a
+    multiple of 16), the last slice not empty; the plan is one the kernels
+    take, and so is every chunk of it."""
+    assert ops.MAX_N_PAD == 32_768
+    plan = ops.launch_plan(T, 128, n_pad)
+    ops.check_plan(plan, T, 128, n_pad)
+    width = ops.slice_lanes(n_pad, plan.cluster)
+    assert plan.cluster in (2, 4, 8)
+    assert plan.cluster // 2 * 4096 < n_pad <= plan.cluster * 4096
+    assert width % 16 == 0 and width <= 4096
+    assert 0 < n_pad - width * (plan.cluster - 1) <= width
+    assert plan.smem_bytes == 4 * plan.chunk * width
+    assert plan.lanes_per_thread * plan.threads >= width
+    assert plan.chunk == T or 4 * (plan.chunk + 1) * width > ops.MAX_CUR_BYTES
+    ops.check_plan(ops.launch_plan(T, 128, n_pad, max_chunk=1), T, 128, n_pad)
+    for bad in (dict(cluster=plan.cluster // 2), dict(cluster=3),
+                dict(cluster=16)):
+        with pytest.raises(ValueError, match="cannot run"):
+            ops.check_plan(plan._replace(**bad), T, 128, n_pad)
+
+
+def test_plans_at_most_4096_lanes_keep_one_block():
+    for n_pad in (1, 128, 256, 257, 4096):
+        assert ops.launch_plan(32, 128, n_pad).cluster == 1
+    # a narrow row may still be split (the kernels take it), but not one
+    # whose gathering lanes own 4 or 8 columns
+    plan = ops.launch_plan(32, 128, 2048)
+    ops.check_plan(plan._replace(cluster=2, smem_bytes=4 * plan.chunk * 1024),
+                   32, 128, 2048)
+    with pytest.raises(ValueError, match="cannot run"):
+        ops.check_plan(ops.launch_plan(32, 128, 256)._replace(
+            cluster=2, smem_bytes=4 * 32 * 128), 32, 128, 256)
+
+
+# (B, T, N_in, N_pad, n_groups, per_group, leak_shift, fallback): rows wider
+# than one block, which the card runs on a thread-block cluster
+WIDE = [
+    (2, 8, 40, 8192, 16, 500, 3, "membrane"),
+    (2, 8, 33, 4097, 7, 585, 31, "zero"),
+]
+
+
+@pytest.mark.parametrize("B,T,n_in,n_pad,G,P,ls,fallback", WIDE)
+def test_wide_rows_match_jax_kernels(B, T, n_in, n_pad, G, P, ls, fallback):
+    """The full-T, decode and early-exit versions at N_pad 8192 and 4097
+    (cluster plans of 2 blocks), bit for bit against JAX's Pallas kernels in
+    interpret mode and their jnp mirrors. JAX's full-T kernel without the
+    decode tiles N_pad by 128, so at 4097 it is held through the decode
+    kernel's first spikes and membranes, which are the same state."""
+    times, e_max, w, thr = _case(B, T, n_in, n_pad, G * P, ls, seed=n_pad)
+    jf = jevents.pack_events_batched(times, T, e_max)
+    tf = events.pack_events_batched(times, T, e_max, device="cpu")
+    tw, tthr = torch.from_numpy(w), torch.from_numpy(thr)
+    plan = ops.launch_plan(T, e_max, n_pad)
+    assert plan.cluster == 2
+    dec_kw = dict(n_out=G * P, n_groups=G, per_group=P, fallback=fallback)
+    # the wrappers take the cluster plan (checked on the CPU too)
+    res, labels = ops.fused_event_lif_decode(tf.ids, tf.count, tw, tthr, ls,
+                                             **dec_kw, plan=plan)
+    res_x, steps = ops.fused_event_lif_early_exit(tf.ids, tf.count, tw, tthr,
+                                                  ls, plan=plan)
+    full = ops.fused_event_lif(tf.ids, tf.count, tw, tthr, ls, plan=plan)
+    assert torch.equal(full.first_spike, res.first_spike)
+    assert torch.equal(full.v_final, res.v_final)
+    assert (res.first_spike[:, :G * P] < T).any()          # lanes fire
+    jw, jthr = jnp.asarray(w), jnp.asarray(thr)
+    for backend in ("pallas", "ref"):
+        jres, jlabels = jops.fused_event_lif_decode(
+            jf.ids, jf.count, jw, jthr, ls, **dec_kw, backend=backend)
+        assert np.array_equal(res.first_spike.numpy(),
+                              np.asarray(jres.first_spike)), backend
+        assert np.array_equal(res.v_final.numpy(), np.asarray(jres.v_final))
+        assert np.array_equal(labels.numpy(), np.asarray(jlabels)), backend
+        jx, jsteps = jops.fused_event_lif_early_exit(
+            jf.ids, jf.count, jw, jthr, ls, backend=backend)
+        assert np.array_equal(res_x.first_spike.numpy(),
+                              np.asarray(jx.first_spike)), backend
+        assert np.array_equal(res_x.v_final.numpy(), np.asarray(jx.v_final))
+        assert np.array_equal(steps.numpy(), np.asarray(jsteps)), backend
+        if n_pad % 128 == 0 or backend == "ref":
+            jfull = jops.fused_event_lif(jf.ids, jf.count, jw, jthr, ls,
+                                         backend=backend)
+            assert np.array_equal(full.first_spike.numpy(),
+                                  np.asarray(jfull.first_spike)), backend
+            assert np.array_equal(full.v_final.numpy(),
+                                  np.asarray(jfull.v_final)), backend
 
 
 @pytest.mark.parametrize("bad", [

@@ -14,10 +14,15 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import codesign as jcodesign
 from repro.core import events as jevents
 from repro.core import lif_dynamics as jlif
+from repro.core import quant as jquant
+from repro.core import ttfs as jttfs
 from repro.core.accelerator import SNNAccelerator as JAccelerator
+from repro.core.artifact import FORMAT_VERSION
 from repro.core.artifact import Artifact as JArtifact
+from repro.core.reference import SNNReference as JReference
 from repro.kernels.event_accum.ops import event_accum as j_event_accum
 from repro.kernels.fused_event_lif import ops as jfused
 from repro.kernels.lif.ops import lif_fused as j_lif_fused
@@ -26,7 +31,7 @@ from repro.kernels.ttfs_decode.ops import ttfs_decode as j_ttfs_decode
 from repro.serving.snn_engine import SNNServeEngine as JEngine
 from repro_torch.core import events, lif_dynamics
 from repro_torch.core.accelerator import SNNAccelerator
-from repro_torch.core.artifact import Artifact
+from repro_torch.core.artifact import Artifact, from_numpy
 from repro_torch.core.reference import SNNReference
 from repro_torch.data import mnist
 from repro_torch.kernels.event_accum import ops as ea_ops
@@ -73,6 +78,30 @@ def test_event_accum_matches_jax(T, E, K, N):
         assert np.array_equal(got[b].numpy(), np.asarray(j_event_accum(
             jnp.asarray(batch[b]), jnp.asarray(w))))
     assert ea_ops.event_accum(_t(batch[:0]), _t(w)).shape == (0, T, N)
+
+
+def test_event_accum_takes_any_e_max():
+    """E_max 16,384, past the 12,000 slots the first CUDA kernel staged in
+    shared memory: two steps of ids with PAD in the middle of each row and a
+    run of ids at or past N_in, against JAX's Pallas kernel."""
+    T, E, K, N = 2, 16_384, 300, 128
+    rng = np.random.RandomState(E)
+    ids = rng.randint(0, K, (T, E)).astype(np.int32)
+    ids[:, E // 3:E // 3 + 4000] = -1        # PAD mid-row
+    ids[1, ::7] = -1
+    w = rng.randint(-127, 128, (K, N)).astype(np.int8)
+    want = np.asarray(j_event_accum(jnp.asarray(ids), jnp.asarray(w)))
+    got = ea_ops.event_accum(_t(ids), _t(w))
+    assert np.array_equal(got.numpy(), want)
+    exact = np.zeros((T, N), np.int64)
+    for t in range(T):
+        live = ids[t][ids[t] >= 0]
+        exact[t] = w[live].astype(np.int64).sum(axis=0)
+    assert np.array_equal(got.numpy(), exact)
+    # ids at or past N_in add nothing (JAX's kernel reads no such id)
+    far = ids.copy()
+    far[:, E // 3:E // 3 + 4000] = K + 5
+    assert torch.equal(ea_ops.event_accum(_t(far), _t(w)), got)
 
 
 # ------------------------------------------------------------ kernel 5
@@ -154,6 +183,35 @@ def test_spike_matmul_matches_jax_on_ragged_shapes(B, T, K, N):
         assert np.array_equal(got.numpy(), exact)
 
 
+def test_spike_matmul_takes_any_k():
+    """K 140,000, past the first kernel's 131,072: a {0,1} raster against
+    JAX, and an int8 product that overflows int32, which wraps as int32
+    accumulation does (numpy's int64 sum modulo 2**32)."""
+    K, N = 140_000, 8
+    rng = np.random.RandomState(K)
+    raster = rng.randint(0, 2, (2, 3, K)).astype(np.int8)
+    w = rng.randint(-128, 128, (K, N)).astype(np.int8)
+    got = smm_ops.spike_matmul(_t(raster), _t(w))
+    want = np.asarray(j_spike_matmul(jnp.asarray(raster), jnp.asarray(w)))
+    assert np.array_equal(got.numpy(), want)
+    big = np.full((4, K), -128, np.int8)
+    big[1] = 127
+    big[2] = rng.randint(-128, 128, K)
+    wb = np.full((K, N), -128, np.int8)
+    wb[:, 1] = 127
+    exact = big.astype(np.int64) @ wb.astype(np.int64)
+    assert (np.abs(exact) >= 2 ** 31).any()
+    wrapped = ((exact + 2 ** 31) % 2 ** 32 - 2 ** 31).astype(np.int32)
+    assert np.array_equal(smm_ops.spike_matmul(_t(big), _t(wb)).numpy(),
+                          wrapped)
+    w_t = smm_ops.k_major(_t(wb))
+    assert w_t.shape == (N, K) and w_t.is_contiguous()
+    assert np.array_equal(smm_ops.spike_matmul(_t(big), _t(wb),
+                                               w_t=w_t).numpy(), wrapped)
+    with pytest.raises(ValueError, match="w_t"):
+        smm_ops.spike_matmul(_t(big), _t(wb), w_t=_t(wb))
+
+
 # ------------------------------------------------------------ kernel 3
 @pytest.mark.parametrize("B,T,n_in,N,ls", [(3, 8, 50, 128, 31),
                                            (2, 10, 100, 256, 3)])
@@ -183,6 +241,60 @@ def test_fused_event_lif_matches_jax_and_the_decode_kernel(B, T, n_in, N, ls):
     staged = lif_ops.lif_fused(cur.movedim(1, 0), _t(thr), ls)
     assert torch.equal(staged.first_spike, res.first_spike)
     assert torch.equal(staged.v_final, res.v_final)
+
+
+def _wide_input_artifact(n_in: int, n_groups: int, per_group: int, T: int,
+                        seed: int) -> JArtifact:
+    """A valid linear-TTFS artifact with ``n_in`` inputs, built as the JAX
+    package's conformance fuzzer builds one."""
+    rng = np.random.RandomState(seed)
+    n_out = n_groups * per_group
+    w_int8, scale = jquant.quantize_weights(
+        rng.randn(n_in, n_out).astype(np.float32))
+    thr = rng.randint(2_000, 20_000, n_out).astype(np.int32)
+    plan = jcodesign.plan(n_in, n_out)
+    layout = jcodesign.blocked_layout(
+        w_int8, thr, jttfs.group_map(n_groups, per_group), plan.lane)
+    meta = {
+        "format_version": FORMAT_VERSION,
+        "model": {"topology": "linear-ttfs", "n_in": n_in, "n_out": n_out},
+        "encode": {"T": T, "x_min": 1.0 / 255.0},
+        "lif": {"leak_shift": 4, "v_init": 0},
+        "readout": {"n_groups": n_groups, "per_group": per_group,
+                    "fallback": "membrane"},
+        "quant": {"scale": scale, "bits": 8,
+                  "scheme": "symmetric-per-tensor"},
+        "events": {"e_max": n_in, "pad": jevents.PAD},
+        "codesign": {"lane": plan.lane, "n_pad": plan.n_pad,
+                     "n_blocks": plan.n_blocks, "vmem_util": plan.vmem_util,
+                     "limiter": plan.limiter},
+    }
+    arrays = {"w_float": w_int8.astype(np.float32) * scale,
+              "w_int8": w_int8, "thresholds": thr,
+              "group_ids": jttfs.group_map(n_groups, per_group), **layout}
+    return JArtifact(meta, arrays)
+
+
+def test_reference_and_batch_torch_take_any_n_in():
+    """n_in 140,000, past the 132,103 inputs at which one float32 product
+    stops being exact: the plain product runs in exact slices over K, and
+    the reference and the batch accelerator equal JAX's int32 products."""
+    jart = _wide_input_artifact(140_000, 10, 12, T=4, seed=5)
+    art = from_numpy(jart.meta, jart.arrays)
+    assert art.fingerprint() == jart.fingerprint()
+    assert art["w_padded"].shape == (140_000, 128)
+    images = np.random.RandomState(6).rand(2, 140_000).astype(np.float32)
+    want = JReference(jart).forward(images)
+    got = SNNReference(art, device="cpu").forward(images)
+    got_b = SNNAccelerator(art, mode="batch", kernel="torch",
+                           device="cpu").forward(images)
+    want_b = JAccelerator(jart, mode="batch", kernel="jnp").forward(images)
+    for key in KEYS:
+        assert np.array_equal(getattr(got, key).numpy(),
+                              np.asarray(getattr(want, key))), key
+        assert np.array_equal(getattr(got_b, key).numpy(),
+                              np.asarray(getattr(want_b, key))), key
+    assert (np.asarray(want.first_spike) < 4).any()       # lanes fire
 
 
 # ------------------------------------------------------------ wrappers
