@@ -11,7 +11,9 @@ Phases (any failure exits non-zero; nothing is caught):
                the built spike_matmul library's SASS (cuobjdump -sass: must
                be non-zero) and check that event_accum's kernels hold no
                shared memory (no ids staged, nothing that grows with
-               E_max);
+               E_max), that the lif and ttfs_decode kernels spill nothing,
+               and that ttfs_decode's warp-per-row kernel holds no shared
+               memory and no block barrier;
   2. kernels — each of the seven SNN kernels against its plain PyTorch version
                on the card, bit for bit (tolerance 0: all arithmetic is
                integer), at the MNIST serving shape (B = 64, with an all-PAD
@@ -48,7 +50,16 @@ Phases (any failure exits non-zero; nothing is caught):
                takes E_max 16,384 and the bytewise layers; spike_matmul its
                TMA and its masked route (asserted by ops.ROUTES) on ragged
                M/K/N, K 140,000 and 131,075, a misaligned raster, and an
-               int8 product whose int32 sums wrap;
+               int8 product whose int32 sums wrap. lif_fused also takes
+               windows of T 16, 31, 33, 64 and 100 at N_pad 4 to 1,024
+               (chunks of 32 steps, a tail step by step or in batches of
+               16, 8, 4, 2, 1) and, at T 33, a contiguous (T, B, N_pad)
+               tensor, a lane stride of 2, an odd element offset and a t
+               stride of N_pad + 1; ttfs_decode rows of 63, 150 and 1,024
+               lanes (a warp a row) and of 1,025, 8,192 and 32,768 (a block
+               a row; ops.ROUTES asserted), under both fallbacks, with
+               negative first times, ties between lanes of different warp
+               lanes and warps, and every membrane at INT32_MIN;
   3. main path — five serving runs over the 10,000 procedural MNIST test
                images, each with every launch counter set to 0 just before
                its requests and read just after its flush: SNNServeEngine on
@@ -57,8 +68,9 @@ Phases (any failure exits non-zero; nothing is caught):
                ServingScheduler(spec="accelerator-batch", kernel="cuda").
                Each run must launch each kernel of its path once per served
                batch and no other kernel (batch-cuda's spike_matmul on its
-               TMA route, reading the program's K-major weight copy), and
-               serve the JAX reference's
+               TMA route, reading the program's K-major weight copy; every
+               ttfs_decode launch a warp a row), and serve the JAX
+               reference's
                labels (and latency steps), exported in src/repro_torch/
                assets. Outside the counted runs, the fuzz artifacts are
                served and run through the fused and both -cuda accelerator
@@ -340,6 +352,16 @@ def show_profile(what: str, prof: dict, card: str) -> None:
         print(f"[profile] {what}     {ms:9.2f} ms  {name[:100]}")
 
 
+def ptxas_entries(log: str) -> dict:
+    """kernel (mangled name) -> what ptxas reported on it in a build log
+    (``-Xptxas -v``: spills, registers, shared memory)."""
+    out = {}
+    for part in log.split("Compiling entry function '")[1:]:
+        name, _, rest = part.partition("'")
+        out[name] = rest
+    return out
+
+
 def sha256(a) -> str:
     import numpy as np
     return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
@@ -429,6 +451,25 @@ def main() -> int:
           is None, "an event_accum kernel holds shared memory")
     print("[build] event_accum's kernels: no shared memory (ptxas; the "
           "launch asks for no dynamic shared memory either)")
+    # the staged LIF and decode kernels spill nothing, and the decode's
+    # warp-per-row kernel holds no shared memory (no block barrier either)
+    for src in ("lif", "ttfs_decode"):
+        entries = ptxas_entries(build.build_logs[src])
+        check(len(entries) > 0, f"no ptxas report for {src}")
+        for name, report in entries.items():
+            check(" 0 bytes spill stores, 0 bytes spill loads" in report,
+                  f"{src}: {name} spills registers")
+            used = re.search(r"Used \d+ registers[^\n]*", report)
+            print(f"[build] {src}: {name}: no spills, "
+                  f"{used.group(0) if used else 'no register report'}")
+    warp_rows = [r for name, r in ptxas_entries(
+        build.build_logs["ttfs_decode"]).items() if "warp_rows" in name]
+    check(len(warp_rows) == 1 and "smem" not in warp_rows[0]
+          and "used 0 barriers" in warp_rows[0],
+          "ttfs_decode's warp-per-row kernel holds shared memory or a block "
+          "barrier")
+    print("[build] ttfs_decode's warp-per-row kernel: no shared memory, no "
+          "block barrier (ptxas)")
 
     # ------------------------------------------------------------ fixtures
     art = Artifact.load(os.path.join(ASSETS, "mnist_ttfs.npz"))
@@ -846,6 +887,85 @@ def main() -> int:
         hold("ttfs_decode", (dec.ttfs_decode(first_t, v_t, **dkw),),
              (dec_ref.ttfs_decode_ref(first_t, v_t, **dkw),),
              f"ties/{fallback}")
+    # lif_fused on windows the kernel splits into chunks of 32 steps and a
+    # tail it scans step by step (T 16, 31, 33, 40, 64, 100 at N_pad 4 to
+    # 1,024), on the staged path's movedim view and, at T 33, on a
+    # contiguous (T, B, N_pad) tensor, a lane stride of 2, an odd element
+    # offset and a t stride of N_pad + 1
+    for B_l, T_l, N_l in ((8, 16, 256), (8, 31, 256), (8, 33, 256),
+                          (8, 100, 128), (4, 100, 1000), (4, 64, 1024),
+                          (3, 40, 4)):
+        cur_l = torch.from_numpy(rng.randint(-300, 400, (B_l, T_l, N_l))
+                                 .astype(np.int32)).to(dev)
+        thr_l = torch.from_numpy(rng.randint(300, 2000, (N_l,))
+                                 .astype(np.int32)).to(dev)
+        layouts = {"movedim view": cur_l.movedim(1, 0)}
+        if T_l == 33:
+            wide = torch.zeros((B_l, T_l, 2 * N_l), dtype=torch.int32,
+                               device=dev)
+            wide[..., ::2] = cur_l
+            flat = torch.zeros((cur_l.numel() + 1,), dtype=torch.int32,
+                               device=dev)
+            flat[1:] = cur_l.reshape(-1)
+            pad = torch.zeros((B_l, T_l, N_l + 1), dtype=torch.int32,
+                              device=dev)
+            pad[..., :N_l] = cur_l
+            layouts.update({
+                "contiguous (T, B, N_pad)": cur_l.movedim(1, 0).contiguous(),
+                "lane stride 2": wide[..., ::2].movedim(1, 0),
+                "odd offset": flat[1:].view(cur_l.shape).movedim(1, 0),
+                "t stride N_pad + 1": pad[..., :N_l].movedim(1, 0)})
+        for what, view_l in layouts.items():
+            got = lif.lif_fused(view_l, thr_l, 3)
+            want = lif_ref.lif_fused_ref(view_l, thr_l, 3)
+            hold("lif_fused", got, want, f"T {T_l} N_pad {N_l}, {what}")
+            fired = want.first_spike
+            check(N_l < 128 or bool(((fired > T_l // 2)
+                                     & (fired < T_l)).any()),
+                  f"lif_fused T {T_l}: no late spike was exercised")
+        print(f"[kernels] lif_fused B={B_l} T={T_l} N_pad={N_l} on "
+              f"{', '.join(layouts)}: bit-exact")
+    # ttfs_decode on both sides of the warp/block cut (n 63, 150, 1024 on a
+    # warp a row; 1025, 8192, 32,768 on a block a row), under both
+    # fallbacks: negative first times, ties between lanes folded in
+    # different warp lanes (and warps), the last lane alone, tie-heavy rows,
+    # every membrane at INT32_MIN, no-spike rows
+    for G, Pg in ((7, 9), (10, 15), (32, 32), (25, 41), (16, 512),
+                  (16, 2048)):
+        n_d, T_d, B_d = G * Pg, 16, 12
+        first_d = np.full((B_d, n_d + 5), T_d, np.int32)   # rows strided
+        v_d = np.zeros((B_d, n_d + 5), np.int32)
+        a_l, b_l = 3, n_d - 2
+        first_d[0, [a_l, b_l]] = 5
+        first_d[1, [b_l, n_d - 1]] = -4
+        first_d[2, :n_d] = rng.choice([-2, 2, 3, T_d], size=n_d)
+        first_d[3, n_d - 1] = 0
+        v_d[4, [a_l, b_l]] = 9
+        v_d[5, [b_l, n_d - 1]] = 9
+        v_d[6] = rng.randint(-2, 2, n_d + 5)
+        v_d[7] = np.iinfo(np.int32).min
+        v_d[8, n_d - 1] = 1
+        first_d[9, :n_d] = rng.choice([1, T_d], size=n_d)
+        first_d[10, :n_d] = rng.choice([-7, T_d], size=n_d)
+        first_f = torch.from_numpy(first_d).to(dev)[:, :n_d]
+        v_f = torch.from_numpy(v_d).to(dev)[:, :n_d]
+        how = dec.route(n_d)
+        for fallback in ("membrane", "zero"):
+            dkw_d = dict(n_groups=G, per_group=Pg, sentinel=T_d,
+                         fallback=fallback)
+            dec.reset_launches()
+            got = dec.ttfs_decode(first_f, v_f, **dkw_d)
+            check(dec.ROUTES[how] == 1 and sum(dec.ROUTES.values()) == 1,
+                  f"ttfs_decode n {n_d}: routes {dec.ROUTES}, expected {how}")
+            want = dec_ref.ttfs_decode_ref(first_f, v_f, **dkw_d)
+            hold("ttfs_decode", (got,), (want,), f"n {n_d} ({how}) "
+                 f"{fallback}")
+            check(int(want[0]) == a_l // Pg and int(want[1]) == b_l // Pg
+                  and int(want[3]) == G - 1, f"ttfs_decode n {n_d}: the "
+                  f"built ties decode to {want[:4].tolist()}")
+        print(f"[kernels] ttfs_decode n={n_d} ({G} x {Pg}, {how} route): "
+              f"both fallbacks bit-exact")
+    dec.reset_launches()
     # spike_matmul on both routes (ops.ROUTES): any int8 with ragged edges,
     # K past 131,072, a raster at a misaligned address, and sums that wrap
     def int8s(shape, lo=-128, hi=128):
@@ -931,6 +1051,10 @@ def main() -> int:
             launches[kname] += n
         check(all(counts[k] > 0 for k in per_batch),
               f"{run}: a kernel of the path was never launched")
+        if "ttfs_decode" in per_batch:         # a warp a row (n 150)
+            check(dec.ROUTES == {"warp": counts["ttfs_decode"], "block": 0},
+                  f"{run}: ttfs_decode routes {dec.ROUTES}, expected every "
+                  f"launch on a warp a row")
         if "spike_matmul" in per_batch:        # the tensor maps' route
             check(smm.ROUTES == {"tma": counts["spike_matmul"], "masked": 0},
                   f"{run}: spike_matmul routes {smm.ROUTES}, expected every "
@@ -1655,6 +1779,23 @@ def main() -> int:
                   f"{int(s_w.sum())}: kernel alone {ms:.4f} ms — card: "
                   f"{card}")
         del w_w
+
+    # lif_fused on windows other than the served one (B and N_pad served,
+    # the staged path's movedim view): no chunk and a tail of 16 steps,
+    # a chunk and one step, three chunks and four steps; each held once to
+    # its plain version
+    for T_w in (16, 33, 100):
+        g = torch.Generator(dev).manual_seed(T_w)
+        cur_w = torch.randint(-300, 400, (B, T_w, N), generator=g,
+                              device=dev, dtype=torch.int32).movedim(1, 0)
+        same(tuple(lif.lif_fused(cur_w, prog.thr_padded, prog.leak_shift)),
+             tuple(lif_ref.lif_fused_ref(cur_w, prog.thr_padded,
+                                         prog.leak_shift)),
+             f"lif_fused differs from the plain version at T {T_w}")
+        ms = kernel_ms(lambda: lif.lif_fused(cur_w, prog.thr_padded,
+                                             prog.leak_shift))[0]
+        print(f"[times] lif_fused at T {T_w}, B={B} N_pad={N}: kernel alone "
+              f"{ms:.4f} ms — card: {card}")
 
     # attention at S = 32,768: a few samples, no plain version (its scores
     # would take 137 GB)

@@ -14,8 +14,11 @@ once on 256 images to warm up, and then:
     serving paths of chip_smoke.py's phase 3 and keeps each path's system
     and accelerator µs per image (``SNNServeEngine``/``ServingScheduler``
     stats);
-  * times one wrapper call of the fused kernels 1-3, ``event_accum`` and
-    ``spike_matmul`` at the serving shape (B 64): the kernel alone and the
+  * times one wrapper call of the fused kernels 1-3, ``event_accum``,
+    ``spike_matmul``, ``lif_fused`` (on ``event_accum``'s currents, the
+    staged path's movedim view) and ``ttfs_decode`` (on ``lif_fused``'s
+    first[:, :n_out] and v[:, :n_out]) at the serving shape (B 64): the
+    kernel alone and the
     wrapper's host time a call, 20 calls queued behind a spin kernel, median
     of 50, as chip_smoke.py's phase 7 does (``spike_matmul`` with the
     weights' K-major copy where the tree's wrapper takes one, as its batch
@@ -67,7 +70,9 @@ def one(tree: str) -> dict:
     from repro_torch.kernels import build
     from repro_torch.kernels.event_accum import ops as ea
     from repro_torch.kernels.fused_event_lif import ops
+    from repro_torch.kernels.lif import ops as lif
     from repro_torch.kernels.spike_matmul import ops as smm
+    from repro_torch.kernels.ttfs_decode import ops as dec
     from repro_torch.serving.scheduler import ServingScheduler
     from repro_torch.serving.snn_engine import SNNServeEngine
 
@@ -129,6 +134,15 @@ def one(tree: str) -> dict:
                lambda: ops.fused_event_lif_early_exit(*args),
            "fused_event_lif": lambda: ops.fused_event_lif(*args),
            "event_accum": lambda: ea.event_accum(frames.ids, prog.w_padded)}
+    view = ea.event_accum(frames.ids, prog.w_padded).movedim(1, 0)
+    state = lif.lif_fused(view, prog.thr_padded, prog.leak_shift)
+    first_l = state.first_spike[:, :prog.n_out]
+    v_l = state.v_final[:, :prog.n_out]
+    dkw = dict(n_groups=prog.n_groups, per_group=prog.per_group,
+               sentinel=prog.T, fallback=prog.fallback)
+    fns["lif_fused"] = lambda: lif.lif_fused(view, prog.thr_padded,
+                                             prog.leak_shift)
+    fns["ttfs_decode"] = lambda: dec.ttfs_decode(first_l, v_l, **dkw)
     raster = frames_from_times(torch.from_numpy(times).to(dev), prog.T)
     if hasattr(smm, "k_major"):
         w_t = smm.k_major(prog.w_padded)

@@ -10,16 +10,30 @@
 // What bounds it on the H100. Per served batch (B = 64, T = 32, N_pad = 256)
 // it must read the 2.1 MB of int32 currents and write 131 KB of state: a
 // bytes bound of about 0.7 us at 3.35 TB/s. Five integer operations per
-// lane-step are far below the ALU rate.
+// lane-step are far below the ALU rate. Only B * N_pad = 16,384 lanes exist,
+// so the kernel is bound by the latency of its dependent memory round trips,
+// not by bandwidth: the first kernel, a thread a lane that loaded eight steps
+// ahead, made four of them before its store.
 //
-// What the design does about it. One thread per (b, n) lane, v and first in
-// registers for the whole T loop; a warp's 32 lanes are 32 consecutive ints
-// of one row (when the lane stride is 1), so every load is a coalesced 128 B
-// line. The loads do not depend on v, so the loop loads eight steps ahead
-// before it updates, to keep more of the 2 MB in flight. Only B*N_pad
-// threads exist (16,384 at the serving shape, about one block of 128 per
-// SM), so the kernel is bound by the latency of its loads rather than by
-// bandwidth; more rows per launch would fill the card.
+// What the design does about it: a row's window is requested at once. A
+// thread a lane, v and first in registers; a warp's 32 lanes are 32
+// consecutive ints of one row when the lane stride is 1, so every load is a
+// coalesced 128 B line. Every load of a chunk of 32 steps is issued before
+// the recurrence runs over them: one round trip for the served window. The
+// loads are not predicated (with predicated loads nvcc interleaved them with
+// the recurrence, which cost as much as the round trips saved). The last
+// T % 32 steps go one at a time.
+//
+// Designs measured beside it and not kept (each held bit-exact to the plain
+// version and timed in one run; PERF.md has the times): bringing each row's
+// window into shared memory with the bulk-copy engine (cp.async.bulk, an
+// mbarrier a chunk, the recurrence over chunk k running while the later
+// chunks land), either a copy a step of a 128-lane slice or a copy a 16 KB
+// chunk of a whole row's contiguous slab. The first was the slowest of all;
+// the second was 2-6 % slower than this kernel at T = 32 and no faster at
+// T = 16: a bulk copy's issue, transfer and completion cost more than the
+// register round trip they replace. A tail loaded in batches of 16, 8, 4, 2
+// and 1 steps was no faster at T = 16 and slower at T = 32, 33 and 100.
 //
 // The C entry point launches on the given stream and returns
 // cudaGetLastError(); it allocates nothing and does not synchronise.
@@ -29,7 +43,23 @@
 namespace {
 
 constexpr int THREADS = 128;
-constexpr int AHEAD = 8;   // steps loaded before they are applied
+constexpr int CHUNK = 32;          // steps whose loads are issued at once
+
+// K steps from t0: all K loads, then the recurrence over them
+template <int K>
+__device__ __forceinline__ void scan_steps(const int32_t* __restrict__ p,
+                                           long long s_t, int t0, int T,
+                                           int32_t thr, int leak_shift,
+                                           int32_t& v, int32_t& first) {
+  int32_t c[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) c[k] = __ldg(p + (t0 + k) * s_t);
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    v = lif_update(v, c[k], leak_shift);
+    lif_latch(v, thr, first, t0 + k, T);
+  }
+}
 
 __global__ void __launch_bounds__(THREADS)
 lif_kernel(const int32_t* __restrict__ cur, long long s_t, long long s_b,
@@ -43,20 +73,9 @@ lif_kernel(const int32_t* __restrict__ cur, long long s_t, long long s_b,
   const int32_t th = __ldg(thr + lane);
   int32_t v = 0, first = T;
   int t = 0;
-  for (; t + AHEAD <= T; t += AHEAD) {
-    int32_t c[AHEAD];
-#pragma unroll
-    for (int k = 0; k < AHEAD; ++k) c[k] = __ldg(p + (t + k) * s_t);
-#pragma unroll
-    for (int k = 0; k < AHEAD; ++k) {
-      v = lif_update(v, c[k], leak_shift);
-      lif_latch(v, th, first, t + k, T);
-    }
-  }
-  for (; t < T; ++t) {
-    v = lif_update(v, __ldg(p + t * s_t), leak_shift);
-    lif_latch(v, th, first, t, T);
-  }
+  for (; t + CHUNK <= T; t += CHUNK)
+    scan_steps<CHUNK>(p, s_t, t, T, th, leak_shift, v, first);
+  for (; t < T; ++t) scan_steps<1>(p, s_t, t, T, th, leak_shift, v, first);
   first_out[idx] = first;
   v_out[idx] = v;
 }

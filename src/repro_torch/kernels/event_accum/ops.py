@@ -16,7 +16,8 @@ import functools
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import P, I, check_tensors, raise_on, stream
+from repro_torch.kernels.common import (P, I, check_tensors, on_device,
+                                        raise_on, stream)
 from repro_torch.kernels.event_accum import ref as _ref
 
 #: kernel name -> launches since the last ``reset_launches()``
@@ -59,7 +60,7 @@ def event_accum(ids: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
                       device=ids.device)
     rows = ids.numel() // E
     if rows:
-        with torch.cuda.device(ids.device):
+        with on_device(ids):
             code = _lib().event_accum(ids.data_ptr(), w.data_ptr(),
                                       out.data_ptr(), rows, E, n_in, n_pad,
                                       stream(ids))

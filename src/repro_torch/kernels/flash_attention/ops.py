@@ -32,7 +32,7 @@ import functools
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import P, I, L, raise_on, stream
+from repro_torch.kernels.common import P, I, L, on_device, raise_on, stream
 from repro_torch.kernels.flash_attention import ref as _ref
 
 SM90 = "flash_attention_sm90"
@@ -131,7 +131,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return out
     mask = (int(causal), 0 if window is None else int(window), int(q_offset),
             Skv if kv_len is None else int(kv_len))
-    with torch.cuda.device(q.device):
+    with on_device(q):
         if name == SM90:
             geo = (ctypes.c_ulonglong * 21)(
                 *(g for t in (q, k, v) for g in tma_geometry(t)))

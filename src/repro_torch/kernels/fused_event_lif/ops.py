@@ -25,7 +25,8 @@ import torch
 
 from repro_torch.core.lif_dynamics import LIFResult
 from repro_torch.kernels import build
-from repro_torch.kernels.common import P, I, check_tensors, raise_on, stream
+from repro_torch.kernels.common import (P, I, check_tensors, on_device,
+                                        raise_on, stream)
 from repro_torch.kernels.fused_event_lif import ref as _ref
 
 #: kernel name -> launches since the last ``reset_launches()``
@@ -193,7 +194,7 @@ def fused_event_lif(ids: torch.Tensor, count: torch.Tensor, w: torch.Tensor,
     first = torch.empty((B, n_pad), dtype=torch.int32, device=ids.device)
     v = torch.empty_like(first)
     if B:
-        with torch.cuda.device(ids.device):
+        with on_device(ids):
             code = _lib().fused_event_lif(
                 ids.data_ptr(), count.data_ptr(), w.data_ptr(),
                 thresholds.data_ptr(), first.data_ptr(), v.data_ptr(), B, T,
@@ -232,7 +233,7 @@ def fused_event_lif_decode(ids: torch.Tensor, count: torch.Tensor,
     v = torch.empty_like(first)
     labels = torch.empty((B,), dtype=torch.int32, device=ids.device)
     if B:
-        with torch.cuda.device(ids.device):
+        with on_device(ids):
             code = _lib().fused_event_lif_decode(
                 ids.data_ptr(), count.data_ptr(), w.data_ptr(),
                 thresholds.data_ptr(), first.data_ptr(), v.data_ptr(),
@@ -264,7 +265,7 @@ def fused_event_lif_early_exit(ids: torch.Tensor, count: torch.Tensor,
     v = torch.empty_like(first)
     steps = torch.empty((B,), dtype=torch.int32, device=ids.device)
     if B:
-        with torch.cuda.device(ids.device):
+        with on_device(ids):
             code = _lib().fused_event_lif_early_exit(
                 ids.data_ptr(), count.data_ptr(), w.data_ptr(),
                 thresholds.data_ptr(), first.data_ptr(), v.data_ptr(),

@@ -6,6 +6,7 @@ hand-written kernel (``csrc/lif.cu``, built with nvcc on first use) or
 raises; on CPU tensors it runs the plain version in ``ref``. The kernel
 reads the currents through their strides, so a (B, T, N_pad) tensor viewed
 as (T, B, N_pad) by ``movedim`` is read in place, never copied.
+
 ``LAUNCHES`` counts the kernel's launches.
 """
 
@@ -18,8 +19,8 @@ import torch
 
 from repro_torch.core.lif_dynamics import LIFResult
 from repro_torch.kernels import build
-from repro_torch.kernels.common import (P, I, L, check_tensors, raise_on,
-                                        stream)
+from repro_torch.kernels.common import (P, I, L, check_tensors, on_device,
+                                        raise_on, stream)
 from repro_torch.kernels.lif import ref as _ref
 
 #: kernel name -> launches since the last ``reset_launches()``
@@ -56,15 +57,14 @@ def lif_fused(currents: torch.Tensor, thresholds: torch.Tensor,
     if not thresholds.is_contiguous():
         raise ValueError("thresholds must be contiguous")
     T, B, n = currents.shape
-    first = torch.empty((B, n), dtype=torch.int32, device=currents.device)
-    v = torch.empty_like(first)
+    first = currents.new_empty((B, n))
+    v = currents.new_empty((B, n))
     if B and n:
-        s_t, s_b, s_n = currents.stride()
-        with torch.cuda.device(currents.device):
+        with on_device(currents):
             code = _lib().lif_fused(
-                currents.data_ptr(), s_t, s_b, s_n, thresholds.data_ptr(),
-                first.data_ptr(), v.data_ptr(), B, T, n, int(leak_shift),
-                stream(currents))
+                currents.data_ptr(), *currents.stride(),
+                thresholds.data_ptr(), first.data_ptr(), v.data_ptr(), B, T,
+                n, int(leak_shift), stream(currents))
         raise_on(code, "lif_fused")
         LAUNCHES["lif_fused"] += 1
     return LIFResult(first_spike=first, v_final=v)

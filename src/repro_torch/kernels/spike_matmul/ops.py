@@ -22,8 +22,8 @@ import functools
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import (P, I, L, check_tensors, raise_on,
-                                        stream)
+from repro_torch.kernels.common import (P, I, L, check_tensors, on_device,
+                                        raise_on, stream)
 from repro_torch.kernels.spike_matmul import ref as _ref
 
 #: kernel name -> launches since the last ``reset_launches()``
@@ -94,7 +94,7 @@ def spike_matmul(raster: torch.Tensor, w: torch.Tensor, *,
         if w_t is None:
             w_t = k_major(w)
         how = route(raster, w_t)
-        with torch.cuda.device(raster.device):
+        with on_device(raster):
             code = _lib().spike_matmul(raster.data_ptr(), w_t.data_ptr(),
                                        out.data_ptr(), M, K, N,
                                        int(how == "tma"), stream(raster))

@@ -5,7 +5,11 @@ signature. On CUDA tensors it launches the hand-written kernel
 (``csrc/ttfs_decode.cu``, built with nvcc on first use) or raises; on CPU
 tensors it runs the plain version in ``ref``. Rows are read through their
 stride, so ``first[:, :n_out]`` of a (B, N_pad) tensor is decoded in place.
-``LAUNCHES`` counts the kernel's launches.
+
+``LAUNCHES`` counts the kernel's launches; ``ROUTES`` counts them again by
+how many threads decode a row: ``"warp"`` (a warp a row, for rows of at most
+``WARP_MAX_N`` lanes, as at every serving shape) or ``"block"`` (a block a
+row, the wide layers). ``route`` says which a launch takes.
 """
 
 from __future__ import annotations
@@ -16,25 +20,36 @@ import functools
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import (P, I, L, check_tensors, raise_on,
-                                        stream)
+from repro_torch.kernels.common import (P, I, L, check_tensors, on_device,
+                                        raise_on, stream)
 from repro_torch.kernels.ttfs_decode import ref as _ref
 
 #: kernel name -> launches since the last ``reset_launches()``
 LAUNCHES = {"ttfs_decode": 0}
+#: the same launches by how many threads decode a row
+ROUTES = {"warp": 0, "block": 0}
+#: the widest row a single warp decodes; wider rows take a block each
+WARP_MAX_N = 1024
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, ROUTES):
+        for name in counts:
+            counts[name] = 0
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = build.load("ttfs_decode")
-    lib.ttfs_decode.argtypes = [P] * 2 + [L] * 2 + [P] + [I] * 5 + [P]
+    lib.ttfs_decode.argtypes = [P] * 2 + [L] * 2 + [P] + [I] * 6 + [P]
     lib.ttfs_decode.restype = I
     return lib
+
+
+def route(n: int) -> str:
+    """How the kernel decodes rows of ``n`` lanes: "warp" (a warp a row) up
+    to ``WARP_MAX_N``, else "block" (a block a row)."""
+    return "warp" if n <= WARP_MAX_N else "block"
 
 
 def ttfs_decode(first_spike: torch.Tensor, v_final: torch.Tensor, *,
@@ -61,14 +76,17 @@ def ttfs_decode(first_spike: torch.Tensor, v_final: torch.Tensor, *,
         raise ValueError("each row of first_spike and v_final must be "
                          "contiguous")
     B = first_spike.shape[0]
-    labels = torch.empty((B,), dtype=torch.int32, device=first_spike.device)
+    labels = first_spike.new_empty((B,))
     if B:
-        with torch.cuda.device(first_spike.device):
+        how = route(n)
+        with on_device(first_spike):
             code = _lib().ttfs_decode(
                 first_spike.data_ptr(), v_final.data_ptr(),
                 first_spike.stride(0), v_final.stride(0), labels.data_ptr(),
                 B, n_groups, per_group, int(sentinel),
-                int(fallback == "membrane"), stream(first_spike))
+                int(fallback == "membrane"), int(how == "block"),
+                stream(first_spike))
         raise_on(code, "ttfs_decode")
         LAUNCHES["ttfs_decode"] += 1
+        ROUTES[how] += 1
     return labels

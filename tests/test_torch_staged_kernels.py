@@ -126,6 +126,44 @@ def test_lif_fused_matches_jax_on_a_movedim_view(B, T, N, ls):
         assert (res.first_spike < T).any()
 
 
+def _lif_layouts(B, T, N, rng):
+    """(B, T, N) currents as the staged path's movedim view and in two
+    layouts a caller may hand over: {name: (T, B, N) view}."""
+    cur = rng.randint(-300, 400, (B, T, N)).astype(np.int32)
+    base = torch.from_numpy(cur)
+    wide = torch.zeros((B, T, 2 * N), dtype=torch.int32)
+    wide[..., ::2] = base
+    flat = torch.zeros((B * T * N + 1,), dtype=torch.int32)
+    flat[1:] = base.reshape(-1)
+    return cur, {"movedim": base.movedim(1, 0),
+                 "lane stride 2": wide[..., ::2].movedim(1, 0),
+                 "odd offset": flat[1:].view(B, T, N).movedim(1, 0)}
+
+
+@pytest.mark.parametrize("B,T,N,layout", [
+    (3, 33, 256, "movedim"),          # a chunk of 32 steps and one step
+    (2, 100, 128, "movedim"),         # three chunks and four single steps
+    (3, 31, 256, "movedim"),          # no chunk: 31 single steps
+    (3, 33, 256, "lane stride 2"),
+    (2, 40, 128, "odd offset")])      # a chunk and eight single steps
+def test_lif_fused_matches_jax_on_long_windows_and_layouts(B, T, N, layout):
+    """Windows the CUDA kernel splits into chunks of 32 steps and a tail it
+    scans step by step, and layouts other than the staged path's, against
+    JAX's Pallas kernel (interpret mode), bit for bit."""
+    rng = np.random.RandomState(T * N + B)
+    cur, views = _lif_layouts(B, T, N, rng)
+    thr = rng.randint(300, 2000, (N,)).astype(np.int32)
+    res = lif_ops.lif_fused(views[layout], _t(thr), 3)
+    jres = j_lif_fused(jnp.moveaxis(jnp.asarray(cur), 1, 0),
+                       jnp.asarray(thr), 3)
+    assert np.array_equal(res.first_spike.numpy(),
+                          np.asarray(jres.first_spike))
+    assert np.array_equal(res.v_final.numpy(), np.asarray(jres.v_final))
+    fired = res.first_spike.numpy()
+    assert (fired == T).any()
+    assert ((fired > T // 2) & (fired < T)).any()       # late spikes too
+
+
 def test_early_exit_rows_matches_jax_vmap():
     rng = np.random.RandomState(11)
     T, B, N = 12, 9, 40
@@ -165,6 +203,62 @@ def test_ttfs_decode_matches_jax_on_ties_and_strided_rows(fallback):
     empty = dec_ops.ttfs_decode(_t(first)[:0, :n], _t(v)[:0, :n], n_groups=G,
                                 per_group=P, sentinel=T, fallback=fallback)
     assert empty.shape == (0,)
+
+
+@pytest.mark.parametrize("fallback", ["membrane", "zero"])
+def test_ttfs_decode_matches_jax_on_negative_first(fallback):
+    """Negative first-spike times (the packed key first*n + lane is then
+    negative: the pair rule needs no floor-mod), against JAX's kernel."""
+    rng = np.random.RandomState(17)
+    G, P, T, B = 10, 15, 32, 24
+    n = G * P
+    first = rng.choice([-7, -1, 0, 3, T], size=(B, n)).astype(np.int32)
+    first[:6] = T                            # no spike: the fallback decides
+    first[6:9] = rng.choice([-1, T], size=(3, n))
+    v = rng.randint(-3, 3, (B, n)).astype(np.int32)
+    got = dec_ops.ttfs_decode(_t(first), _t(v), n_groups=G, per_group=P,
+                              sentinel=T, fallback=fallback)
+    want = j_ttfs_decode(jnp.asarray(first), jnp.asarray(v), n_groups=G,
+                         per_group=P, sentinel=T, fallback=fallback)
+    assert np.array_equal(got.numpy(), np.asarray(want))
+    assert len(set(got[6:].tolist())) > 1
+
+
+@pytest.mark.parametrize("fallback", ["membrane", "zero"])
+@pytest.mark.parametrize("G,P,route", [(7, 9, "warp"), (32, 32, "warp"),
+                                       (25, 41, "block"), (16, 128, "block")])
+def test_ttfs_decode_matches_jax_on_ties_across_lanes_and_the_cut(
+        G, P, route, fallback):
+    """Rows whose winners tie between lanes a warp folds in different warp
+    lanes (or, on the block route, in different warps), n not a multiple of
+    32 (63, 1025), and n on both sides of the warp/block cut (1024, 1025,
+    2048), against JAX's kernel."""
+    n, T, B = G * P, 16, 10
+    assert dec_ops.route(n) == route
+    rng = np.random.RandomState(n)
+    first = np.full((B, n), T, np.int32)
+    v = np.zeros((B, n), np.int32)
+    a, b = 3, n - 2                          # warp lanes 3 and (n - 2) % 32
+    first[0, [a, b]] = 5                     # a tie: the lower lane wins
+    first[1, [b, n - 1]] = 4
+    first[2] = rng.choice([2, 3, T], size=n)  # many ties at 2
+    first[3, n - 1] = 0                      # the last lane alone
+    v[4, [a, b]] = 9                         # no spike: tied membranes
+    v[5, [b, n - 1]] = 9
+    v[6] = rng.randint(-2, 2, n)             # tie-heavy membranes
+    v[7] = np.iinfo(np.int32).min            # every membrane at INT32_MIN
+    v[8, n - 1] = 1
+    first[9] = rng.choice([1, T], size=n)
+    got = dec_ops.ttfs_decode(_t(first), _t(v), n_groups=G, per_group=P,
+                              sentinel=T, fallback=fallback)
+    want = np.asarray(j_ttfs_decode(jnp.asarray(first), jnp.asarray(v),
+                                    n_groups=G, per_group=P, sentinel=T,
+                                    fallback=fallback))
+    assert np.array_equal(got.numpy(), want)
+    assert want[0] == a // P and want[1] == b // P and want[3] == G - 1
+    if fallback == "membrane":
+        assert want[4] == a // P and want[5] == b // P
+        assert want[7] == 0 and want[8] == G - 1
 
 
 # ------------------------------------------------------------ kernel 4
@@ -311,6 +405,8 @@ def test_wrappers_on_cpu_count_no_launch_and_reject_bad_input():
     dec_ops.ttfs_decode(cur[0, :, :12], cur[0, :, :12], n_groups=3,
                         per_group=4, sentinel=3)
     assert all(n == 0 for ops in OPS for n in ops.LAUNCHES.values())
+    assert all(n == 0 for ops in OPS for n in getattr(ops, "ROUTES",
+                                                      {}).values())
     with pytest.raises(TypeError, match="int8"):
         ea_ops.event_accum(ids, w.int())
     with pytest.raises(ValueError, match="ids"):
