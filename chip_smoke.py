@@ -9,7 +9,8 @@ Phases (any failure exits non-zero; nothing is caught):
                process each, all at once; print the wall time and the ptxas
                report; count the int8 warpgroup MMAs (IGMMA ... S8.S8) in
                the built spike_matmul library's SASS (cuobjdump -sass: must
-               be non-zero) and check that event_accum's kernels hold no
+               be non-zero) and the TF32 ones (HGMMA ... TF32) in
+               flash_attention's, and check that event_accum's kernels hold no
                shared memory (no ids staged, nothing that grows with
                E_max), that the lif and ttfs_decode kernels spill nothing,
                and that ttfs_decode's warp-per-row kernel holds no shared
@@ -83,7 +84,7 @@ Phases (any failure exits non-zero; nothing is caught):
                on the card, each case's route asserted by the per-kernel
                launch counters: every bfloat16 case of ATTN_CASES on the
                tensor-core kernel (flash_attention_sm90, tolerance 2e-2) and
-               every float32 case on the CUDA-core kernel (flash_attention,
+               every float32 case on the split-TF32 kernel (flash_attention,
                2e-5; the tolerances of tests/test_kernels.py): the five
                shapes of that test's sweep, a ragged case, GQA group 8 with
                kv_len < Skv, a window spanning several tiles, queries that
@@ -91,12 +92,14 @@ Phases (any failure exits non-zero; nothing is caught):
                a ragged case at the 128-row tile's scale (Sq = Skv = 1111)
                and Qwen3-8B's head shape, the last two read through
                (B, S, H, D) views as the model hands them over, at S 2048
-               and at the prefill's own shape (B 2, S 4096). The bfloat16
-               inputs the tensor-core kernel does not take go to the
-               CUDA-core kernel, held at 2e-2: the sweep at D 16 and D 256,
-               and D 128 q, k, v with padded rows, a misaligned start or a
-               d stride of 2. Besides each element, every 128-row q tile of
-               every head is held by its relative error norm (ATTN_REL_TOL),
+               and at the prefill's own shape (B 2, S 4096). The inputs the
+               tensor-core kernel does not take go to the split-TF32 kernel,
+               in both types (float32 at 2e-5, bf16 at 2e-2): the sweep at D
+               16 and D 256, and D 128 q, k, v with padded rows, a misaligned
+               start or a d stride of 2 (its element loads; every other case
+               is read through cp.async). Besides each element, every
+               128-row q tile of every head is held by its relative error
+               norm (ATTN_REL_TOL),
                and the same check must catch a planted fault (the last q
                tile's first visible key tile skipped) in every case that has
                a key tile to skip;
@@ -144,8 +147,11 @@ Phases (any failure exits non-zero; nothing is caught):
                is timed at (B 1, Hq 32, Hkv 8, S 4096, D 128, causal, bf16),
                and once more at S 32,768 (fewer samples, no plain version:
                its scores would take 137 GB) and at the prefill's own
-               (B 2, the model's views), beside SDPA; the CUDA-core kernel
-               at (B 1, S 4096) in float32.
+               (B 2, the model's views), beside SDPA; the split-TF32 kernel
+               at (B 1, S 4096) in float32, its bound the lesser of the CUDA
+               cores' (67 TFLOP/s) and split TF32's (three TF32 products a
+               multiply-add at 495 TFLOP/s), and in bf16 with a d stride of
+               2 (the element loads), beside SDPA.
 
 The last lines are a ``kernels`` summary, one JSON object with every
 kernel's numbers, the card's name and power limit, and the result line
@@ -195,10 +201,15 @@ KERNELS = {
 HBM_BYTES_PER_S = 3.35e12
 ALU_OPS_PER_S = 67e12
 INT8_OPS_PER_S = 1979e12
-#: the tensor cores' dense bf16 rate and the CUDA cores' float32 rate, against
-#: which attention's floating-point operations are counted
+#: the tensor cores' dense bf16 and TF32 rates and the CUDA cores' float32
+#: rate, against which attention's floating-point operations are counted
 BF16_FLOPS = 989e12
+TF32_FLOPS = 495e12
 FP32_FLOPS = 67e12
+#: the least time float32 attention can take: on the CUDA cores, or on the
+#: tensor cores in split TF32 (three TF32 products a multiply-add), whichever
+#: is faster
+SPLIT_TF32_FLOPS = max(FP32_FLOPS, TF32_FLOPS / 3)
 SERVE_BATCH = 64
 TIMING_RUNS = 50
 BACK_TO_BACK = 20
@@ -233,11 +244,12 @@ ATTN_CASES = {
     "qwen3-8b prefill": (2, 32, 8, 4096, 4096, 128, True, None, 0, None,
                          "movedim view"),
 }
-#: bf16 inputs the tensor-core kernel does not take, which go to the
-#: CUDA-core kernel: the sweep at D 16 and D 256, and D 128 q, k and v that no
-#: TMA map describes (a row stride of D + 1 elements, data one element past a
-#: 16-byte boundary, a d stride of 2)
-ATTN_BF16_CUDA_CORE_CASES = {
+#: inputs the tensor-core kernel does not take, which go to the split-TF32
+#: kernel in both types: the sweep at D 16 and D 256, and D 128 q, k and v
+#: that no TMA map describes (a row stride of D + 1 elements, data one element
+#: past a 16-byte boundary, a d stride of 2), which the split-TF32 kernel
+#: reads by element loads, not bulk copies
+ATTN_SPLIT_TF32_CASES = {
     **{f"{case} D{D}": (*ATTN_CASES[case][:5], D, *ATTN_CASES[case][6:])
        for case in ATTN_CASES if case.startswith("sweep") for D in (16, 256)},
     "padded row D128": (2, 8, 1, 96, 320, 128, True, None, 224, 250,
@@ -249,8 +261,8 @@ ATTN_BF16_CUDA_CORE_CASES = {
 }
 #: the tolerance of each input type (tests/test_kernels.py's), element by
 #: element (atol = rtol), and the kernel each takes at ATTN_CASES' shapes:
-#: bf16 goes to the tensor cores, float32 (whose tolerance rules out TF32)
-#: to the CUDA cores
+#: bf16 goes to the bf16 tensor-core kernel, float32 (whose tolerance rules
+#: out single TF32) to the split-TF32 one
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 ATTN_ROUTE = {"float32": "flash_attention",
               "bfloat16": "flash_attention_sm90"}
@@ -447,6 +459,16 @@ def main() -> int:
     check(len(igmma) > 0, "spike_matmul's SASS holds no int8 warpgroup MMA")
     print(f"[build] spike_matmul SASS: {len(igmma)} int8 warpgroup MMA "
           f"instructions, e.g. {igmma[0].split(';')[0]}")
+    # the split-TF32 attention kernel multiplies on the tensor cores
+    sass = subprocess.run([cuobjdump, "-sass",
+                           str(build.library_path("flash_attention"))],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout.splitlines()
+    hgmma = [ln.strip() for ln in sass if "HGMMA" in ln and "TF32" in ln]
+    check(len(hgmma) > 0, "flash_attention's SASS holds no TF32 warpgroup "
+          "MMA")
+    print(f"[build] flash_attention SASS: {len(hgmma)} TF32 warpgroup MMA "
+          f"instructions, e.g. {hgmma[0].split(';')[0]}")
     check(re.search(r"\d+ bytes smem", build.build_logs["event_accum"])
           is None, "an event_accum kernel holds shared memory")
     print("[build] event_accum's kernels: no shared memory (ptxas; the "
@@ -1149,7 +1171,7 @@ def main() -> int:
 
     def attn_inputs(B, Hq, Hkv, Sq, Skv, D, dtype, layout, seed):
         """q, k, v on the card from a seeded generator, laid out as
-        ``layout`` says (ATTN_CASES, ATTN_BF16_CUDA_CORE_CASES)."""
+        ``layout`` says (ATTN_CASES, ATTN_SPLIT_TF32_CASES)."""
         g = torch.Generator(dev).manual_seed(seed)
         out = []
         for H, S in ((Hq, Sq), (Hkv, Skv), (Hkv, Skv)):
@@ -1235,8 +1257,8 @@ def main() -> int:
 
     cases = [(case, dname, ATTN_ROUTE[dname], shape)
              for dname in ATTN_TOL for case, shape in ATTN_CASES.items()]
-    cases += [(case, "bfloat16", "flash_attention", shape)
-              for case, shape in ATTN_BF16_CUDA_CORE_CASES.items()]
+    cases += [(case, dname, "flash_attention", shape) for dname in ATTN_TOL
+              for case, shape in ATTN_SPLIT_TF32_CASES.items()]
     for kname in ATTN_ROUTE.values():
         max_err[kname] = 0.0
     rel_seen = {dname: [0.0, float("inf")] for dname in ATTN_TOL}
@@ -1543,7 +1565,7 @@ def main() -> int:
                "flash_attention": "scaled_dot_product_attention"}
     # attention at Qwen3-8B's head shape, causal, S = 4096 (and 32,768
     # below): each kernel, its plain version, and SDPA as the library call;
-    # bf16 on the tensor-core kernel, float32 on the CUDA-core kernel
+    # bf16 on the tensor-core kernel, float32 on the split-TF32 kernel
     aq = {}
     for S in ATTN_TIME_S:
         aq[S] = attn_inputs(1, cfg.n_heads, cfg.n_kv_heads, S, S, cfg.d_head,
@@ -1684,7 +1706,7 @@ def main() -> int:
                 4 * B_ * Hq * (S_ * (S_ + 1) // 2) * D_)
 
     work["flash_attention_sm90"] = (*attn_work(*aq[S0][:2]), BF16_FLOPS)
-    work["flash_attention"] = (*attn_work(*aq32[:2]), FP32_FLOPS)
+    work["flash_attention"] = (*attn_work(*aq32[:2]), SPLIT_TF32_FLOPS)
 
     # the practical floor of one launch: a trivial kernel (zero_ on 64
     # int32) timed the same way
@@ -1825,11 +1847,38 @@ def main() -> int:
           f"H, D) views: kernel alone {ms:.4f} ms, library {library_ms:.4f} "
           f"ms (scaled_dot_product_attention, alone), bound "
           f"{1e3 * n_ops / BF16_FLOPS:.6f} ms (operations) — card: {card}")
+    # the split-TF32 kernel on bf16 inputs no TMA map describes (a d stride
+    # of 2: its element loads) at Qwen3-8B's head shape, S 4096
+    qs2 = attn_inputs(1, cfg.n_heads, cfg.n_kv_heads, S0, S0, cfg.d_head,
+                      torch.bfloat16, "d stride 2", S0 + 2)
+    check(fa.route(*qs2) == "flash_attention",
+          "bf16 with a d stride of 2 does not take the split-TF32 kernel")
+    got = fa.flash_attention(*qs2)
+    hold_attention("flash_attention", "timed d stride 2", "bfloat16", *qs2,
+                   {}, got, [0.0, float("inf")])
+    del got
+    n_bytes, n_ops = attn_work(*qs2[:2])
+    ms, host_ms = kernel_ms(lambda: fa.flash_attention(*qs2), *FEW_SAMPLES)
+    plain_ms = call_ms(lambda: fa_ref.flash_attention_ref(*qs2),
+                       FEW_SAMPLES[0])
+    library_ms = kernel_ms(lambda: sdpa_attention(*qs2), *FEW_SAMPLES)[0]
+    print(f"[times] flash_attention: B=1 Hq={cfg.n_heads} "
+          f"Hkv={cfg.n_kv_heads} S={S0} D={cfg.d_head} causal bf16, d stride "
+          f"2: kernel alone {ms:.4f} ms, wrapper host {host_ms:.4f} ms per "
+          f"call, plain {plain_ms:.4f} ms, library {library_ms:.4f} ms "
+          f"(scaled_dot_product_attention, alone), bound "
+          f"{1e3 * n_ops / BF16_FLOPS:.6f} ms (operations at the bf16 "
+          f"tensor cores' 989 TFLOP/s; this kernel's own arithmetic, one "
+          f"TF32 product for Q K^T and two for P V: "
+          f"{1e3 * 1.5 * n_ops / TF32_FLOPS:.6f} ms) — card: {card}")
     for S in ATTN_TIME_S:
         n_bytes, n_ops = attn_work(*aq[S][:2])
         print(f"[times] flash_attention bound at S={S}: bf16 "
               f"{1e3 * n_ops / BF16_FLOPS:.4f} ms (989 TFLOP/s), float32 "
-              f"{1e3 * n_ops / FP32_FLOPS:.4f} ms (67 TFLOP/s), bytes "
+              f"{1e3 * n_ops / SPLIT_TF32_FLOPS:.4f} ms, the lesser of the "
+              f"CUDA cores' {1e3 * n_ops / FP32_FLOPS:.4f} ms (67 TFLOP/s) "
+              f"and split TF32's {1e3 * 3 * n_ops / TF32_FLOPS:.4f} ms (3 "
+              f"products at 495 TFLOP/s), bytes "
               f"{1e3 * n_bytes / HBM_BYTES_PER_S:.4f} ms")
 
     print("kernels " + " ".join(f"{r['name']}={r['launches']}" for r in rows))

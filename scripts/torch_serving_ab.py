@@ -23,7 +23,12 @@ once on 256 images to warm up, and then:
     of 50, as chip_smoke.py's phase 7 does (``spike_matmul`` with the
     weights' K-major copy where the tree's wrapper takes one, as its batch
     path does); and, where the tree has one, the cached ``launch_plan``
-    lookup.
+    lookup;
+  * times ``flash_attention`` (the split-TF32 kernel, csrc/flash_attention.cu)
+    alone at Qwen3-8B's head shape (B 1, Hq 32, Hkv 8, S 4096, D 128,
+    causal): in float32, and in bf16 with a d stride of 2 (inputs no TMA map
+    describes), 5 calls queued behind a spin kernel, median of 10, as
+    chip_smoke.py's phase 7 does.
 
 Each process prints one JSON line; the last line of the whole run is one
 JSON object with, per metric and tree, every sample, the median and the
@@ -46,6 +51,9 @@ TIMING_RUNS = 50
 BACK_TO_BACK = 20
 SPIN_CYCLES = 20_000_000
 WARM_IMAGES = 256
+#: attention's samples and calls a sample (its launches take milliseconds)
+ATTN_RUNS, ATTN_BACK = 10, 5
+ATTN_ARCH, ATTN_S = "qwen3-8b", 4096
 
 
 def card_line() -> str:
@@ -67,8 +75,10 @@ def one(tree: str) -> dict:
     from repro_torch.core.lowering import lower
     from repro_torch.core.ttfs import encode_ttfs, frames_from_times
     from repro_torch.data import mnist
+    from repro_torch.configs.registry import get_config
     from repro_torch.kernels import build
     from repro_torch.kernels.event_accum import ops as ea
+    from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.fused_event_lif import ops
     from repro_torch.kernels.lif import ops as lif
     from repro_torch.kernels.spike_matmul import ops as smm
@@ -79,8 +89,7 @@ def one(tree: str) -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("torch.cuda.is_available() is false: needs a card")
     dev = torch.device("cuda", torch.cuda.current_device())
-    build.build([n for n in build.sources()
-                 if not n.startswith("flash_attention")])
+    build.build([n for n in build.sources() if n != "flash_attention_sm90"])
     art = Artifact.load(os.path.join(tree, "src", "repro_torch", "assets",
                                      "mnist_ttfs.npz"))
     xte, _ = mnist.load("test")
@@ -150,18 +159,20 @@ def one(tree: str) -> dict:
                                                        w_t=w_t)
     else:
         fns["spike_matmul"] = lambda: smm.spike_matmul(raster, prog.w_padded)
-    for kname, fn in fns.items():
+    def alone(fn, runs, back) -> tuple[float, float]:
+        """(device ms of one call alone, host ms of one wrapper call):
+        ``back`` calls queued behind a spin kernel, median of ``runs``."""
         for _ in range(5):
             fn()
         torch.cuda.synchronize()
         spin, on_card, host = SPIN_CYCLES, [], []
-        while len(on_card) < TIMING_RUNS:
+        while len(on_card) < runs:
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             torch.cuda._sleep(spin)
             start.record()
             t0 = time.perf_counter()
-            for _ in range(BACK_TO_BACK):
+            for _ in range(back):
                 fn()
             queued = time.perf_counter() - t0
             primed = not start.query()
@@ -173,10 +184,23 @@ def one(tree: str) -> dict:
                                      "of the card")
                 spin *= 2
                 continue
-            on_card.append(start.elapsed_time(end) / BACK_TO_BACK)
-            host.append(1e3 * queued / BACK_TO_BACK)
-        out[f"{kname}: alone ms"] = statistics.median(on_card)
-        out[f"{kname}: wrapper host ms"] = statistics.median(host)
+            on_card.append(start.elapsed_time(end) / back)
+            host.append(1e3 * queued / back)
+        return statistics.median(on_card), statistics.median(host)
+
+    for kname, fn in fns.items():
+        out[f"{kname}: alone ms"], out[f"{kname}: wrapper host ms"] = alone(
+            fn, TIMING_RUNS, BACK_TO_BACK)
+    cfg = get_config(ATTN_ARCH)
+    g = torch.Generator(dev).manual_seed(ATTN_S)
+    heads = (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads)
+    f32 = [torch.randn(1, h, ATTN_S, cfg.d_head, generator=g, device=dev)
+           for h in heads]
+    s2 = [torch.randn(1, h, ATTN_S, 2 * cfg.d_head, generator=g, device=dev)
+          .to(torch.bfloat16)[..., ::2] for h in heads]
+    for what, qkv in (("float32", f32), ("bf16 d stride 2", s2)):
+        out[f"flash_attention {what}: alone ms"] = alone(
+            lambda: fa.flash_attention(*qkv), ATTN_RUNS, ATTN_BACK)[0]
     if hasattr(ops, "launch_plan"):
         E, N = frames.ids.shape[2], prog.n_pad
         n = 100_000

@@ -3,7 +3,7 @@
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention/kernel.py
 // (flash_attention_kernel) for bf16 inputs and computes exactly what
-// flash_attention.cu (the CUDA-core kernel, which keeps float32 and every
+// flash_attention.cu (the split-TF32 kernel, which keeps float32 and every
 // other shape) and the plain version compute. For q (B, Hq, Sq, D) and
 // k, v (B, Hkv, Skv, D):
 //   out[b,h,i] = softmax_k(q[b,h,i] . k[b,h/g,k] / sqrt(D)) @ v[b,h/g]

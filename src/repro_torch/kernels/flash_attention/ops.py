@@ -13,8 +13,9 @@ one kernel to the other:
   other stride a multiple of 16 bytes, 16-byte aligned pointers): wgmma on
   the tensor cores, TMA loads.
 * ``flash_attention`` (``csrc/flash_attention.cu``): everything else it
-  takes, float32 among it (its 2e-5 tolerance rules out TF32): the CUDA
-  cores.
+  takes, float32 among it: wgmma on the tensor cores in split TF32 (each
+  operand as hi + lo, three products a multiply-add). Float32's 2e-5
+  tolerance rules out single TF32, not split TF32.
 
 There is no padding: the kernels mask ragged Sq and Skv themselves. Both
 read q, k and v through their strides and write an output with q's strides
@@ -36,10 +37,10 @@ from repro_torch.kernels.common import P, I, L, on_device, raise_on, stream
 from repro_torch.kernels.flash_attention import ref as _ref
 
 SM90 = "flash_attention_sm90"
-CUDA_CORES = "flash_attention"
+SPLIT_TF32 = "flash_attention"
 #: kernel name -> launches since the last ``reset_launches()``
-LAUNCHES = {CUDA_CORES: 0, SM90: 0}
-#: the input types the CUDA-core kernel takes, and the code its C entry reads
+LAUNCHES = {SPLIT_TF32: 0, SM90: 0}
+#: the input types the split-TF32 kernel takes, and the code its C entry reads
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: the head sizes the tensor-core kernel is built for
 SM90_HEAD_DIMS = (64, 128)
@@ -63,12 +64,12 @@ def tma_legal(t: torch.Tensor) -> bool:
 
 def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     """The kernel that takes these inputs: ``SM90`` for bf16 with D in
-    ``SM90_HEAD_DIMS`` and TMA-legal q, k and v, else ``CUDA_CORES``. A pure
+    ``SM90_HEAD_DIMS`` and TMA-legal q, k and v, else ``SPLIT_TF32``. A pure
     function of dtype, head size, strides and alignment."""
     if q.dtype == torch.bfloat16 and q.shape[3] in SM90_HEAD_DIMS and \
             all(tma_legal(t) for t in (q, k, v)):
         return SM90
-    return CUDA_CORES
+    return SPLIT_TF32
 
 
 def tma_geometry(t: torch.Tensor) -> tuple[int, ...]:
@@ -81,7 +82,7 @@ def tma_geometry(t: torch.Tensor) -> tuple[int, ...]:
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    lib = build.load(CUDA_CORES)
+    lib = build.load(SPLIT_TF32)
     lib.flash_attention.argtypes = ([P] + [L] * 4) * 4 + [I] * 11 + [P]
     lib.flash_attention.restype = I
     return lib
@@ -123,7 +124,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return _ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                         q_offset=q_offset, kv_len=kv_len)
     name = route(q, k, v)
-    if name == CUDA_CORES and (D % 8 or not 8 <= D <= 256):
+    if name == SPLIT_TF32 and (D % 8 or not 8 <= D <= 256):
         raise ValueError(f"the kernel takes a head size D that is a multiple "
                          f"of 8 up to 256; got {D}")
     out = torch.empty_like(q)

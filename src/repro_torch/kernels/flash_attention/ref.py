@@ -10,6 +10,11 @@ all Skv keys: the mean of v over Skv, as the JAX reference gives (its
 comment says zero, which it is not). The Pallas kernel's mean over its
 zero-padded 128-row block is not copied. GQA groups query heads onto a KV
 head as ``h // (Hq // Hkv)`` without repeating K or V in memory.
+
+``tf32_round`` and ``split_tf32`` state the rounding rule of the CUDA kernel
+``csrc/flash_attention.cu``, which multiplies on the tensor cores in split
+TF32; no path calls them, and the tests build a model of that arithmetic
+from them.
 """
 
 from __future__ import annotations
@@ -17,6 +22,26 @@ from __future__ import annotations
 import torch
 
 NEG_INF = -1e30
+#: TF32 keeps 10 of float32's 23 stored mantissa bits
+TF32_DROPPED_BITS = 13
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as float32 rounded to TF32 the way ``cvt.rna.tf32.f32`` rounds:
+    to the nearest value whose low 13 mantissa bits are 0, ties away from
+    zero (add half of the dropped range to the bits, then clear them)."""
+    bits = x.float().contiguous().view(torch.int32)
+    half = 1 << (TF32_DROPPED_BITS - 1)
+    mask = ~((1 << TF32_DROPPED_BITS) - 1)
+    return ((bits + half) & mask).view(torch.float32)
+
+
+def split_tf32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``x`` as float32 = hi + lo: hi = tf32(x), lo = tf32(x - hi). The
+    kernel takes x * y as hi*hi + hi*lo + lo*hi; lo is 0 for a value that
+    TF32 holds exactly, as every bfloat16 value."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x.float() - hi)
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -192,13 +192,13 @@ LAYOUTS = ["contiguous", "movedim view", "misaligned storage_offset",
 def test_route_is_a_function_of_dtype_head_size_and_layout(dtype, D, layout):
     """bf16 with D in {64, 128} and TMA-legal layouts (d stride 1, other
     strides multiples of 16 bytes, 16-byte aligned data) go to the
-    tensor-core kernel; everything else to the CUDA-core kernel."""
+    tensor-core kernel; everything else to the split-TF32 kernel."""
     q = _layout((2, 8, 24, D), dtype, layout)
     k = _layout((2, 2, 40, D), dtype, layout)
     v = _layout((2, 2, 40, D), dtype, layout)
     legal = layout in ("contiguous", "movedim view")
     want = ops.SM90 if dtype == torch.bfloat16 and D in (64, 128) and legal \
-        else ops.CUDA_CORES
+        else ops.SPLIT_TF32
     assert ops.route(q, k, v) == want
     if layout == "misaligned storage_offset":
         assert q.data_ptr() % 16 != 0
@@ -211,12 +211,12 @@ def test_route_is_a_function_of_dtype_head_size_and_layout(dtype, D, layout):
 @pytest.mark.parametrize("odd", ["q", "k", "v"])
 def test_route_needs_all_three_tensors_tma_legal(odd):
     """One tensor that a tensor map cannot describe sends the call to the
-    CUDA-core kernel."""
+    split-TF32 kernel."""
     shapes = {"q": (1, 4, 16, 128), "k": (1, 2, 16, 128),
               "v": (1, 2, 16, 128)}
     ts = {n: _layout(sh, torch.bfloat16, "padded row" if n == odd else
                      "contiguous") for n, sh in shapes.items()}
-    assert ops.route(ts["q"], ts["k"], ts["v"]) == ops.CUDA_CORES
+    assert ops.route(ts["q"], ts["k"], ts["v"]) == ops.SPLIT_TF32
     ts[odd] = _layout(shapes[odd], torch.bfloat16, "movedim view")
     assert ops.route(ts["q"], ts["k"], ts["v"]) == ops.SM90
 
@@ -239,3 +239,121 @@ def test_tma_geometry_rebuilds_the_tensor(dtype, layout):
     assert ops.tma_legal(t) == (layout in ("contiguous", "movedim view"))
     if ops.tma_legal(t):
         assert all(x % ops.TMA_ALIGN == 0 for x in (ss, hs, bs))
+
+
+# ------------------------------------------- the split-TF32 kernel's arithmetic
+#: the sweep's shapes at each head size the split-TF32 kernel builds tiles
+#: for, and the edge cases, as (B, Hq, Hkv, Sq, Skv, D, causal, window,
+#: q_offset, kv_len)
+SPLIT_CASES = {
+    **{f"sweep-{i}-D{D}": (*shape[:5], D, *shape[6:], None)
+       for i, shape in enumerate(SWEEP) for D in (16, 64, 128, 256)},
+    **EXTRA,
+}
+
+
+def _tf32_model(q, k, v, *, causal=True, window=None, q_offset=0,
+                kv_len=None, split=True):
+    """Attention as ``csrc/flash_attention.cu`` computes it, on the CPU:
+    each operand of both products split as ``ref.split_tf32`` splits it
+    (with ``split=False``, rounded once to TF32 instead), products of TF32
+    values taken exactly (11-bit significands: exact in float32) and summed
+    in float32, the small terms first. The scores are scaled after the
+    product; P is the unnormalised exp(s - max), split too, and O is divided
+    by the row sum at the end."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+
+    def product(eq, a, b):
+        if not split:
+            return torch.einsum(eq, ref.tf32_round(a), ref.tf32_round(b))
+        ah, al = ref.split_tf32(a)
+        bh, bl = ref.split_tf32(b)
+        small = torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl)
+        return small + torch.einsum(eq, ah, bh)
+
+    qg = q.float().reshape(B, Hkv, Hq // Hkv, Sq, D)
+    s = product("bhgqd,bhkd->bhgqk", qg, k.float()) / D ** 0.5
+    qpos = q_offset + torch.arange(Sq)[:, None]
+    kpos = torch.arange(Skv)[None, :]
+    mask = kpos < (Skv if kv_len is None else kv_len)
+    if causal:
+        mask = mask & (kpos <= qpos)
+    if window is not None:
+        mask = mask & (kpos > qpos - window)
+    s = s.masked_fill(~mask, ref.NEG_INF)
+    p = (s - s.amax(dim=-1, keepdim=True)).exp()
+    lsum = p.sum(dim=-1, keepdim=True)
+    out = product("bhgqk,bhkd->bhgqd", p, v.float())
+    out = out / torch.where(lsum == 0.0, torch.ones_like(lsum), lsum)
+    return out.reshape(B, Hq, Sq, D).to(q.dtype)
+
+
+def _row_rel_err(got, want) -> float:
+    """The largest ||got - want|| / ||want|| over the rows (b, h, i)."""
+    diff = (got.float() - want.float()).norm(dim=-1)
+    return float((diff / want.float().norm(dim=-1).clamp_min(1e-30)).max())
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES)
+def test_split_tf32_model_holds_float32_tolerance(case):
+    """Split TF32, the kernel's arithmetic for float32, is within float32's
+    2e-5 of both plain versions (the port's and JAX's), with every row's
+    relative error norm within chip_smoke.py's 1e-5."""
+    B, Hq, Hkv, Sq, Skv, D, causal, window, qoff, kv_len = SPLIT_CASES[case]
+    (jq, jk, jv), (q, k, v), tol = _inputs((B, Hq, Hkv, Sq, Skv, D),
+                                           "float32", Sq + Skv + D)
+    kw = dict(causal=causal, window=window, q_offset=qoff, kv_len=kv_len)
+    got = _tf32_model(q, k, v, **kw)
+    want = ref.flash_attention_ref(q, k, v, **kw)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=tol, atol=tol)
+    assert _row_rel_err(got, want) <= 1e-5
+    np.testing.assert_allclose(got.numpy(), _np(j_ref(jq, jk, jv, **kw)),
+                               rtol=tol, atol=tol)
+
+
+def test_single_tf32_misses_float32_tolerance():
+    """Why the kernel splits: one TF32 product per multiply-add (10 stored
+    mantissa bits) misses float32's 2e-5 on the sweep's window case at D
+    128, where split TF32 holds it."""
+    shape = (*SWEEP[2][:5], 128)
+    (_, _, _), (q, k, v), tol = _inputs(shape, "float32", 7)
+    kw = dict(causal=SWEEP[2][6], window=SWEEP[2][7], q_offset=SWEEP[2][8])
+    want = ref.flash_attention_ref(q, k, v, **kw)
+    single = _tf32_model(q, k, v, split=False, **kw)
+    err = float((single - want).abs().max())
+    assert err > 10 * tol
+    assert not torch.allclose(single, want, rtol=tol, atol=tol)
+    split = _tf32_model(q, k, v, **kw)
+    assert torch.allclose(split, want, rtol=tol, atol=tol)
+
+
+def test_split_tf32_of_bfloat16_values_has_no_lo():
+    """Every finite bfloat16 value is exact in TF32: its hi is itself and
+    its lo is 0, so the kernel's bf16 route skips the products of lo."""
+    x = torch.arange(-2 ** 15, 2 ** 15, dtype=torch.int32).to(
+        torch.int16).view(torch.bfloat16).float()
+    x = x[torch.isfinite(x)]
+    hi, lo = ref.split_tf32(x)
+    assert x.numel() == 2 ** 16 - 2 * 2 ** 7   # all but the two infs and NaNs
+    assert torch.equal(hi, x)
+    assert torch.equal(lo, torch.zeros_like(x))
+
+
+def test_tf32_round_is_to_nearest_ties_away_from_zero():
+    """``tf32_round`` keeps 10 stored mantissa bits, rounds to the nearest
+    such value, and a tie away from zero, as ``cvt.rna.tf32.f32`` does; the
+    split hi + lo then carries x to within 2^-22 of |x|."""
+    one = 1.0
+    ties = torch.tensor([one + 2 ** -11, -(one + 2 ** -11),
+                         one + 2 ** -10 + 2 ** -11, 2.0 + 2 ** -10])
+    assert ref.tf32_round(ties).tolist() == [
+        one + 2 ** -10, -(one + 2 ** -10), one + 2 ** -9, 2.0 + 2 ** -9]
+    x = torch.from_numpy(np.random.RandomState(3).randn(10_000)
+                         .astype(np.float32)) * 1e3
+    hi, lo = ref.split_tf32(x)
+    assert torch.all(hi.view(torch.int32) & 0x1FFF == 0)
+    assert torch.all(lo.view(torch.int32) & 0x1FFF == 0)
+    ulp = torch.ldexp(torch.ones_like(x), torch.frexp(x).exponent - 11)
+    assert torch.all((x - hi).abs() <= ulp / 2)
+    assert torch.all((x - hi - lo).abs() <= x.abs() * 2.0 ** -22)
