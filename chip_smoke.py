@@ -80,6 +80,33 @@ Phases (any failure exits non-zero; nothing is caught):
   4. overflow — the MNIST artifact with e_max = 8 must reroute rows to the
                dense path and still return the reference labels, with the
                fused and the staged kernels;
+  4b. board  — the board emulator, held to the JAX board's results on the
+               10,000 images (src/repro_torch/assets/mnist_board_expected.npz:
+               digests and totals of every per-image trace field and output).
+               Four served runs of SNNServeEngine(backend="board",
+               kernel="cuda"), full-T and latency mode, with the artifact's
+               E_max and with e_max 8 (the FIFO stalls), each with every
+               launch counter set to 0 just before its requests and read just
+               after its flush: full-T launches lif_fused once per served
+               batch and nothing else (the first run is the board's main
+               path, counted in the kernels summary), latency mode launches
+               nothing (as in JAX); labels, steps, first spikes, membranes,
+               the trace and the board_* stats must equal JAX's and the
+               reference's. Kernel 5 is held to its plain version on the
+               board's own (T, B, N_pad) view of its currents; board-batched-
+               torch equals board-batched-cuda over 10,000 images and board-py
+               (the host tick loop) equals it on the first 1,000 in both
+               modes and both E_max, in every output and trace field; the
+               fuzz artifacts equal tests/golden/ with their board_* arrays;
+               full_agreement over the 10,000 images (accelerator-batch-cuda,
+               -event-fused, -event-cuda, board-batched-cuda) must be exact
+               and repeatability 0 / 50,000; the dense FP32 and INT8
+               baselines' labels must equal JAX's, and one call of each on
+               10,000 images is timed on the card (CUDA events, median of
+               10); ten served board batches of each mode are profiled
+               (device time by kernel, busy share). The board's cycles and
+               nJ are the cost model's output;
+               its modelled us are cycles at 80 MHz, not time on the card;
   5. attention — both flash-attention kernels against their plain version
                on the card, each case's route asserted by the per-kernel
                launch counters: every bfloat16 case of ATTN_CASES on the
@@ -211,6 +238,10 @@ FP32_FLOPS = 67e12
 #: is faster
 SPLIT_TF32_FLOPS = max(FP32_FLOPS, TF32_FLOPS / 3)
 SERVE_BATCH = 64
+#: the board's per-image trace fields and outputs that
+#: src/repro_torch/assets/mnist_board_expected.npz holds digests of
+BOARD_TRACE = ("cycles", "events", "stalls", "ticks", "energy_nj")
+BOARD_OUTPUTS = ("labels", "steps", "first_spike", "v_final")
 TIMING_RUNS = 50
 BACK_TO_BACK = 20
 #: cycles the spin kernel holds the stream while launches are queued behind it
@@ -398,13 +429,15 @@ def main() -> int:
 
     import torch.nn.functional as F
 
+    from repro_torch.board.energy import BoardTrace
     from repro_torch.configs.registry import get_config
     from repro_torch.core.accelerator import SNNAccelerator
+    from repro_torch.core.agreement import full_agreement, repeatability
     from repro_torch.core.artifact import Artifact
     from repro_torch.core.events import pack_events_batched
     from repro_torch.core.lif_dynamics import lif_scan
     from repro_torch.core.lowering import lower
-    from repro_torch.core.reference import SNNReference
+    from repro_torch.core.reference import SNNReference, spike_currents
     from repro_torch.core.runtimes import make_runtime
     from repro_torch.core.ttfs import encode_ttfs, frames_from_times
     from repro_torch.data import mnist
@@ -1163,6 +1196,240 @@ def main() -> int:
         print(f"[overflow] e_max=8, kernel={kernel}: "
               f"{st['overflow_fallbacks']} of {SERVE_BATCH} rows rerouted to "
               f"the dense path, labels equal the reference")
+
+    # ---------------------------------------------------------------- 4b board
+    bexp = dict(np.load(os.path.join(ASSETS, "mnist_board_expected.npz")))
+    check(str(bexp["images_sha256"]) == sha256(xte)
+          and str(bexp["artifact_fingerprint"]) == art.fingerprint(),
+          "mnist_board_expected.npz was not written for these images and "
+          "this artifact")
+    board_arts = {"": art, "_emax8": small}      # small: phase 4's e_max 8
+
+    def board_trace_check(key: str, traces: list, what: str) -> dict:
+        """The per-image trace fields of ``traces`` (BoardTraces in image
+        order) against the JAX board's digests and totals."""
+        fields = {}
+        for f in BOARD_TRACE:
+            a = np.concatenate([getattr(tr, f) for tr in traces])
+            check(a.dtype == (np.float64 if f == "energy_nj" else np.int64)
+                  and sha256(a) == str(bexp[f"{key}_{f}_sha256"])
+                  and np.sum(a) == bexp[f"{key}_{f}_total"],
+                  f"{what}: board trace {f} differs from the JAX board's")
+            fields[f] = a
+        return fields
+
+    def board_outputs_check(key: str, outs: dict, what: str) -> None:
+        for f in BOARD_OUTPUTS:
+            check(sha256(outs[f]) == str(bexp[f"{key}_{f}_sha256"]),
+                  f"{what}: board {f} differs from the JAX board's")
+
+    def same_board(got, got_rt, want, want_rt, what: str) -> None:
+        """Every output and every trace field equal."""
+        same(got, want, f"{what}: outputs differ")
+        for f in BOARD_TRACE + ("synops",):
+            check(np.array_equal(getattr(got_rt.last_trace, f),
+                                 getattr(want_rt.last_trace, f)),
+                  f"{what}: trace {f} differs")
+
+    # the served runs: SNNServeEngine(backend="board", kernel="cuda") over
+    # the 10,000 images, every launch counter set to 0 just before the
+    # requests and read just after the flush; the runtime's outputs and
+    # trace are captured a batch at a time, the pad rows dropped
+    board_runs = {}
+    for suffix, a in board_arts.items():
+        for mode in ("full", "latency"):
+            key = mode + suffix
+            eng = SNNServeEngine(a, max_batch=SERVE_BATCH, backend="board",
+                                 kernel="cuda", latency_mode=mode == "latency")
+            rt = eng.accel
+            check(rt.kernel == "cuda" and rt.device == dev,
+                  f"board {key}: the engine's runtime is not board-batched-"
+                  f"cuda on the card")
+            captured = []
+            forward = rt.forward
+
+            def capture(images, forward=forward, rt=rt, captured=captured):
+                out = forward(images)
+                captured.append((out, rt.last_trace))
+                return out
+            rt.forward = capture
+            eng.reset_stats()
+            reset_launches()
+            t0 = time.perf_counter()
+            for img in xte:
+                eng.submit(img)
+            done = eng.flush()
+            wall = time.perf_counter() - t0
+            counts = launch_counts()
+            st = eng.stats()
+            eng.close()
+            reqs = [done[r] for r in sorted(done)]
+            batches = st["batches"]
+            check(batches == len(captured) == -(-len(xte) // SERVE_BATCH),
+                  f"board {key}: {batches} batches served, {len(captured)} "
+                  f"forwards")
+            want = {"lif_fused": batches if mode == "full" else 0}
+            for kname, n in counts.items():
+                check(n == want.get(kname, 0), f"board {key}: {kname} "
+                      f"launched {n} times for {batches} served batches, "
+                      f"expected {want.get(kname, 0)}")
+            if key == "full":
+                launches["lif_fused"] += counts["lif_fused"]
+            ks = [min(SERVE_BATCH, len(xte) - i)
+                  for i in range(0, len(xte), SERVE_BATCH)]
+            outs = {f: np.concatenate([getattr(o, f).cpu().numpy()[:k]
+                                       for (o, _), k in zip(captured, ks)])
+                    for f in BOARD_OUTPUTS}
+            traces = [BoardTrace(*(getattr(tr, f.name)[:k]
+                                   for f in dataclasses.fields(BoardTrace)))
+                      for (_, tr), k in zip(captured, ks)]
+            board_outputs_check(key, outs, f"board {key}")
+            fields = board_trace_check(key, traces, f"board {key}")
+            labels = np.asarray([r.label for r in reqs], np.int32)
+            steps = np.asarray([r.steps for r in reqs], np.int32)
+            check(np.array_equal(labels, outs["labels"])
+                  and np.array_equal(steps, outs["steps"]),
+                  f"board {key}: served labels or steps differ from the "
+                  f"runtime's")
+            check(np.array_equal(labels, exp["labels_latency" if mode ==
+                                             "latency" else "labels"]),
+                  f"board {key}: labels differ from the JAX reference's")
+            check(np.array_equal(steps, exp["steps_latency"])
+                  if mode == "latency" else bool((steps == prog.T).all()),
+                  f"board {key}: steps differ from the JAX reference's")
+            nj = sum(float(np.sum(tr.energy_nj)) for tr in traces)
+            check(st["board_cycles"] == int(fields["cycles"].sum())
+                  and st["board_stalls"] == int(fields["stalls"].sum())
+                  and st["board_nj_per_image"] == nj / len(xte)
+                  and st["overflow_fallbacks"] == 0
+                  and st["images_out"] == len(xte),
+                  f"board {key}: stats differ from the served traces: "
+                  f"{json.dumps(st, sort_keys=True)}")
+            check((st["board_stalls"] > 0) == (suffix == "_emax8"),
+                  f"board {key}: {st['board_stalls']} stalls")
+            board_runs[key] = st
+            print(f"[board] {key}: {len(reqs)} images in {wall:.3f} s wall, "
+                  f"accuracy {np.mean(labels == yte):.4f}, launches "
+                  f"{ {k: n for k, n in counts.items() if n} } over "
+                  f"{batches} batches; cost model: "
+                  f"{st['board_cycles_per_image']:.4f} cycles/image, "
+                  f"{st['board_model_us_per_image']:.4f} modelled PL us/image "
+                  f"at 80 MHz (cycles / clock, not time on the card), "
+                  f"{st['board_nj_per_image']:.4f} nJ/image, "
+                  f"{st['board_stalls']} stalls, "
+                  f"{np.mean(fields['ticks']):.4f} ticks/image; on the card: "
+                  f"system {st['system_us_per_image']:.2f} us/image, "
+                  f"accelerator {st['accel_us_per_image']:.2f} us/image "
+                  f"— card: {card}")
+            print(f"[board] {key} stats: {json.dumps(st, sort_keys=True)}")
+
+    # kernel 5 at the board's own call: the (T, B, N_pad) movedim view of
+    # the board's currents for the first served batch
+    bb = make_runtime(prog, "board-batched-cuda", device=dev)
+    btimes = encode_ttfs(torch.from_numpy(xte[:SERVE_BATCH]).to(dev), prog.T,
+                         prog.x_min)
+    bview = spike_currents(frames_from_times(btimes, prog.T),
+                           bb._w_f32).movedim(1, 0)
+    check(not bview.is_contiguous(), "the board's currents view is "
+          "contiguous: the strided read is not exercised")
+    hold("lif_fused", lif.lif_fused(bview, prog.thr_padded, prog.leak_shift),
+         lif_scan(bview, prog.thr_padded, prog.leak_shift, prog.T),
+         "the board's currents view")
+
+    # where a served board batch's time goes: ten full-T and ten latency
+    # forwards of SERVE_BATCH images each under torch.profiler
+    chunks = [xte[i:i + SERVE_BATCH]
+              for i in range(0, 10 * SERVE_BATCH, SERVE_BATCH)]
+    for mode in ("full-T", "latency"):
+        rt = make_runtime(prog, "board-batched-cuda", device=dev,
+                          latency_mode=mode == "latency")
+        rt.forward(chunks[0])
+        show_profile(f"board {mode}, 10 batches of {SERVE_BATCH}",
+                     profile(lambda: [rt.forward(c) for c in chunks]), card)
+
+    # the plain version against the kernel, every output and trace field,
+    # over the 10,000 images in chunks of 1,000; the audit path (board-py,
+    # the host tick loop) against the kernel on the first 1,000, in both
+    # modes and with the FIFO stalling
+    for suffix, a in board_arts.items():
+        for mode in ("full", "latency"):
+            lat = mode == "latency"
+            cuda = make_runtime(a, "board-batched-cuda", device=dev,
+                                latency_mode=lat)
+            if suffix == "" and not lat:
+                plain = make_runtime(a, "board-batched-torch", device=dev)
+                for i in range(0, len(xte), 1000):
+                    same_board(plain.forward(xte[i:i + 1000]), plain,
+                               cuda.forward(xte[i:i + 1000]), cuda,
+                               f"board-batched-torch vs -cuda, images {i}+")
+            py = make_runtime(a, "board-py", device=dev, latency_mode=lat)
+            t0 = time.perf_counter()
+            got = py.forward(xte[:1000])
+            py_s = time.perf_counter() - t0
+            same_board(got, py, cuda.forward(xte[:1000]), cuda,
+                       f"board-py vs board-batched-cuda, {mode}{suffix}")
+            print(f"[board] board-py equals board-batched-cuda on the first "
+                  f"1,000 images, {mode}{suffix}: outputs and every trace "
+                  f"field ({1e3 * py_s / 1000:.2f} ms/image on the host tick "
+                  f"loop)")
+    print("[board] board-batched-torch equals board-batched-cuda on the "
+          "card over 10,000 images, full-T: outputs and every trace field")
+    for seed, fart, fprog, images, golden in fuzz:
+        rt = make_runtime(fprog, "board-batched-cuda", device=dev)
+        out = rt.forward(images)
+        for key in ("labels", "first_spike", "v_final", "steps"):
+            check(np.array_equal(getattr(out, key).cpu().numpy(), golden[key]),
+                  f"fuzz seed {seed}: board-batched-cuda {key} differs from "
+                  f"golden")
+        for key, f in (("board_cycles", "cycles"), ("board_events", "events"),
+                       ("board_stalls", "stalls"),
+                       ("board_energy_nj", "energy_nj")):
+            check(np.array_equal(getattr(rt.last_trace, f), golden[key]),
+                  f"fuzz seed {seed}: board-batched-cuda {key} differs from "
+                  f"golden")
+    print(f"[board] fuzz seeds {manifest['seeds']}: board-batched-cuda "
+          f"equals tests/golden/ in every output and board_* array")
+
+    # the paper's agreement protocol on the card: four runtimes against the
+    # reference over the 10,000 images, then five repeated runs
+    rep = full_agreement(art, xte, yte, runtimes=(
+        "accelerator-batch-cuda", "accelerator-event-fused",
+        "accelerator-event-cuda", "board-batched-cuda"), device=dev)
+    print("[board] " + rep.summary().replace("\n", "\n[board] "))
+    check(rep.exact_match and rep.n_images == len(xte),
+          "full_agreement over the 10,000 images is not exact")
+    rpt = repeatability(art, xte, yte, runs=5, device=dev)
+    print(f"[board] repeatability: {json.dumps(rpt)}")
+    check(rpt["mismatches"] == 0 and rpt["image_run_pairs"] == 50_000
+          and rpt["accuracy_stable"],
+          "repeatability over 5 runs of 10,000 images is not 0 / 50,000")
+
+    # the dense Table-3 baselines on the card: their labels against the JAX
+    # reference's, and the device time of one call on all 10,000 images
+    # (CUDA events, median of 10 after 3 warm calls; images on the card)
+    dref = SNNReference(art, device=dev)
+    xdev = torch.from_numpy(xte).to(dev)
+    for mode in ("fp32", "int8"):
+        labels = dref.dense_labels(xdev, mode).cpu().numpy()
+        check(sha256(labels) == str(bexp[f"dense_{mode}_labels_sha256"]),
+              f"dense {mode} labels differ from the JAX reference's")
+        for _ in range(3):
+            dref.dense_labels(xdev, mode)
+        samples = []
+        for _ in range(10):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            dref.dense_labels(xdev, mode)
+            end.record()
+            end.synchronize()
+            samples.append(start.elapsed_time(end))
+        ms = statistics.median(samples)
+        print(f"[board] dense {mode} baseline: accuracy "
+              f"{np.mean(labels == yte):.4f} (JAX {float(bexp[f'dense_{mode}_accuracy']):.4f}), "
+              f"labels equal the JAX reference's; one call on 10,000 images "
+              f"{ms:.4f} ms on the card, {1e3 * ms / len(xte):.6f} us/image "
+              f"— card: {card}")
 
     # ------------------------------------------------- 5 attention vs plain
     torch.backends.cuda.matmul.allow_tf32 = False    # float32 compared below

@@ -16,16 +16,33 @@ so the JAX side's artifact and outputs are exported once, here, into
     ``repro.conformance.fuzz.fuzz_case(seed)`` (their reference outputs are
     ``tests/golden/conformance_seed*.npz``). Each holds the saved artifact
     file as raw bytes (``artifact``; ``Artifact.load(io.BytesIO(...))``
-    reads it back) beside ``images`` and ``times``.
+    reads it back) beside ``images`` and ``times``;
+  * ``mnist_board_expected.npz`` — the JAX board emulator
+    (``board-batched-jnp``) on the committed ``mnist_ttfs.npz`` over the
+    10,000 test images, in full-T and latency mode, each with the
+    artifact's E_max and again with ``events.e_max`` forced to 8 (the FIFO
+    stalls). For each of these four runs, keyed ``{full,latency}[_emax8]``:
+    SHA-256 digests of the per-image trace ``cycles``, ``events``,
+    ``stalls``, ``ticks`` (int64) and ``energy_nj`` (float64), their totals
+    (``…_total``; ``energy_nj_total`` is ``np.sum`` of the float64 array),
+    and digests of the labels, steps, ``first_spike`` and ``v_final``
+    (int32). Beside them, the JAX reference's dense baselines
+    (``SNNReference.dense_labels``): ``dense_{fp32,int8}_labels_sha256`` and
+    ``dense_{fp32,int8}_accuracy``. ``--only-board`` writes this file alone,
+    from the committed artifact, without retraining or rewriting any other
+    asset.
 
 Run from the repo root (the CPU is enough):
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/export_torch_fixture.py
+    PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/export_torch_fixture.py \
+        --only-board
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
 import hashlib
 import io
 import os
@@ -34,6 +51,7 @@ import time
 
 import numpy as np
 
+from repro.board import SNNBoardBatched
 from repro.conformance.fuzz import fuzz_case
 from repro.conformance.golden import PINNED_SEEDS
 from repro.core import deploy
@@ -125,16 +143,78 @@ def export_fuzz(out_dir: str) -> None:
     print(f"wrote {len(PINNED_SEEDS)} fuzz cases")
 
 
+#: the board's per-image trace fields kept in mnist_board_expected.npz
+BOARD_TRACE = ("cycles", "events", "stalls", "ticks", "energy_nj")
+#: the board's outputs kept as digests
+BOARD_OUTPUTS = ("labels", "steps", "first_spike", "v_final")
+
+
+def export_board(out_dir: str, chunk: int = 1000) -> None:
+    t0 = time.perf_counter()
+    art = Artifact.load(os.path.join(out_dir, "mnist_ttfs.npz"))
+    xte, yte = mnist.generate(10_000, 1235)
+    meta = copy.deepcopy(art.meta)
+    meta["events"]["e_max"] = 8
+    arts = {"": art, "_emax8": Artifact(meta, dict(art.arrays))}
+    out = {"images_sha256": np.array(digest(xte)),
+           "artifact_fingerprint": np.array(art.fingerprint())}
+    for suffix, a in arts.items():
+        for mode, latency in (("full", False), ("latency", True)):
+            board = SNNBoardBatched(a, latency_mode=latency, kernel="jnp")
+            outs = {k: [] for k in BOARD_OUTPUTS}
+            trace = {k: [] for k in BOARD_TRACE}
+            for i in range(0, len(xte), chunk):
+                o = board.forward(xte[i:i + chunk])
+                for k in BOARD_OUTPUTS:
+                    outs[k].append(np.asarray(getattr(o, k), np.int32))
+                for k in BOARD_TRACE:
+                    trace[k].append(getattr(board.last_trace, k))
+            key = mode + suffix
+            for k in BOARD_OUTPUTS:
+                out[f"{key}_{k}_sha256"] = np.array(
+                    digest(np.concatenate(outs[k])))
+            for k in BOARD_TRACE:
+                a_k = np.concatenate(trace[k])
+                assert a_k.dtype == (np.float64 if k == "energy_nj"
+                                     else np.int64), (k, a_k.dtype)
+                out[f"{key}_{k}_sha256"] = np.array(digest(a_k))
+                out[f"{key}_{k}_total"] = np.sum(a_k)
+            labels = np.concatenate(outs["labels"])
+            out[f"{key}_accuracy"] = np.float64(np.mean(labels == yte))
+            print(f"board {key}: accuracy {np.mean(labels == yte):.4f}, "
+                  f"cycles/image {out[key + '_cycles_total'] / len(xte):.4f}, "
+                  f"nJ/image {out[key + '_energy_nj_total'] / len(xte):.4f}, "
+                  f"stalls {out[key + '_stalls_total']}")
+    ref = SNNReference(art)
+    for mode in ("fp32", "int8"):
+        labels = np.concatenate([
+            np.asarray(ref.dense_labels(xte[i:i + chunk], mode), np.int32)
+            for i in range(0, len(xte), chunk)])
+        out[f"dense_{mode}_labels_sha256"] = np.array(digest(labels))
+        out[f"dense_{mode}_accuracy"] = np.float64(np.mean(labels == yte))
+        print(f"dense {mode}: accuracy {np.mean(labels == yte):.4f}")
+    path = os.path.join(out_dir, "mnist_board_expected.npz")
+    np.savez(path, **out)
+    print(f"wrote {path} in {time.perf_counter() - t0:.1f}s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=ASSETS)
     ap.add_argument("--skip-mnist", action="store_true",
                     help="only rewrite the fuzz cases")
+    ap.add_argument("--only-board", action="store_true",
+                    help="only write mnist_board_expected.npz, from the "
+                         "committed mnist_ttfs.npz")
     a = ap.parse_args(argv)
     os.makedirs(a.out, exist_ok=True)
+    if a.only_board:
+        export_board(a.out)
+        return 0
     export_fuzz(a.out)
     if not a.skip_mnist:
         export_mnist(a.out)
+    export_board(a.out)
     return 0
 
 

@@ -33,7 +33,7 @@ class FpgaReference:
 @dataclasses.dataclass(frozen=True)
 class BoardCostModel:
     """Cycle/energy model of the PL event datapath driven by the board-runtime
-    emulator (``repro.board``, not ported yet). One constant per
+    emulator (``repro_torch.board``). One constant per
     microarchitectural assumption, so the Table-3 analogue is auditable term
     by term:
 

@@ -12,13 +12,17 @@ map ``jnp`` -> ``torch`` and ``pallas`` -> ``cuda``; ``fused`` stays:
     accelerator-event[-torch|fused|cuda]
                                    packed-event path (kernel picked via the
                                    suffix or the ``kernel=`` keyword)
+    board[-batched[-torch|cuda]]   board emulator, batched path (the kernel
+                                   suffix selects the full-T LIF)
+    board-py                       board emulator, per-image host scheduler
+                                   (no kernel suffix)
 
 ``-cuda`` is the staged pipeline on the hand-written CUDA kernels
 (``spike_matmul`` or ``event_accum``, then ``lif_fused`` and
-``ttfs_decode``). ``ADVERTISED_SPECS`` lists every spec above; each
-constructs. The ``-pallas`` spelling raises ``ValueError`` naming ``cuda``;
-the ``board`` family raises ``NotImplementedError`` naming the ROADMAP item
-that brings it.
+``ttfs_decode``); on the board, ``lif_fused`` alone. ``ADVERTISED_SPECS``
+lists every spec above, and ``registry_consistency_errors`` checks that each
+constructs and that no other spelling of ``PROBE_OPTS`` does. The JAX
+package's ``-pallas`` and ``-jnp`` spellings raise ``ValueError``.
 
 Factories ignore keywords they don't understand, so harness-level defaults
 (``kernel=``, ``latency_mode=``) can be passed uniformly across families.
@@ -44,6 +48,8 @@ ADVERTISED_SPECS = (
     "accelerator-batch", "accelerator-batch-torch", "accelerator-batch-cuda",
     "accelerator-event", "accelerator-event-torch", "accelerator-event-fused",
     "accelerator-event-cuda",
+    "board", "board-batched", "board-batched-torch", "board-batched-cuda",
+    "board-py",
 )
 
 def register(family: str):
@@ -65,10 +71,6 @@ def make_runtime(artifact: Artifact | LoweredProgram, spec: str, *,
     When a ``Tracer`` is installed, the ``runtime.build`` span's META gains
     ``cache_hit``, ``cache_bytes`` and ``cache_evictions``."""
     family, _, opts = spec.partition("-")
-    if family == "board":
-        raise NotImplementedError(
-            f"spec {spec!r}: the board emulator family is not ported yet "
-            "(ROADMAP: port queue, the board family with kernel 5)")
     if family not in _REGISTRY:
         raise ValueError(f"unknown runtime family {family!r} in spec "
                          f"{spec!r}; available: {available()}")
@@ -97,6 +99,64 @@ def make_runtime(artifact: Artifact | LoweredProgram, spec: str, *,
         return rt
 
 
+#: near-miss grammar probe set: every way the spec grammar can be (mis)spelled
+#: within the known families, modes and kernels, the JAX package's kernel
+#: names included. ``registry_consistency_errors`` walks it: a spec either
+#: constructs AND is advertised, or raises AND is not.
+PROBE_OPTS = {
+    "reference": ("", "torch", "bogus"),
+    "accelerator": ("", "batch", "event",
+                    "batch-torch", "batch-cuda", "batch-fused", "batch-jnp",
+                    "batch-pallas", "batch-bogus",
+                    "event-torch", "event-cuda", "event-fused", "event-jnp",
+                    "event-pallas", "event-bogus",
+                    "torch", "cuda", "fused", "jnp", "pallas", "bogus"),
+    "board": ("", "batched", "py",
+              "batched-torch", "batched-cuda", "batched-fused", "batched-jnp",
+              "batched-pallas", "batched-bogus", "py-torch", "py-cuda",
+              "torch", "cuda", "fused", "jnp", "pallas", "bogus"),
+}
+
+
+def probe_specs() -> list[str]:
+    return [family + ("-" + opts if opts else "")
+            for family, all_opts in PROBE_OPTS.items() for opts in all_opts]
+
+
+def registry_consistency_errors(artifact: Artifact | LoweredProgram, *,
+                                device: str | torch.device = "cuda"
+                                ) -> list[str]:
+    """The registry's advertise/construct contract, checked both ways on
+    ``device``:
+
+      1. the families ``available()`` exposes are exactly the families
+         ``ADVERTISED_SPECS`` spells out;
+      2. every advertised spec constructs against ``artifact``;
+      3. no probe-set spec constructs WITHOUT being advertised.
+
+    Returns a list of human-readable errors; empty means consistent."""
+    errors: list[str] = []
+    adv_families = {s.partition("-")[0] for s in ADVERTISED_SPECS}
+    for fam in sorted(adv_families - set(available())):
+        errors.append(f"family {fam!r} is advertised but not registered")
+    for fam in sorted(set(available()) - adv_families):
+        errors.append(f"family {fam!r} is registered but advertises no spec")
+    for spec in ADVERTISED_SPECS:
+        try:
+            make_runtime(artifact, spec, device=device)
+        except Exception as e:  # noqa: BLE001 — any failure is the finding
+            errors.append(f"advertised spec {spec!r} does not construct: {e}")
+    for spec in probe_specs():
+        if spec in ADVERTISED_SPECS:
+            continue  # construction already asserted above
+        try:
+            make_runtime(artifact, spec, device=device)
+        except Exception:  # noqa: BLE001 — rejected and unadvertised
+            continue
+        errors.append(f"spec {spec!r} constructs but is not advertised")
+    return errors
+
+
 @register("reference")
 def _reference(prog: LoweredProgram, opts: str, **_):
     from repro_torch.core.reference import SNNReference
@@ -111,3 +171,22 @@ def _accelerator(prog: LoweredProgram, opts: str, kernel: str = "torch", **_):
     mode, _, k = opts.partition("-")
     return SNNAccelerator(prog, mode=mode or "batch", kernel=k or kernel,
                           device=prog.device)
+
+
+@register("board")
+def _board(prog: LoweredProgram, opts: str, latency_mode: bool = False,
+           kernel: str = "torch", **_):
+    from repro_torch.board import SNNBoard, SNNBoardBatched
+    mode, _, k = opts.partition("-")
+    if mode in ("", "batched"):
+        # forwarded, not swallowed: the batched path takes torch/cuda and
+        # rejects every other kernel (the accelerator-only "fused" too)
+        return SNNBoardBatched(prog, latency_mode=latency_mode,
+                               kernel=k or kernel, device=prog.device)
+    if mode == "py":
+        if k:
+            raise ValueError(f"board-py takes no kernel suffix, got {k!r} "
+                             "(the per-image scheduler is host numpy)")
+        return SNNBoard(prog, latency_mode=latency_mode, device=prog.device)
+    raise ValueError(f"unknown board option {mode!r} "
+                     "(use '', 'batched', 'py')")

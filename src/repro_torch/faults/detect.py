@@ -4,7 +4,7 @@ The port of the checksum detector of ``repro.faults.detect``: the deployment
 artifact carries a per-array SHA-256 manifest, and ``integrity_errors``
 re-hashes the runtime's in-memory (host) copy against it. The serving tier
 runs it when it commissions a lane. The canary, board-trace and ECC
-detectors need the fault models and the board emulator, not ported yet.
+detectors need the fault models, not ported yet.
 """
 
 from __future__ import annotations

@@ -14,7 +14,11 @@ accelerator/system scope split.
     is refused with ``RuntimeError``;
   * a lane's runtime comes from ``spec`` and ``kernel``: an event-mode
     accelerator is fed packed frames, every other runtime (the reference,
-    ``accelerator-batch`` with ``kernel="torch"`` or ``"cuda"``) images;
+    ``accelerator-batch`` with ``kernel="torch"`` or ``"cuda"``, the board)
+    images;
+  * a board lane adds the cost-model account of its real rows to the
+    stats (PL cycles, stalls, dynamic energy); the board backpressures and
+    never reroutes, so its ``overflow_fallbacks`` stay 0;
   * rows whose event frames exceed the artifact's E_max are served again
     through the dense ``accelerator-batch`` runtime on plain PyTorch (the
     FPGA would backpressure; the serving tier reroutes) and counted;
@@ -118,18 +122,26 @@ class _Lane:
         deltas for the scheduler to merge."""
         if self.family == "accelerator" and self.runtime.mode == "event":
             return self._serve_event(images, k)
-        return self._serve_forward(images)
+        return self._serve_forward(images, k)
 
-    def _serve_forward(self, images: np.ndarray) -> dict:
-        """reference / dense-accelerator path: forward(images)."""
+    def _serve_forward(self, images: np.ndarray, k: int) -> dict:
+        """board / reference / dense-accelerator path: forward(images)."""
         t0 = time.perf_counter()
         out = self.runtime.forward(images)
         _sync(self.device)
-        return {"accel_s": time.perf_counter() - t0,
-                "labels": out.labels.cpu().numpy(),
-                "steps": out.steps.cpu().numpy(),
-                "fallback": np.zeros(len(images), bool),
-                "overflow_fallbacks": 0}
+        delta = {"accel_s": time.perf_counter() - t0,
+                 "labels": out.labels.cpu().numpy(),
+                 "steps": out.steps.cpu().numpy(),
+                 "fallback": np.zeros(len(images), bool),
+                 "overflow_fallbacks": 0}
+        trace = getattr(self.runtime, "last_trace", None)
+        if trace is not None:
+            # board family: PL cycles / dynamic energy for the REAL rows only
+            # (pad rows clock too, but they are not served traffic)
+            delta["board_cycles"] = int(np.sum(trace.cycles[:k]))
+            delta["board_nj"] = float(np.sum(trace.energy_nj[:k]))
+            delta["board_stalls"] = int(np.sum(trace.stalls[:k]))
+        return delta
 
     def _serve_event(self, images: np.ndarray, k: int) -> dict:
         """Packed-event path with the overflow→dense reroute. Encoding and
@@ -343,6 +355,9 @@ class ServingScheduler:
             m.inc("accel_s", delta["accel_s"])
             m.inc("system_s", now - t0)
             m.inc("overflow_fallbacks", delta["overflow_fallbacks"])
+            m.inc("board_cycles", delta.get("board_cycles", 0))
+            m.inc("board_nj", delta.get("board_nj", 0.0))
+            m.inc("board_stalls", delta.get("board_stalls", 0))
 
     def _commission(self, lane_id: int) -> _Lane:
         """Build a lane, warm it with a zero probe batch, then run the
@@ -381,7 +396,12 @@ class ServingScheduler:
     def stats(self) -> dict:
         """One consistent ``metrics.snapshot()`` in the JAX scheduler's key
         names, minus the keys of what the port does not serve yet (worker
-        recovery, canaries, board and transport)."""
+        recovery, canaries and transport). The board family adds its
+        cost-model account over the served rows: ``board_cycles``,
+        ``board_stalls``, ``board_cycles_per_image``,
+        ``board_model_us_per_image`` (cycles at the board's clock: the
+        modelled PL latency, not time on the card) and
+        ``board_nj_per_image``."""
         with self._lock:
             snap = self.metrics.snapshot()
             lane_health = [lane.health for lane in self.lanes]
@@ -392,7 +412,7 @@ class ServingScheduler:
         accel_s = float(snap.get("accel_s", 0.0))
         system_s = float(snap.get("system_s", 0.0))
         cache_stats = get_cache().stats()
-        return {
+        st = {
             "spec": self.spec,
             "device": str(self.device),
             "workers": self.workers,
@@ -422,3 +442,16 @@ class ServingScheduler:
             "program_cache_bytes": int(cache_stats["bytes"]),
             "program_cache_evictions": int(cache_stats["evictions"]),
         }
+        if self.family == "board":
+            board_cycles = int(snap.get("board_cycles", 0))
+            cost = getattr(self.lanes[0].runtime, "cost", None)
+            clock = cost.clock_hz if cost is not None else 1.0
+            st.update({
+                "board_cycles": board_cycles,
+                "board_stalls": int(snap.get("board_stalls", 0)),
+                "board_cycles_per_image": per_image(board_cycles),
+                "board_model_us_per_image":
+                    per_image(1e6 * board_cycles / clock),
+                "board_nj_per_image": per_image(snap.get("board_nj", 0.0)),
+            })
+        return st

@@ -12,8 +12,10 @@ Measurement discipline (the paper's §2.3 split):
     host-side spike packing, micro-batching, the launch, readback.
 
 Every batch is zero-padded to the engine's fixed ``max_batch``, so the
-kernels always see one shape. Rows whose event frames exceed the artifact's
-calibrated E_max are rerouted to the dense time-batched path and counted.
+kernels always see one shape. On the accelerator, rows whose event frames
+exceed the artifact's calibrated E_max are rerouted to the dense
+time-batched path and counted; the board never drops an event (its FIFO
+backpressures, costing cycles), so it never reroutes.
 """
 
 from __future__ import annotations
@@ -27,20 +29,35 @@ from repro_torch.core.artifact import Artifact
 from repro_torch.serving.scheduler import (ServeRequest, ServingError,
                                            ServingScheduler)
 
+_BACKEND_SPECS = {"accelerator": "accelerator-event", "board": "board-batched"}
+#: the kernel each backend runs when the caller names none
+_DEFAULT_KERNELS = {"accelerator": "fused", "board": "torch"}
+
 
 class SNNServeEngine:
     """Request-queue classifier serving: submit() → flush() → labels.
 
-    ``backend="accelerator"`` (the only one ported) serves the packed-event
-    path; ``kernel`` selects its implementation: ``"fused"`` (default, the
-    hand-written event→LIF→decode CUDA kernels), ``"cuda"`` (the staged
-    pipeline on the hand-written ``event_accum``, ``lif_fused`` and
-    ``ttfs_decode`` CUDA kernels) or ``"torch"`` (the staged plain-PyTorch
-    pipeline). ``latency_mode`` serves with a per-row early exit at the
-    first output spike (with ``"cuda"``, the exit scan runs in PyTorch
-    between the two kernels, as the JAX package runs it in ``jnp``). ``backend="board"``, ``workers >= 1``,
-    a non-default ``max_wait_us``, ``faults=``, ``resilience=`` and
-    ``canary_pool=`` are not ported yet and raise ``NotImplementedError``."""
+    ``backend`` selects the runtime behind the queue:
+
+      * ``"accelerator"`` (default) serves the packed-event path; ``kernel``
+        selects its implementation: ``"fused"`` (default, the hand-written
+        event→LIF→decode CUDA kernels), ``"cuda"`` (the staged pipeline on
+        the hand-written ``event_accum``, ``lif_fused`` and ``ttfs_decode``
+        CUDA kernels) or ``"torch"`` (the staged plain-PyTorch pipeline);
+      * ``"board"`` serves the board emulator's batched path; ``kernel``
+        selects its full-T LIF: ``"torch"`` (default) or ``"cuda"`` (the
+        hand-written ``lif_fused`` kernel). Every flush also accounts PL
+        cycles and dynamic energy, surfaced in ``stats()`` as ``board_*``.
+
+    An explicit kernel is forwarded to whichever backend is selected, so a
+    board engine asked for the accelerator-only ``"fused"`` fails loudly.
+    ``latency_mode`` serves with a per-row early exit at the first output
+    spike (with the accelerator's ``"cuda"``, the exit scan runs in PyTorch
+    between the two kernels, as the JAX package runs it in ``jnp``; the
+    board's latency mode runs no kernel, as in the JAX package).
+    ``workers >= 1``, a non-default ``max_wait_us``, ``faults=``,
+    ``resilience=`` and ``canary_pool=`` are not ported yet and raise
+    ``NotImplementedError``."""
 
     def __init__(self, artifact: Artifact, *, max_batch: int = 64,
                  kernel: str | None = None, latency_mode: bool = False,
@@ -48,20 +65,16 @@ class SNNServeEngine:
                  max_wait_us: float = 2000.0, faults=None, resilience=None,
                  canary_pool: np.ndarray | None = None,
                  device: str | torch.device = "cuda"):
-        if backend == "board":
-            raise NotImplementedError(
-                "backend='board' needs the board emulator, not ported yet "
-                "(ROADMAP: port queue, the board family with kernel 5)")
-        if backend != "accelerator":
+        if backend not in _BACKEND_SPECS:
             raise ValueError(f"unknown backend {backend!r}")
         self.art = artifact
         self.backend = backend
         self.max_batch = int(max_batch)
         self.latency_mode = bool(latency_mode)
         self.sched = ServingScheduler(
-            artifact, spec="accelerator-event", workers=workers,
+            artifact, spec=_BACKEND_SPECS[backend], workers=workers,
             max_batch=max_batch, max_wait_us=max_wait_us,
-            kernel="fused" if kernel is None else kernel,
+            kernel=_DEFAULT_KERNELS[backend] if kernel is None else kernel,
             latency_mode=latency_mode, faults=faults, resilience=resilience,
             canary_pool=canary_pool, device=device)
         self.accel = self.sched.lanes[0].runtime

@@ -2,7 +2,8 @@
 every advertised spec (the ``-cuda`` ones included, on their kernels' plain
 versions) against the golden conformance seeds, the served MNIST artifact
 against the JAX SNNServeEngine (full-T and latency mode), the overflow→dense
-reroute, and every path the port refuses so far."""
+reroute, and every path the port refuses so far (the board family is held
+in ``test_torch_board.py``)."""
 
 import copy
 import io
@@ -19,7 +20,6 @@ from repro_torch.core.artifact import Artifact
 from repro_torch.core.reference import SNNReference
 from repro_torch.core.runtimes import ADVERTISED_SPECS, make_runtime
 from repro_torch.data import mnist
-from repro_torch.serving.scheduler import ServingScheduler
 from repro_torch.serving.snn_engine import SNNServeEngine
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
@@ -128,10 +128,8 @@ def test_refused_paths_raise_not_implemented():
         lambda: SNNServeEngine(art, resilience={"verify": True},
                                device="cpu"),
         lambda: SNNServeEngine(art, max_wait_us=500.0, device="cpu"),
-        lambda: SNNServeEngine(art, backend="board", device="cpu"),
-        lambda: ServingScheduler(art, spec="board-batched", device="cpu"),
-        lambda: make_runtime(art, "board", device="cpu"),
-        lambda: make_runtime(art, "board-py", device="cpu"),
+        lambda: make_runtime(art, "board-py", faults="seu_membrane=1",
+                             device="cpu"),
         lambda: make_runtime(art, "reference", faults="seu_weight=1",
                              device="cpu"),
         lambda: lowering.lower_with_faults(art, None),
