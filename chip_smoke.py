@@ -77,6 +77,36 @@ Phases (any failure exits non-zero; nothing is caught):
                served and run through the fused and both -cuda accelerator
                specs against tests/golden/, and the staged early exit must
                equal the fused one in first spikes, v at exit and steps;
+  3b. author — define, train, export and serve with the port alone, at the
+               paper's width (784 -> 150, T 32, 60,000 training and 8,192
+               calibration images of mnist.generate(60000, 1234), nothing
+               cut): an SNN carrying mnist_ttfs.npz's w_float re-exported
+               by deploy.export on the card must give JAX's artifact and
+               program fingerprints (mnist_ttfs_expected.npz), every array
+               byte-equal, with spike_matmul launched once and lif_fused and
+               ttfs_decode once per threshold candidate (12) and nothing
+               else; kernels 4, 5 and 6 held to their plain versions at the
+               calibration's shapes (8,192 images, the 150 unpadded lanes,
+               both leak shifts and fallbacks); train_dense_proxy (3 epochs,
+               702 steps, the port's seeded init) on the card, exported the
+               same way and counted the same way, then served through
+               SNNServeEngine on the fused kernels over the 10,000 test
+               images, full-T and latency mode (kernel 1 / kernel 2 once per
+               batch, nothing else): labels equal SNNReference's on the new
+               artifact for 10,000/10,000, latency steps equal the plain
+               early-exit scan's, TTFS accuracy at least 0.89 (printed beside
+               the JAX fixture's); train_surrogate (1 epoch of 8,192 images,
+               T 16) whose loss falls and whose train accuracy exceeds 0.5;
+               the pinned fuzz artifacts equal JAX's
+               (assets/fuzz_seed*.npz), golden.check on tests/golden/
+               clean, and run_case passing every ported oracle of each
+               pinned seed on the card (the oracles not ported printed).
+               The wall seconds of each export and of the training are
+               printed beside the card's name and power limit, one more
+               export and one epoch of training are profiled (device time
+               by kernel, busy share), and the two
+               exports' and two served runs' launches join the kernels
+               summary;
   4. overflow — the MNIST artifact with e_max = 8 must reroute rows to the
                dense path and still return the reference labels, with the
                fused and the staged kernels;
@@ -435,7 +465,11 @@ def main() -> int:
     from repro_torch.core.agreement import full_agreement, repeatability
     from repro_torch.core.artifact import Artifact
     from repro_torch.core.events import pack_events_batched
-    from repro_torch.core.lif_dynamics import lif_scan
+    from repro_torch.configs.mnist_ttfs import SNN_CONFIG
+    from repro_torch.conformance import fuzz_case, run_case
+    from repro_torch.conformance import golden as conformance_golden
+    from repro_torch.core import deploy, quant, snn
+    from repro_torch.core.lif_dynamics import lif_scan, lif_scan_early_exit_rows
     from repro_torch.core.lowering import lower
     from repro_torch.core.reference import SNNReference, spike_currents
     from repro_torch.core.runtimes import make_runtime
@@ -454,6 +488,7 @@ def main() -> int:
     from repro_torch.serving.engine import ServeEngine
     from repro_torch.serving.scheduler import ServingScheduler
     from repro_torch.serving.snn_engine import SNNServeEngine
+    from repro_torch.training import ttfs_trainer
     from repro_torch.training.lm_step import make_prefill_step
 
     wrappers = (ops, ea, lif, smm, dec, fa)
@@ -1180,6 +1215,215 @@ def main() -> int:
           "SNNReference v_final differs from the JAX reference")
     print("[main] SNNReference on the card: labels, first_spike and v_final "
           "equal the JAX reference on all 10,000 images")
+
+    # ------------------------------------------------------------ 3b author
+    # define -> train -> export (calibrated on kernels 4 -> 5 -> 6) -> serve
+    # the new artifact on kernels 1 and 2, at the paper's width, nothing cut
+    # (in a function of its own: its names stay out of the later phases)
+    def author() -> None:
+        def counted(fn, what: str):
+            """``fn()`` with every launch counter set to 0 just before and read
+            just after; returns (its result, wall s, the counts)."""
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = launch_counts()
+            print(f"[author] {what}: {wall:.3f} s wall, launches "
+                  f"{ {k: n for k, n in counts.items() if n} } — card: {card}")
+            return out, wall, counts
+
+        def export_counted(model, what: str, path: str):
+            """One counted export on the calibration set: spike_matmul once,
+            lif_fused and ttfs_decode once per threshold candidate, nothing
+            else."""
+            new, wall, counts = counted(lambda: deploy.export(
+                model, path, calib_images=x_cal, calib_labels=y_cal,
+                device=dev), what)
+            tau = model.lif_layers()[0].spec.tau
+            n_cand = len({quant.leak_shift_from_tau(tau), 31}) * 2 * 3
+            want = {"spike_matmul": 1, "lif_fused": n_cand,
+                    "ttfs_decode": n_cand}
+            for kname, n in counts.items():
+                check(n == want.get(kname, 0), f"{what}: {kname} launched {n} "
+                      f"times, expected {want.get(kname, 0)}")
+                launches[kname] += n
+            print(f"[author] {what}: {n_cand} threshold candidates, chosen leak "
+                  f"shift {new.meta['lif']['leak_shift']}, calibration accuracy "
+                  f"{new.meta['lif']['calibration']['calib_accuracy']:.6f}, "
+                  f"E_max {new.meta['events']['e_max']}")
+            return new, wall
+
+        def snn_model(w=None, generator=None):
+            cfg = SNN_CONFIG
+            lin = snn.Linear(cfg["n_in"], cfg["n_out"], generator=generator,
+                             device=dev)
+            if w is not None:
+                lin.set_weight(w)
+            return snn.SNN(snn.Sequential(lin, snn.LIF(tau=cfg["leak_tau"],
+                                                       t_steps=cfg["T"])),
+                           readout=snn.ReadoutSpec(cfg["n_groups"],
+                                                   cfg["per_group"],
+                                                   cfg["fallback"]),
+                           encode_t=cfg["T"])
+
+        author_dir = os.path.join(ROOT, "build", "author")
+        os.makedirs(author_dir, exist_ok=True)
+        t0 = time.perf_counter()
+        xtr, ytr = mnist.generate(60_000, 1234)
+        x_cal, y_cal = xtr[:8192], ytr[:8192]
+        print(f"[author] procedural MNIST train split (60,000) generated in "
+              f"{time.perf_counter() - t0:.2f} s on the host")
+
+        # 1. the committed artifact re-exported from its float weights
+        re_path = os.path.join(author_dir, "mnist_ttfs_reexport.npz")
+        _, wall = export_counted(snn_model(art["w_float"]),
+                                 "re-export of mnist_ttfs.npz", re_path)
+        again = Artifact.load(re_path)
+        check(again.fingerprint() == str(exp["artifact_fingerprint"]),
+              "the re-exported artifact's fingerprint differs from the JAX "
+              "export's")
+        check(lower(again, device=dev, cache=False).fingerprint ==
+              str(exp["program_fingerprint"]), "the re-exported artifact's "
+              "program fingerprint differs from the JAX package's")
+        check(all(again[k].tobytes() == art[k].tobytes() for k in art.arrays),
+              "the re-exported arrays differ from mnist_ttfs.npz's")
+        print(f"[author] re-export: fingerprint and program fingerprint equal "
+              f"JAX's, every array byte-equal; export {wall:.3f} s wall — card: "
+              f"{card}")
+        # where an export's time goes: device time by kernel and the
+        # device's busy share of the wall (an uncounted run)
+        show_profile("export, 8,192 calibration images", profile(
+            lambda: deploy.export(snn_model(art["w_float"]), None,
+                                  calib_images=x_cal, calib_labels=y_cal,
+                                  device=dev)), card)
+
+        # kernels 4 -> 5 -> 6 at the calibration's own shapes, held to their
+        # plain versions (outside the counted runs)
+        w8 = torch.from_numpy(art["w_int8"]).to(dev)
+        raster = frames_from_times(encode_ttfs(
+            torch.from_numpy(x_cal).to(dev), prog.T, prog.x_min), prog.T)
+        cur = smm.spike_matmul(raster, w8)
+        hold("spike_matmul", [cur], [smm_ref.spike_matmul_ref(raster, w8)],
+             f"the calibration's {tuple(raster.shape)} x {tuple(w8.shape)}")
+        thr_c = torch.from_numpy(art["thresholds"]).to(dev)
+        for ls in sorted({prog.leak_shift, 31}):
+            st = lif.lif_fused(cur.movedim(1, 0), thr_c, ls)
+            hold("lif_fused", tuple(st), tuple(lif_ref.lif_fused_ref(
+                cur.movedim(1, 0), thr_c, ls)),
+                f"the calibration's (T, B, N) = {tuple(cur.movedim(1, 0).shape)}"
+                f" view, leak shift {ls}")
+            for fb in ("membrane", "zero"):
+                kw = dict(n_groups=prog.n_groups, per_group=prog.per_group,
+                          sentinel=prog.T, fallback=fb)
+                hold("ttfs_decode", [dec.ttfs_decode(*st, **kw)],
+                     [dec_ref.ttfs_decode_ref(*st, **kw)],
+                     f"the calibration's {prog.n_out} unpadded lanes, leak "
+                     f"shift {ls}, {fb} fallback")
+        print(f"[author] spike_matmul, lif_fused and ttfs_decode bit-exact with "
+              f"their plain versions at the calibration's shapes (8,192 images, "
+              f"N {prog.n_out} unpadded)")
+
+        # 2. trained on the card from the port's own seeded init, exported
+        res, wall_train, _ = counted(lambda: ttfs_trainer.train_dense_proxy(
+            xtr, ytr, test_images=xte, test_labels=yte, epochs=3, device=dev),
+            "train_dense_proxy, 3 epochs")
+        check(res.steps == 702, f"{res.steps} training steps, expected 702")
+        new_path = os.path.join(author_dir, "mnist_ttfs_trained.npz")
+        new, wall_export = export_counted(res.model, "export of the trained "
+                                          "model", new_path)
+        new = Artifact.load(new_path)
+        print(f"[author] trained {res.steps} steps in {wall_train:.3f} s wall "
+              f"(dense train accuracy {res.train_acc:.4f}, test "
+              f"{res.test_acc:.4f}), exported in {wall_export:.3f} s wall — "
+              f"card: {card}")
+        show_profile("train_dense_proxy, 1 epoch (234 steps)", profile(
+            lambda: ttfs_trainer.train_dense_proxy(xtr, ytr, epochs=1,
+                                                   device=dev)), card)
+
+        # 3. the new artifact served on kernels 1 and 2, against the reference
+        out = SNNReference(new, device=dev).forward(xte)
+        ref_labels = out.labels.cpu().numpy()
+        nprog = lower(new, device=dev)
+        cur = spike_currents(frames_from_times(encode_ttfs(
+            torch.from_numpy(xte).to(dev), nprog.T, nprog.x_min), nprog.T),
+            nprog.w_int8.to(torch.float32))
+        _, ref_steps = lif_scan_early_exit_rows(cur.movedim(1, 0),
+                                                nprog.thresholds,
+                                                nprog.leak_shift, nprog.T)
+        ref_steps = ref_steps.cpu().numpy()
+        del cur
+        for mode, kname in (("full-T", "fused_event_lif_decode"),
+                            ("latency", "fused_event_lif_early_exit")):
+            eng = SNNServeEngine(new, max_batch=SERVE_BATCH, kernel="fused",
+                                 latency_mode=mode == "latency")
+            eng.reset_stats()
+
+            def serve(eng=eng):
+                for img in xte:
+                    eng.submit(img)
+                return eng.flush()
+            done, wall, counts = counted(serve, f"served new artifact, {mode}")
+            batches = eng.stats()["batches"]
+            eng.close()
+            for k, n in counts.items():
+                want = batches if k == kname else 0
+                check(n == want, f"new artifact {mode}: {k} launched {n} times "
+                      f"for {batches} served batches, expected {want}")
+            launches[kname] += counts[kname]
+            reqs = [done[r] for r in sorted(done)]
+            labels = np.asarray([r.label for r in reqs], np.int32)
+            steps = np.asarray([r.steps for r in reqs], np.int32)
+            n_same = int(np.sum(labels == ref_labels))
+            check(n_same == len(xte), f"new artifact {mode}: {n_same}/"
+                  f"{len(xte)} labels equal the reference's")
+            check(np.array_equal(steps, ref_steps) if mode == "latency"
+                  else bool((steps == nprog.T).all()),
+                  f"new artifact {mode}: served steps differ from the plain "
+                  f"early-exit scan's")
+            acc = float(np.mean(labels == yte))
+            check(acc >= 0.89, f"new artifact {mode}: TTFS accuracy {acc:.4f} "
+                  f"below 0.89")
+            print(f"[author] new artifact served {mode} on {kname}: "
+                  f"{n_same}/{len(xte)} labels equal SNNReference's, mean steps "
+                  f"{steps.mean():.2f}, TTFS accuracy {acc:.4f} (the JAX-trained "
+                  f"fixture's {float(exp['accuracy']):.4f}), {counts[kname]} "
+                  f"launches over {batches} batches")
+
+        # a short surrogate-gradient run: its loss falls, it learns
+        sres, wall, _ = counted(lambda: ttfs_trainer.train_surrogate(
+            x_cal, y_cal, epochs=1, t_steps=16, device=dev),
+            "train_surrogate, 1 epoch of 8,192 images, T 16")
+        k = max(1, len(sres.losses) // 8)
+        first, last = np.mean(sres.losses[:k]), np.mean(sres.losses[-k:])
+        check(last < first, f"surrogate loss did not fall ({first:.4f} -> "
+              f"{last:.4f})")
+        check(sres.train_acc > 0.5, f"surrogate train accuracy "
+              f"{sres.train_acc:.4f} not above 0.5")
+        print(f"[author] train_surrogate: {sres.steps} steps in {wall:.3f} s, "
+              f"loss {first:.4f} -> {last:.4f} (mean of first/last {k}), train "
+              f"accuracy {sres.train_acc:.4f} — card: {card}")
+
+        # 4. conformance on the card
+        for seed, fart, _, images, _ in fuzz:
+            case = fuzz_case(seed)
+            check(case.artifact.fingerprint() == fart.fingerprint()
+                  and np.array_equal(case.images, images),
+                  f"fuzz seed {seed}: the port's fuzz_case differs from JAX's")
+        print(f"[author] fuzz_case equals the JAX artifacts and images for seeds "
+              f"{[s for s, *_ in fuzz]}")
+        diffs = conformance_golden.check(dirpath=GOLDEN, device=dev)
+        check(not diffs, f"golden drift on the card: {[str(d) for d in diffs]}")
+        print(f"[author] golden.check on tests/golden/: clean "
+              f"({len(fuzz)} seeds)")
+        for seed, *_ in fuzz:
+            rep = run_case(fuzz_case(seed), device=dev)
+            check(rep.passed, rep.summary())
+            print(f"[author] {rep.summary()}")
+
+    author()
 
     # ------------------------------------------------------------- 4 overflow
     meta = copy.deepcopy(art.meta)

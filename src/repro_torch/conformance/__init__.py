@@ -1,0 +1,27 @@
+"""Cross-runtime differential conformance suite — the port of
+``repro.conformance``.
+
+The paper's central claim is semantics preservation: ONE exported artifact,
+and every runtime that consumes it produces bit-exact labels and first-spike
+times. This package generalizes the claim to *any valid artifact*:
+
+  * ``fuzz``    — random valid deployment artifacts plus adversarial event
+    streams (floods, never-spike rows, exact-E_max boundaries, tie-heavy
+    spike times), equal seed for seed to the JAX package's;
+  * ``oracles`` — every advertised runtime spec of the port on the same
+    fuzzed artifact, through the oracle stack the port can run
+    (``ConformanceReport.not_ported`` names the rest);
+  * ``golden``  — pinned-seed golden traces, checked against
+    ``tests/golden/``.
+
+The JAX package's ``transport_faults`` (the fault-injecting TCP proxy) needs
+the program transport, not ported yet (ROADMAP §1 item 4).
+"""
+
+from repro_torch.conformance.fuzz import FuzzedCase, fuzz_case, images_from_times
+from repro_torch.conformance.oracles import (ConformanceReport, OracleOutcome,
+                                             run_case)
+from repro_torch.conformance import golden
+
+__all__ = ["FuzzedCase", "fuzz_case", "images_from_times",
+           "ConformanceReport", "OracleOutcome", "run_case", "golden"]

@@ -76,4 +76,5 @@ class BoardCostModel:
         return self.groups * self.lane
 
 
+PYNQ_Z2 = FpgaReference()
 PYNQ_COST = BoardCostModel()

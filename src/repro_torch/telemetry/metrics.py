@@ -18,7 +18,7 @@ worker lanes keep mutating).
     not loose dict keys; a bounded ring keeps the most recent ones.
 
 ``snapshot()`` is the scheduler-facing consistent read. (A pure-Python copy
-of ``repro.telemetry.metrics``; the exporters are not ported yet.)
+of ``repro.telemetry.metrics``; its exporters are in ``telemetry.export``.)
 """
 
 from __future__ import annotations

@@ -5,10 +5,14 @@ the CPU on its own when the card is missing."""
 import ast
 import os
 
+import numpy as np
 import pytest
 import torch
 
+import repro_torch.conformance
 from repro_torch.configs.registry import get_config, reduced
+from repro_torch.conformance import fuzz_case, golden, run_case
+from repro_torch.core import deploy, snn
 from repro_torch.core.artifact import Artifact
 from repro_torch.core.lowering import lower
 from repro_torch.core.reference import SNNReference
@@ -16,6 +20,7 @@ from repro_torch.launch import serve
 from repro_torch.models.model import LM
 from repro_torch.serving.engine import ServeEngine
 from repro_torch.serving.snn_engine import SNNServeEngine
+from repro_torch.training import ttfs_trainer
 
 ROOT = os.path.normpath(os.path.join(os.path.dirname(__file__), ".."))
 PORT = os.path.join(ROOT, "src", "repro_torch")
@@ -83,3 +88,60 @@ def test_lm_entry_points_raise_without_cuda(monkeypatch):
             make()
     assert ServeEngine(lm, device="cpu").lm.device == torch.device("cpu")
     assert lm.device == torch.device("cpu")
+
+
+#: modules whose files the walk must reach (the authoring and export slice)
+AUTHORING = ("core/quant.py", "core/codesign.py", "core/snn.py",
+             "core/deploy.py", "configs/mnist_ttfs.py", "training/optim.py",
+             "training/ttfs_trainer.py", "conformance/__init__.py",
+             "conformance/fuzz.py", "conformance/oracles.py",
+             "conformance/golden.py", "telemetry/export.py")
+
+
+def test_walk_covers_the_authoring_modules():
+    walked = {os.path.relpath(p, PORT) for p in _port_files()}
+    assert set(AUTHORING) <= walked
+
+
+def test_conformance_does_not_import_transport_faults():
+    """The fault-injecting transport proxy waits for the program transport
+    (ROADMAP §1 item 4): no conformance module imports it."""
+    conf = os.path.join(PORT, "conformance")
+    assert not os.path.exists(os.path.join(conf, "transport_faults.py"))
+    for name in os.listdir(conf):
+        if name.endswith(".py"):
+            with open(os.path.join(conf, name)) as f:
+                tree = ast.parse(f.read())
+            for _, mods in _imported_modules(tree):
+                assert not any("transport_faults" in m for m in mods), name
+            names = {a.name for node in ast.walk(tree)
+                     if isinstance(node, ast.ImportFrom) for a in node.names}
+            assert "transport_faults" not in names, name
+    assert not hasattr(repro_torch.conformance, "transport_faults")
+    assert "SCENARIOS" not in repro_torch.conformance.__all__
+
+
+def test_authoring_entry_points_raise_without_cuda(monkeypatch):
+    """Define, train, export and check conformance: each refuses to fall
+    back to the CPU, and runs there when asked for ``device="cpu"``."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    x = np.zeros((4, 784), np.float32)
+    y = np.zeros(4, np.int32)
+    model = snn.SNN(snn.Sequential(snn.Linear(
+        784, 150, generator=torch.Generator().manual_seed(0), device="cpu"),
+        snn.LIF()))
+    case = fuzz_case(4)
+    for make in (lambda: snn.Linear(784, 150),
+                 lambda: ttfs_trainer.train_dense_proxy(x, y, epochs=1,
+                                                        batch=4),
+                 lambda: ttfs_trainer.train_surrogate(x, y, epochs=1,
+                                                      batch=4),
+                 lambda: deploy.export(model, calib_images=x,
+                                       calib_labels=y),
+                 lambda: run_case(case),
+                 lambda: golden.check(seeds=[0]),
+                 lambda: golden.compute_golden(0)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+    art = deploy.export(model, calib_images=x, calib_labels=y, device="cpu")
+    assert lower(art, device="cpu").n_out == 150
