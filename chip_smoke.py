@@ -107,6 +107,31 @@ Phases (any failure exits non-zero; nothing is caught):
                by kernel, busy share), and the two
                exports' and two served runs' launches join the kernels
                summary;
+  3c. transport — the program crosses processes without being lowered
+               again: the envelopes of the MNIST program and of the eight
+               fuzz programs lowered on the card must equal JAX's byte for
+               byte (src/repro_torch/assets/transport_expected.npz), and every
+               variant of fuzz_envelope_mutations must be refused with
+               ProgramIOError; two launcher processes (python -m
+               repro_torch.launch.serve --snn-artifact ... --transport
+               tcp://127.0.0.1:0 --role leader --await-fetches 1, then
+               --role follower at the port the leader printed) serve the
+               launcher's 10,000 RandomState(0) requests on the card: both
+               exit 0, the follower lowers nothing, and both label files
+               equal each other and JAX's reference labels; in-process,
+               distribute_program over a ProgramServer on loopback into an
+               empty program cache, then SNNServeEngine on the 10,000 test
+               images full-T and in latency mode, each with every launch
+               counter set to 0 just before its requests: kernel 1, then
+               kernel 2, once per served batch (157) and nothing else, JAX's
+               labels and steps, no program lowered, transport_fetches >= 1
+               and no fetch failure in stats(); run_suite on all 27 fault
+               scenarios with the MNIST envelope (a fuzz envelope as the
+               stale replay), every verdict ok. It prints the envelope's
+               bytes, the median and p95 of 200 clean loopback fetches, each
+               process's wall time from its start to its first label and the
+               suite's wall time; the two in-process runs' launches join the
+               kernels summary;
   4. overflow — the MNIST artifact with e_max = 8 must reroute rows to the
                dense path and still return the reference labels, with the
                fused and the staged kernels;
@@ -222,10 +247,12 @@ import hashlib
 import io
 import json
 import os
+import queue
 import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -268,6 +295,12 @@ FP32_FLOPS = 67e12
 #: is faster
 SPLIT_TF32_FLOPS = max(FP32_FLOPS, TF32_FLOPS / 3)
 SERVE_BATCH = 64
+#: the launcher's SNN request stream (repro_torch.launch.serve.serve_snn),
+#: whose JAX reference labels src/repro_torch/assets/transport_expected.npz
+#: holds
+SERVE_REQUESTS = 10_000
+#: clean loopback fetches of the MNIST envelope, timed one by one
+FETCH_SAMPLES = 200
 #: the board's per-image trace fields and outputs that
 #: src/repro_torch/assets/mnist_board_expected.npz holds digests of
 BOARD_TRACE = ("cycles", "events", "stalls", "ticks", "energy_nj")
@@ -1424,6 +1457,253 @@ def main() -> int:
             print(f"[author] {rep.summary()}")
 
     author()
+
+    # --------------------------------------------------------- 3c transport
+    # the program crosses processes without being lowered again: envelopes
+    # equal to JAX's, every mutation refused, a leader and a follower process
+    # over loopback TCP, the follower's path in-process on kernels 1 and 2,
+    # and the 27 fault scenarios (a function of its own, as 3b)
+    def transport() -> None:
+        from repro_torch.conformance.fuzz import fuzz_envelope_mutations
+        from repro_torch.conformance.transport_faults import (SCENARIOS,
+                                                              run_suite)
+        from repro_torch.core.lowering import ProgramCache, install
+        from repro_torch.core.program_io import (ProgramIOError,
+                                                 deserialize_program,
+                                                 serialize_program)
+        from repro_torch.distributed import transport as tp
+        from repro_torch.launch.cluster import distribute_program
+
+        texp = dict(np.load(os.path.join(ASSETS, "transport_expected.npz")))
+        # 1. the envelopes of the programs lowered on the card are JAX's
+        blob = serialize_program(prog)
+        check(blob == texp["envelope_mnist"].tobytes(),
+              "the MNIST envelope differs from the JAX package's")
+        envelopes = {"mnist": (art, blob)}
+        for seed, fart, fprog, _, _ in fuzz:
+            fblob = serialize_program(fprog)
+            check(fblob == texp[f"envelope_fuzz_seed{seed}"].tobytes(),
+                  f"fuzz seed {seed}: the envelope differs from JAX's")
+            envelopes[f"fuzz seed {seed}"] = (fart, fblob)
+        back = deserialize_program(blob, art, device=dev, cache=False)
+        check(back.fingerprint == prog.fingerprint and back.device == dev
+              and all(torch.equal(getattr(back, k), getattr(prog, k))
+                      for k in ("w_float", "w_int8", "thresholds",
+                                "w_padded", "thr_padded")),
+              "the MNIST envelope does not reconstruct the lowered program")
+        print(f"[transport] envelopes equal JAX's byte for byte: MNIST "
+              f"{len(blob)} bytes, fuzz seeds "
+              f"{[len(b) for k, (_, b) in envelopes.items() if k != 'mnist']}"
+              f" bytes; the MNIST envelope reconstructs the program on "
+              f"{dev}")
+        # 2. every mutation is refused (the refusal is the check)
+        refused = 0
+        for i, (name, (a, b)) in enumerate(envelopes.items()):
+            for desc, bad in fuzz_envelope_mutations(b, i):
+                try:
+                    deserialize_program(bad, a, device=dev, cache=False)
+                except ProgramIOError:
+                    refused += 1
+                    continue
+                fail(f"{name}: the mutated envelope ({desc}) was accepted")
+        print(f"[transport] {refused} envelope mutations "
+              f"(fuzz_envelope_mutations, 5 of each of {len(envelopes)} "
+              f"envelopes) refused with ProgramIOError")
+
+        # 3. a leader and a follower process over loopback TCP
+        requests = SERVE_REQUESTS
+        images = np.random.RandomState(0).rand(
+            requests, prog.n_in).astype(np.float32)
+        check(sha256(images) == str(texp["serve_images_sha256"]),
+              "the launcher's request stream differs from the exported one")
+        tdir = os.path.join(ROOT, "build", "transport")
+        os.makedirs(tdir, exist_ok=True)
+        env = dict(os.environ, PYTHONPATH=SRC, PYTHONUNBUFFERED="1")
+        base = [sys.executable, "-m", "repro_torch.launch.serve",
+                "--snn-artifact", os.path.join(ASSETS, "mnist_ttfs.npz"),
+                "--requests", str(requests)]
+        out = {role: os.path.join(tdir, f"{role}.npy")
+               for role in ("leader", "follower")}
+        for path in out.values():
+            if os.path.exists(path):
+                os.remove(path)
+
+        #: role -> perf_counter at its spawn and at the end of its output
+        spawned, ended = {}, {}
+
+        def spawn(role, args):
+            spawned[role] = time.perf_counter()
+            proc = subprocess.Popen(base + args, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True,
+                                    env=env, cwd=ROOT)
+            lines: queue.Queue = queue.Queue()
+
+            def pump():
+                for line in proc.stdout:
+                    lines.put(line)
+                ended[role] = time.perf_counter()
+                lines.put(None)
+            threading.Thread(target=pump, daemon=True).start()
+            return proc, lines
+
+        def read_until(lines, pattern, timeout_s, seen):
+            """Lines until one matches ``pattern`` (its match) or the
+            process's output ends (None)."""
+            deadline = time.monotonic() + timeout_s
+            while True:
+                line = lines.get(timeout=max(0.0, deadline - time.monotonic()))
+                if line is None:
+                    return None
+                seen.append(line)
+                m = re.search(pattern, line) if pattern else None
+                if m:
+                    return m
+
+        procs = []
+        logs = {"leader": [], "follower": []}
+        try:
+            leader, leader_lines = spawn("leader", [
+                "--transport", "tcp://127.0.0.1:0", "--role", "leader",
+                "--await-fetches", "1", "--labels-out", out["leader"]])
+            procs.append(leader)
+            m = read_until(leader_lines,
+                           r"\[leader\] publishing program at (tcp://\S+)",
+                           300, logs["leader"])
+            check(m is not None, "the leader printed no endpoint:\n"
+                  + "".join(logs["leader"]))
+            follower, follower_lines = spawn("follower", [
+                "--transport", m.group(1), "--role", "follower",
+                "--labels-out", out["follower"]])
+            procs.append(follower)
+            for role, proc, lines in (("follower", follower, follower_lines),
+                                      ("leader", leader, leader_lines)):
+                read_until(lines, None, 300, logs[role])
+                check(proc.wait(timeout=60) == 0,
+                      f"the {role} process exited with {proc.returncode}:\n"
+                      + "".join(logs[role]))
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                proc.wait()
+        for role in ("leader", "follower"):
+            print("".join(f"[transport] {role}| {line}"
+                          for line in logs[role]), end="")
+        text = {role: "".join(logs[role]) for role in logs}
+        check("(cache: 0 lowered" in text["follower"],
+              "the follower process lowered the program")
+        check("(cache: 1 lowered" in text["leader"]
+              and "served 1/1 follower fetch(es)" in text["leader"],
+              "the leader did not lower once and serve one fetch")
+        served = {role: np.load(path) for role, path in out.items()}
+        for role, labels in served.items():
+            check(labels.dtype == np.int32 and np.array_equal(
+                labels, texp["serve_labels"]),
+                f"the {role}'s {requests} labels differ from JAX's")
+        said = {role: re.search(
+            r"program after ([0-9.]+) s, first label after ([0-9.]+) s, "
+            r"all labels after ([0-9.]+) s", text[role]).groups()
+            for role in logs}
+        print(f"[transport] two processes over loopback TCP, {requests} "
+              f"requests each: labels equal to each other and to JAX's "
+              f"reference; the follower lowered nothing. From each "
+              f"launcher's start, program / first label / all labels: "
+              + "; ".join(f"{role} {' / '.join(said[role])} s"
+                          for role in ("follower", "leader"))
+              + "; process walls from spawn to the end of its output: "
+              + "; ".join(f"{role} {ended[role] - spawned[role]:.2f} s"
+                          for role in ("follower", "leader"))
+              + f" — card: {card}")
+
+        # 4. the follower's path in-process: fetch, no lowering, kernels 1
+        # and 2 once per served batch
+        follower_cache = ProgramCache()
+        prev = install(follower_cache)
+        server = tp.ProgramServer(blob).start()
+        try:
+            tp.reset_metrics()
+            fprog, _ = distribute_program(art, server.endpoint,
+                                          role="follower", device=dev)
+            check(fprog.fingerprint == prog.fingerprint,
+                  "the fetched program's fingerprint differs")
+            for latency, kname in ((False, "fused_event_lif_decode"),
+                                   (True, "fused_event_lif_early_exit")):
+                eng = SNNServeEngine(art, max_batch=SERVE_BATCH,
+                                     latency_mode=latency)
+                eng.reset_stats()
+                torch.cuda.synchronize()
+                reset_launches()
+                for img in xte:
+                    eng.submit(img)
+                done = eng.flush()
+                counts = launch_counts()
+                st = eng.stats()
+                eng.close()
+                mode = "latency" if latency else "full-T"
+                check(st["batches"] == 157, f"follower {mode}: "
+                      f"{st['batches']} batches, expected 157")
+                for k, n in counts.items():
+                    want = st["batches"] if k == kname else 0
+                    check(n == want, f"follower {mode}: {k} launched {n} "
+                          f"times, expected {want}")
+                launches[kname] += counts[kname]
+                reqs = [done[r] for r in sorted(done)]
+                labels = np.asarray([r.label for r in reqs], np.int32)
+                steps = np.asarray([r.steps for r in reqs], np.int32)
+                check(np.array_equal(labels, exp["labels_latency" if latency
+                                                 else "labels"]),
+                      f"follower {mode}: labels differ from JAX's")
+                check(np.array_equal(steps, exp["steps_latency"]) if latency
+                      else bool((steps == prog.T).all()),
+                      f"follower {mode}: steps differ from JAX's")
+                check(st["transport_fetches"] >= 1
+                      and st["transport_fetch_failures"] == 0,
+                      f"follower {mode}: transport stats "
+                      f"{ {k: v for k, v in st.items() if 'transport' in k} }")
+                print(f"[transport] follower in-process, {mode}: "
+                      f"{len(reqs)} images, {kname} launched {counts[kname]} "
+                      f"times over {st['batches']} batches, nothing else; "
+                      f"labels and steps equal JAX's; system "
+                      f"{st['system_us_per_image']:.2f} us/image; transport "
+                      f"fetches {st['transport_fetches']}, failures "
+                      f"{st['transport_fetch_failures']}, fetch p95 "
+                      f"{st['transport_fetch_ms_p95']:.3f} ms — card: {card}")
+            cs = follower_cache.stats()
+            check(cs["program_misses"] == 0,
+                  f"the follower lowered {cs['program_misses']} programs")
+            # 5. a clean loopback fetch, timed
+            fetch_ms = []
+            for _ in range(FETCH_SAMPLES):
+                t0 = time.perf_counter()
+                got = tp.fetch_bytes(server.host, server.port)
+                fetch_ms.append(1e3 * (time.perf_counter() - t0))
+                check(got == blob, "a clean fetch returned other bytes")
+        finally:
+            server.stop()
+            install(prev)
+        fetch_ms.sort()
+        print(f"[transport] clean loopback fetch of the {len(blob)}-byte "
+              f"envelope: median {statistics.median(fetch_ms):.4f} ms, p95 "
+              f"{fetch_ms[int(0.95 * len(fetch_ms))]:.4f} ms over "
+              f"{FETCH_SAMPLES} fetches (host time) — card: {card}")
+
+        # 6. the fault suite: detected or bit-exact, every scenario
+        t0 = time.perf_counter()
+        verdicts = run_suite(blob, art, prog.fingerprint,
+                             stale_blob=envelopes["fuzz seed 0"][1],
+                             device=dev)
+        wall = time.perf_counter() - t0
+        bad = [v for v in verdicts if not v["ok"]]
+        check(len(verdicts) == len(SCENARIOS) == 27 and not bad,
+              f"fault suite: {len(verdicts)} verdicts, failing: "
+              + "; ".join(f"{v['scenario']}: expected {v['expect']}, got "
+                          f"{v['outcome']} ({v['detail']})" for v in bad))
+        n_det = sum(v["outcome"] == "detected" for v in verdicts)
+        print(f"[transport] fault suite: {len(verdicts)}/27 scenarios ok "
+              f"({n_det} detected, {len(verdicts) - n_det} bit-exact) in "
+              f"{wall:.3f} s of wall — card: {card}")
+
+    transport()
 
     # ------------------------------------------------------------- 4 overflow
     meta = copy.deepcopy(art.meta)

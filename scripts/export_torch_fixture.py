@@ -30,13 +30,24 @@ so the JAX side's artifact and outputs are exported once, here, into
     (``SNNReference.dense_labels``): ``dense_{fp32,int8}_labels_sha256`` and
     ``dense_{fp32,int8}_accuracy``. ``--only-board`` writes this file alone,
     from the committed artifact, without retraining or rewriting any other
-    asset.
+    asset;
+  * ``transport_expected.npz`` — the JAX package's program envelopes
+    (``repro.core.program_io.serialize_program`` of ``lower(art,
+    cache=False)``, uint8 bytes) of the committed ``mnist_ttfs.npz``
+    (``envelope_mnist``) and of the eight pinned fuzz artifacts
+    (``envelope_fuzz_seed{s}``), and the JAX reference's labels for the
+    launcher's SNN request stream (``repro.launch.serve.serve_snn``:
+    ``RandomState(0).rand(10000, n_in)`` in float32; ``serve_labels``,
+    ``serve_images_sha256``). ``--only-transport`` writes this file alone,
+    from the committed artifacts.
 
 Run from the repo root (the CPU is enough):
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/export_torch_fixture.py
     PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/export_torch_fixture.py \
         --only-board
+    PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/export_torch_fixture.py \
+        --only-transport
 """
 
 from __future__ import annotations
@@ -57,6 +68,7 @@ from repro.conformance.golden import PINNED_SEEDS
 from repro.core import deploy
 from repro.core.artifact import Artifact
 from repro.core.lowering import lower
+from repro.core.program_io import serialize_program
 from repro.core.reference import SNNReference
 from repro.data import mnist
 from repro.serving.snn_engine import SNNServeEngine
@@ -198,6 +210,45 @@ def export_board(out_dir: str, chunk: int = 1000) -> None:
     print(f"wrote {path} in {time.perf_counter() - t0:.1f}s")
 
 
+#: the launcher's SNN request stream that ``transport_expected.npz`` labels
+SERVE_REQUESTS = 10_000
+
+
+def serve_images(n_in: int, requests: int = SERVE_REQUESTS) -> np.ndarray:
+    """``repro.launch.serve.serve_snn``'s requests."""
+    return np.random.RandomState(0).rand(requests, n_in).astype(np.float32)
+
+
+def transport_expected(out_dir: str, chunk: int = 1000) -> dict:
+    """The arrays of ``transport_expected.npz``, from the artifacts in
+    ``out_dir``."""
+    art = Artifact.load(os.path.join(out_dir, "mnist_ttfs.npz"))
+    prog = lower(art, cache=False)
+    out = {"envelope_mnist": np.frombuffer(serialize_program(prog), np.uint8)}
+    for seed in PINNED_SEEDS:
+        with np.load(os.path.join(out_dir, f"fuzz_seed{seed}.npz")) as z:
+            fart = Artifact.load(io.BytesIO(z["artifact"].tobytes()))
+        out[f"envelope_fuzz_seed{seed}"] = np.frombuffer(
+            serialize_program(lower(fart, cache=False)), np.uint8)
+    images = serve_images(prog.n_in)
+    ref = SNNReference(art)
+    out["serve_labels"] = np.concatenate([
+        np.asarray(ref.forward(images[i:i + chunk]).labels, np.int32)
+        for i in range(0, len(images), chunk)])
+    out["serve_images_sha256"] = np.array(digest(images))
+    return out
+
+
+def export_transport(out_dir: str) -> None:
+    t0 = time.perf_counter()
+    out = transport_expected(out_dir)
+    path = os.path.join(out_dir, "transport_expected.npz")
+    np.savez(path, **out)
+    print(f"wrote {path} in {time.perf_counter() - t0:.1f}s: MNIST envelope "
+          f"{out['envelope_mnist'].size} bytes, "
+          f"{len(out['serve_labels'])} served labels")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=ASSETS)
@@ -206,15 +257,22 @@ def main(argv=None) -> int:
     ap.add_argument("--only-board", action="store_true",
                     help="only write mnist_board_expected.npz, from the "
                          "committed mnist_ttfs.npz")
+    ap.add_argument("--only-transport", action="store_true",
+                    help="only write transport_expected.npz, from the "
+                         "committed artifacts")
     a = ap.parse_args(argv)
     os.makedirs(a.out, exist_ok=True)
     if a.only_board:
         export_board(a.out)
         return 0
+    if a.only_transport:
+        export_transport(a.out)
+        return 0
     export_fuzz(a.out)
     if not a.skip_mnist:
         export_mnist(a.out)
     export_board(a.out)
+    export_transport(a.out)
     return 0
 
 

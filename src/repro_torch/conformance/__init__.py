@@ -12,16 +12,23 @@ times. This package generalizes the claim to *any valid artifact*:
     fuzzed artifact, through the oracle stack the port can run
     (``ConformanceReport.not_ported`` names the rest);
   * ``golden``  — pinned-seed golden traces, checked against
-    ``tests/golden/``.
-
-The JAX package's ``transport_faults`` (the fault-injecting TCP proxy) needs
-the program transport, not ported yet (ROADMAP §1 item 4).
+    ``tests/golden/``;
+  * ``transport_faults`` — a fault-injecting TCP proxy (truncations, flipped
+    bytes, re-framed tampering, stale replays, resets, stalls, slow-loris)
+    behind the ``transport`` oracle's *detected-or-bit-exact* invariant:
+    a fetched program either fails loudly naming the corruption or is
+    fingerprint-identical to the leader's.
 """
 
 from repro_torch.conformance.fuzz import FuzzedCase, fuzz_case, images_from_times
 from repro_torch.conformance.oracles import (ConformanceReport, OracleOutcome,
                                              run_case)
+from repro_torch.conformance.transport_faults import (SCENARIOS, FaultyProxy,
+                                                      Scenario, run_scenario,
+                                                      run_suite)
 from repro_torch.conformance import golden
 
 __all__ = ["FuzzedCase", "fuzz_case", "images_from_times",
-           "ConformanceReport", "OracleOutcome", "run_case", "golden"]
+           "ConformanceReport", "OracleOutcome", "run_case", "golden",
+           "SCENARIOS", "FaultyProxy", "Scenario", "run_scenario",
+           "run_suite"]

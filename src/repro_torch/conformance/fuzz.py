@@ -25,8 +25,8 @@ exactly the times every runtime sees.
 
 The port of ``repro.conformance.fuzz``: numpy on the host, and for every
 seed the same artifact (fingerprint), images, times and notes as the JAX
-package's. ``fuzz_envelope_mutations`` mutates serialized program
-envelopes, which the port cannot write yet (ROADMAP §1 item 4).
+package's. ``fuzz_envelope_mutations`` gives, seed for seed, the JAX
+package's mutations of a serialized program envelope, byte for byte.
 """
 
 from __future__ import annotations
@@ -252,3 +252,44 @@ def fuzz_case(seed: int, n_random_images: int = 6) -> FuzzedCase:
              "e_max_boundary_hit": bool(peak == e_max)}
     return FuzzedCase(seed=seed, artifact=art, images=images,
                       times=times.astype(np.int32), notes=notes)
+
+
+def fuzz_envelope_mutations(blob: bytes, seed: int = 0) -> list[tuple[str, bytes]]:
+    """Adversarial mutations of a serialized program envelope.
+
+    Deterministically from the seed, produce (description, tampered_blob)
+    variants that ``deserialize_program`` must reject: altered scalars
+    (breaks the recomputed program fingerprint), a flipped array hash
+    (breaks re-verification against the local artifact), a dropped required
+    key, a wrong format version, and raw byte truncation. Every variant
+    parses differently from the original, so an accept is a real hole, not
+    a no-op mutation."""
+    import json as _json
+
+    rng = np.random.RandomState(seed)
+    env = _json.loads(blob)
+
+    def dump(e) -> bytes:
+        return _json.dumps(e, sort_keys=True, separators=(",", ":")).encode()
+
+    out: list[tuple[str, bytes]] = []
+    scalar = rng.choice(sorted(env["scalars"]))
+    e = _json.loads(blob)
+    v = e["scalars"][scalar]
+    e["scalars"][scalar] = (v + 1) if isinstance(v, (int, float)) else v + "x"
+    out.append((f"scalar {scalar} altered", dump(e)))
+    arr = rng.choice(sorted(env["arrays"]))
+    e = _json.loads(blob)
+    digest = e["arrays"][arr]
+    e["arrays"][arr] = ("0" if digest[0] != "0" else "1") + digest[1:]
+    out.append((f"array hash {arr} flipped", dump(e)))
+    key = rng.choice(("program_fingerprint", "artifact_fingerprint",
+                      "scalars", "arrays"))
+    e = _json.loads(blob)
+    del e[key]
+    out.append((f"key {key} dropped", dump(e)))
+    e = _json.loads(blob)
+    e["format"] = int(e["format"]) + 1
+    out.append(("format bumped", dump(e)))
+    out.append(("truncated", blob[:len(blob) // 2]))
+    return out

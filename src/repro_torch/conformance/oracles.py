@@ -12,6 +12,13 @@ on the same artifact and adversarial image batch, on one device, asserting:
                   and every scalar, the process cache returns the same
                   program, and every advertised runtime's ``.program``
                   carries that one fingerprint;
+  program-io    — the serialized envelope reconstructs a program equal to a
+                  fresh lowering on the same device (fingerprint, scalars,
+                  plans, every tensor bit for bit, the same bytes when
+                  serialized again), and a truncated envelope is refused;
+  transport     — a seed-rotated window of four fault-proxy scenarios over
+                  real loopback sockets: every fetch fails with a typed error
+                  or reconstructs the leader's fingerprint;
   differential  — labels, first-spike times, final membranes AND step counts
                   are bit-exact against the software reference for every spec
                   (alias specs must construct an identical runtime config and
@@ -36,12 +43,10 @@ on the same artifact and adversarial image batch, on one device, asserting:
                   totals reconcile with an independent re-evaluation of the
                   board cost model.
 
-Three oracles of the JAX package need modules the port does not have yet:
-``program-io`` (``core/program_io.py``) and ``transport``
-(``distributed/transport.py``), ROADMAP §1 item 4, and ``fault-recovery``
-(``faults/plan.py``), item 5. ``run_case`` does not run them and does not
-count them as passed: the report names them in ``not_ported``, and
-``passed`` means every oracle that ran passed.
+One oracle of the JAX package needs a module the port does not have yet:
+``fault-recovery`` (``faults/plan.py``, ROADMAP §1 item 5). ``run_case``
+does not run it and does not count it as passed: the report names it in
+``not_ported``, and ``passed`` means every oracle that ran passed.
 
 Each oracle yields an ``OracleOutcome``; a ``ConformanceReport`` aggregates
 them and renders a failure summary naming spec, oracle, and mismatch counts.
@@ -60,15 +65,13 @@ from repro_torch.board.event_queue import AEREventQueue
 from repro_torch.conformance.fuzz import FuzzedCase
 from repro_torch.core import quant
 from repro_torch.core.events import pack_events_batched
-from repro_torch.core.lowering import lower, resolve_device
+from repro_torch.core.lowering import REQUIRED_ARRAYS, lower, resolve_device
 from repro_torch.core.runtimes import (ADVERTISED_SPECS, make_runtime,
                                        registry_consistency_errors)
 from repro_torch.telemetry import trace as ttrace
 
 #: the JAX package's oracles this port cannot run yet, and what each needs
 NOT_PORTED = {
-    "program-io": "core/program_io.py (ROADMAP §1 item 4)",
-    "transport": "distributed/transport.py (ROADMAP §1 item 4)",
     "fault-recovery": "faults/plan.py (ROADMAP §1 item 5)",
 }
 
@@ -175,6 +178,12 @@ def run_case(case: FuzzedCase, specs=ADVERTISED_SPECS, py_slice: int = 5, *,
 
     # ---- lowering: deterministic, and every runtime consumes ONE program -
     outcomes.append(_lowering_oracle(art, specs, device))
+
+    # ---- program-io: the serialized envelope reconstructs bit-identically
+    outcomes.append(_program_io_oracle(art, device))
+
+    # ---- transport: detected-or-bit-exact under packet-level faults ------
+    outcomes.append(_transport_oracle(art, case.seed, device))
 
     # ---- differential: every advertised spec vs the reference ------------
     ref_rt = make_runtime(art, "reference", device=device)
@@ -334,6 +343,79 @@ def _lowering_oracle(art, specs, device) -> OracleOutcome:
                         f"({prog.fingerprint[:12]} != {a.fingerprint[:12]})")
     return OracleOutcome("lowering", "*", not errs, "; ".join(errs),
                          {"fingerprint": a.fingerprint[:16]})
+
+
+def _program_io_oracle(art, device) -> OracleOutcome:
+    """Program-io conformance: the broadcast envelope is a faithful carrier.
+    A deserialized program must be indistinguishable from a fresh lower on
+    the same device — same fingerprint, same scalars, same plans,
+    bit-identical tensors of the same dtype and device — and a truncated
+    envelope must be rejected, never half-applied."""
+    from repro_torch.core.program_io import (SCALAR_FIELDS, ProgramIOError,
+                                             deserialize_program,
+                                             serialize_program)
+
+    errs: list[str] = []
+    fresh = lower(art, device=device, cache=False)
+    blob = serialize_program(fresh)
+    rt = deserialize_program(blob, art, device=device, cache=False)
+    if rt.fingerprint != fresh.fingerprint:
+        errs.append(f"roundtrip fingerprint {rt.fingerprint[:12]} != fresh "
+                    f"lower's {fresh.fingerprint[:12]}")
+    for f in SCALAR_FIELDS:
+        if getattr(rt, f) != getattr(fresh, f):
+            errs.append(f"roundtrip scalar {f}: {getattr(rt, f)!r} != "
+                        f"{getattr(fresh, f)!r}")
+    if rt.encode != fresh.encode or rt.decode != fresh.decode:
+        errs.append("roundtrip encode/decode plans differ")
+    for name in REQUIRED_ARRAYS:
+        a, b = getattr(rt, name), getattr(fresh, name)
+        if not (a.device == b.device and a.shape == b.shape
+                and a.dtype == b.dtype and torch.equal(a, b)):
+            errs.append(f"roundtrip tensor {name} is not bit-identical on "
+                        f"{b.device}")
+    # serialization is canonical: same program, same bytes
+    if serialize_program(rt) != blob:
+        errs.append("re-serializing the roundtripped program changed bytes")
+    try:
+        deserialize_program(blob[:-2], art, device=device, cache=False)
+        errs.append("truncated envelope was accepted")
+    except ProgramIOError:
+        pass
+    return OracleOutcome("program-io", "*", not errs, "; ".join(errs),
+                         {"envelope_bytes": len(blob)})
+
+
+def _transport_oracle(art, seed: int, device) -> OracleOutcome:
+    """Transport conformance: *detected-or-bit-exact* under packet faults.
+
+    Runs a seed-rotated window of the fault-proxy scenarios (real sockets,
+    real fetcher, this case's real envelope) — every fetch must either fail
+    with a typed error naming the corruption or reconstruct a program
+    fingerprint-identical to the leader's. ``run_suite`` over every scenario
+    is the full sweep; the per-case window here means the fuzzed-artifact
+    population collectively covers every scenario while one case stays
+    cheap."""
+    from repro_torch.conformance.transport_faults import SCENARIOS, run_suite
+    from repro_torch.core.program_io import serialize_program
+
+    prog = lower(art, device=device)
+    blob = serialize_program(prog)
+    # stale-replay needs a second artifact's envelope; the full sweep has it
+    pool = [sc for sc in SCENARIOS if sc.kind != "stale"]
+    start = seed % len(pool)
+    window = tuple(pool[(start + j) % len(pool)] for j in range(4))
+    verdicts = run_suite(blob, art, prog.fingerprint, scenarios=window,
+                         seed=seed, device=device)
+    bad = [v for v in verdicts if not v["ok"]]
+    detail = "; ".join(
+        f"{v['scenario']}: expected {v['expect']}, got {v['outcome']} "
+        f"({v['detail']})" for v in bad)
+    return OracleOutcome(
+        "transport", "*", not bad, detail,
+        {"scenarios": len(verdicts),
+         "detected": sum(v["outcome"] == "detected" for v in verdicts),
+         "bitexact": sum(v["outcome"] == "bitexact" for v in verdicts)})
 
 
 def _telemetry_oracle(case: FuzzedCase, py_slice: int,

@@ -16,7 +16,9 @@ Two cache tiers hang off the lowering stage, keyed by content:
   * program tier — ``(artifact fingerprint, device) → LoweredProgram``, a
     byte-budget LRU charged with the tensor bytes each program pins
     (``program_nbytes``); a hit refreshes recency, inserts past
-    ``max_bytes`` evict from the cold end.
+    ``max_bytes`` evict from the cold end. ``seed`` installs a program that
+    came over a transport and ``peek`` looks one up without lowering, both
+    under the resolved device, the key ``lower`` uses.
   * bundle tier — ``(family, program fingerprint, device, …) → prepared
     tensors`` (the float32 weight copies the integer GEMM runs on). Bundles
     die with their program; bundles over programs that were never cached
@@ -153,14 +155,27 @@ def program_fingerprint(art_fp: str, scalars: dict[str, Any]) -> str:
     return h.hexdigest()
 
 
-REQUIRED_ARRAYS = ("w_float", "w_int8", "thresholds", "w_padded",
-                   "thr_padded")
+#: each program tensor, and its dtype on the device
+ARRAY_DTYPES = {"w_float": torch.float32, "w_int8": torch.int8,
+                "thresholds": torch.int32, "w_padded": torch.int8,
+                "thr_padded": torch.int32}
+REQUIRED_ARRAYS = tuple(ARRAY_DTYPES)
 
 #: the plain integer GEMM runs as float32 products of the {0,1} raster and
 #: the int8 weights over slices of at most this many inputs: every partial
 #: sum of a slice is an integer of magnitude at most 127 * rows, exact in
 #: float32 while that stays below 2**24 (``core.reference.spike_currents``)
 MAX_EXACT_N_IN = (2 ** 24 - 1) // 127
+
+
+def program_tensors(art: Artifact, device: torch.device
+                    ) -> dict[str, torch.Tensor]:
+    """The program's tensors, copied from the artifact onto ``device`` in
+    their ``ARRAY_DTYPES`` (the lowering's and the deserializer's one
+    placement)."""
+    return {name: torch.from_numpy(np.ascontiguousarray(art[name]).copy())
+            .to(device=device, dtype=dtype)
+            for name, dtype in ARRAY_DTYPES.items()}
 
 
 def _lower_uncached(art: Artifact, device: torch.device) -> LoweredProgram:
@@ -215,21 +230,13 @@ def _lower_uncached(art: Artifact, device: torch.device) -> LoweredProgram:
                "fallback": fallback, "scale": scale, "n_pad": n_pad,
                "lane": lane}
 
-    def dev(name: str, dtype: torch.dtype) -> torch.Tensor:
-        host = np.ascontiguousarray(art[name])
-        return torch.from_numpy(host.copy()).to(device=device, dtype=dtype)
-
     return LoweredProgram(
         fingerprint=program_fingerprint(art.fingerprint(), scalars),
         artifact=art, device=device,
         T=T, x_min=x_min, e_max=e_max, leak_shift=leak_shift,
         n_in=n_in, n_out=n_out, n_groups=n_groups, per_group=per_group,
         fallback=fallback, scale=scale, n_pad=n_pad, lane=lane,
-        w_float=dev("w_float", torch.float32),
-        w_int8=dev("w_int8", torch.int8),
-        thresholds=dev("thresholds", torch.int32),
-        w_padded=dev("w_padded", torch.int8),
-        thr_padded=dev("thr_padded", torch.int32),
+        **program_tensors(art, device),
         encode=EncodePlan(T=T, x_min=x_min, e_max=e_max, n_in=n_in),
         decode=DecodePlan(n_groups=n_groups, per_group=per_group,
                           sentinel=T, fallback=fallback),
@@ -325,6 +332,34 @@ class ProgramCache:
             else:
                 self.program_hits += 1
         return cached, not installed
+
+    def seed(self, art_fp: str, device: str | torch.device,
+             prog: LoweredProgram) -> LoweredProgram:
+        """Install an externally derived program (the ``deserialize`` path)
+        under ``(art_fp, device)``, the key ``lower`` looks up: the device is
+        resolved first (``"cuda"`` is keyed as ``"cuda:0"``). First installer
+        wins, as with a racing lower; returns the resident program."""
+        dev = resolve_device(device)
+        if prog.device != dev:
+            raise ValueError(f"cannot seed a program on {prog.device} under "
+                             f"device {dev}")
+        with self._lock:
+            cached, _ = self._install_locked((art_fp, str(dev)), prog)
+            return cached
+
+    def peek(self, art_fp: str, device: str | torch.device
+             ) -> LoweredProgram | None:
+        """The resident program for ``(art_fp, device)``, or ``None`` — NEVER
+        lowers. The broadcast follower's pre-warm check: a follower whose
+        cache already holds the program must not touch the transport. A
+        resident peek counts as a hit and refreshes recency."""
+        key = (art_fp, str(resolve_device(device)))
+        with self._lock:
+            prog = self._programs.get(key)
+            if prog is not None:
+                self._programs.move_to_end(key)
+                self.program_hits += 1
+            return prog
 
     # -- bundle tier ----------------------------------------------------
     def bundle(self, key: tuple, build: Callable[[], Any],

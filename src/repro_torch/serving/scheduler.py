@@ -396,7 +396,10 @@ class ServingScheduler:
     def stats(self) -> dict:
         """One consistent ``metrics.snapshot()`` in the JAX scheduler's key
         names, minus the keys of what the port does not serve yet (worker
-        recovery, canaries and transport). The board family adds its
+        recovery and canaries). The ``transport_*`` keys report this
+        process's program transport (``distributed.transport.METRICS``):
+        publishes, serves, fetches, fetched bytes, retries, failures and the
+        p95 fetch time in ms. The board family adds its
         cost-model account over the served rows: ``board_cycles``,
         ``board_stalls``, ``board_cycles_per_image``,
         ``board_model_us_per_image`` (cycles at the board's clock: the
@@ -442,6 +445,18 @@ class ServingScheduler:
             "program_cache_bytes": int(cache_stats["bytes"]),
             "program_cache_evictions": int(cache_stats["evictions"]),
         }
+        # transport health for the same process — how this scheduler's
+        # program arrived. Lazy import: schedulers in single-host launches
+        # never pay for the transport module.
+        from repro_torch.distributed.transport import metrics_snapshot
+        tsnap = metrics_snapshot()
+        st["transport_publishes"] = int(tsnap.get("publishes", 0))
+        st["transport_serves"] = int(tsnap.get("serves", 0))
+        st["transport_fetches"] = int(tsnap.get("fetches", 0))
+        st["transport_fetch_bytes"] = int(tsnap.get("fetch_bytes", 0))
+        st["transport_fetch_retries"] = int(tsnap.get("fetch_retries", 0))
+        st["transport_fetch_failures"] = int(tsnap.get("fetch_failures", 0))
+        st["transport_fetch_ms_p95"] = float(tsnap.get("fetch_ms_p95", 0.0))
         if self.family == "board":
             board_cycles = int(snap.get("board_cycles", 0))
             cost = getattr(self.lanes[0].runtime, "cost", None)

@@ -321,12 +321,14 @@ def test_serve_engine_refuses_a_model_on_another_device(models):
         ServeEngine(lm, device="meta")
 
 
-def test_launcher_serves_on_the_cpu(capsys):
+def test_launcher_serves_on_the_cpu(capsys, monkeypatch):
     st = serve.main(["--arch", "yi-6b", "--reduced", "--requests", "3",
                      "--max-new", "2", "--device", "cpu"])
     assert st["tokens_out"] == 6
     assert "served 3 requests on cpu" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 4"):
+    # --snn-artifact takes the SNN role, which refuses to leave the card
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve.main(["--arch", "yi-6b", "--snn-artifact", "x.npz"])
 
 

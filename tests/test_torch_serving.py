@@ -92,7 +92,10 @@ def test_engine_matches_jax_engine_on_mnist(served_images, latency_mode):
     assert st["errors"] == 0 and st["integrity_checks"] == 1
     assert st["lane_health"] == ["healthy"]
     assert st["system_s"] >= st["accelerator_s"] > 0
-    assert not any(k.startswith("transport_") for k in st)
+    transport = {k for k in st if k.startswith("transport_")}
+    assert transport == {k for k in want_eng.stats()
+                         if k.startswith("transport_")}
+    assert len(transport) == 7
 
 
 def test_overflow_reroute_matches_jax(served_images):
