@@ -99,8 +99,8 @@ Phases (any failure exits non-zero; nothing is caught):
                T 16) whose loss falls and whose train accuracy exceeds 0.5;
                the pinned fuzz artifacts equal JAX's
                (assets/fuzz_seed*.npz), golden.check on tests/golden/
-               clean, and run_case passing every ported oracle of each
-               pinned seed on the card (the oracles not ported printed).
+               clean, and run_case passing every oracle of each pinned
+               seed on the card (its reports kept for phase 3d).
                The wall seconds of each export and of the training are
                printed beside the card's name and power limit, one more
                export and one epoch of training are profiled (device time
@@ -132,6 +132,40 @@ Phases (any failure exits non-zero; nothing is caught):
                process's wall time from its start to its first label and the
                suite's wall time; the two in-process runs' launches join the
                kernels summary;
+  3d. lanes  — worker lanes and resilience. ServingScheduler with threaded
+               lanes over the 10,000 test images at max_batch 64 and the
+               default max_wait_us (2,000): accelerator-event-fused at
+               workers 1, 2 and 4 (full T) and at 2 in latency mode,
+               accelerator-event-cuda and accelerator-batch-cuda at 2, each
+               with every launch counter set to 0 before the scheduler is
+               built and read after its drain: each kernel of the path
+               launched once per served batch plus once per lane's warm-up
+               probe, nothing else; JAX's labels (and latency steps); each
+               lane on a CUDA stream of its own (none the default stream)
+               and no device-wide synchronize during the run (torch.cuda.
+               synchronize counted); the wall seconds, wall, system and
+               accelerator us per image, p50/p95/p99 latency,
+               batch_fill_mean and batches per lane printed. A closed loop
+               of 8 client threads, each submit -> result() for 1,250
+               requests, on workers 2 (counted the same way), JAX's labels
+               and its latency percentiles. The resilience scenarios of
+               tests/test_resilience.py on the card with their ledger
+               checks (crash and retry, startup SEU scrubbed, watchdog
+               replacing a hung lane, persistent SEU -> quarantine ->
+               degrade, no-degrade refusing admission, the breaker stopping
+               crash flapping on kernel 1; the stuck group caught by the
+               canary and the membrane SEU caught by ECC on board-py), every
+               request completing with JAX's label or an explicit error.
+               board-py under each dynamic plan of src/repro_torch/assets/
+               faults_expected.npz on MNIST (64 images) and the 8 fuzz
+               cases, both modes: outputs, trace, tick histograms, last_ecc
+               and stuck groups equal JAX's (where JAX's membrane upset
+               raised, the port completes); the canaries and the corrupted
+               clones of each static plan equal JAX's, each clone lowered on
+               the card from its corrupted host arrays with the pristine
+               program untouched; and phase 3b's run_case 25/25 oracles
+               (fault-recovery included, none unported) on every pinned
+               seed. The counted runs' launches join the kernels summary;
   4. overflow — the MNIST artifact with e_max = 8 must reroute rows to the
                dense path and still return the reference labels, with the
                fused and the staged kernels;
@@ -254,6 +288,7 @@ import subprocess
 import sys
 import threading
 import time
+import types
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
@@ -1455,7 +1490,11 @@ def main() -> int:
             rep = run_case(fuzz_case(seed), device=dev)
             check(rep.passed, rep.summary())
             print(f"[author] {rep.summary()}")
+            conformance[seed] = rep
 
+    #: seed -> the pinned seed's conformance report on the card (phase 3d
+    #: holds it to 25/25 oracles)
+    conformance = {}
     author()
 
     # --------------------------------------------------------- 3c transport
@@ -1704,6 +1743,425 @@ def main() -> int:
               f"{wall:.3f} s of wall — card: {card}")
 
     transport()
+
+    # ------------------------------------------------------------- 3d lanes
+    # worker lanes and resilience: threaded lanes on streams of their own at
+    # full width, a closed loop, every resilience scenario on the card, the
+    # board's dynamic fault plans, the canary and the static lowering pass
+    # against JAX's, and 25/25 oracles (a function of its own, as 3b)
+    def lanes() -> None:
+        from repro_torch.core.lowering import lower_with_faults
+        from repro_torch.faults import (Canary, FaultPlan, corrupt_artifact,
+                                        integrity_errors)
+        from repro_torch.kernels.common import KernelError
+
+        t_phase = time.perf_counter()
+        real_sync = torch.cuda.synchronize
+        device_syncs = [0]
+
+        def counting_sync(*args, **kw):
+            device_syncs[0] += 1
+            return real_sync(*args, **kw)
+
+        default_stream = torch.cuda.default_stream(dev).cuda_stream
+        # 1. threaded lanes at full width: every launch counter set to 0
+        # before the scheduler is built (its lanes' warm-ups are launches of
+        # the run) and read after its drain
+        runs = [
+            ("event-fused full-T", 1, "accelerator-event",
+             {"kernel": "fused"}, {"fused_event_lif_decode": 1}),
+            ("event-fused full-T", 2, "accelerator-event",
+             {"kernel": "fused"}, {"fused_event_lif_decode": 1}),
+            ("event-fused full-T", 4, "accelerator-event",
+             {"kernel": "fused"}, {"fused_event_lif_decode": 1}),
+            ("event-fused latency", 2, "accelerator-event",
+             {"kernel": "fused", "latency_mode": True},
+             {"fused_event_lif_early_exit": 1}),
+            ("event-cuda full-T", 2, "accelerator-event", {"kernel": "cuda"},
+             {"event_accum": 1, "lif_fused": 1, "ttfs_decode": 1}),
+            ("batch-cuda", 2, "accelerator-batch", {"kernel": "cuda"},
+             {"spike_matmul": 1, "lif_fused": 1, "ttfs_decode": 1}),
+        ]
+        for run, workers, spec, kw, per_batch in runs:
+            torch.cuda.synchronize()
+            reset_launches()
+            device_syncs[0] = 0
+            torch.cuda.synchronize = counting_sync
+            try:
+                t0 = time.perf_counter()
+                s = ServingScheduler(art, spec=spec, workers=workers,
+                                     max_batch=SERVE_BATCH, **kw)
+                built = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                rids = [s.submit(img) for img in xte]
+                done = s.drain()
+                wall = time.perf_counter() - t0
+                counts = launch_counts()
+                st = s.stats()
+                streams = [lane.stream for lane in s.lanes]
+                per_lane = [lane.batches_served for lane in s.lanes]
+                s.close()
+            finally:
+                torch.cuda.synchronize = real_sync
+            name = f"{run}, workers={workers}"
+            check(device_syncs[0] == 0, f"{name}: the lanes synchronized the "
+                  f"whole device {device_syncs[0]} times")
+            handles = {x.cuda_stream for x in streams if x is not None}
+            check(len(handles) == workers and default_stream not in handles,
+                  f"{name}: lane streams {handles} are not {workers} streams "
+                  f"of their own")
+            batches = st["batches"]
+            check(sum(per_lane) == batches and st["images_out"] == len(xte)
+                  and st["errors"] == 0,
+                  f"{name}: {st['images_out']} served in {batches} batches, "
+                  f"{st['errors']} errors, per lane {per_lane}")
+            for kname, n in counts.items():
+                want = per_batch.get(kname, 0) * (batches + workers)
+                check(n == want, f"{name}: {kname} launched {n} times for "
+                      f"{batches} served batches and {workers} warm-ups, "
+                      f"expected {want}")
+                launches[kname] += n
+            if "ttfs_decode" in per_batch:
+                check(dec.ROUTES == {"warp": counts["ttfs_decode"],
+                                     "block": 0},
+                      f"{name}: ttfs_decode routes {dec.ROUTES}")
+            if "spike_matmul" in per_batch:
+                check(smm.ROUTES == {"tma": counts["spike_matmul"],
+                                     "masked": 0},
+                      f"{name}: spike_matmul routes {smm.ROUTES}")
+            reqs = [done[r] for r in rids]
+            labels = np.asarray([r.label for r in reqs], np.int32)
+            steps = np.asarray([r.steps for r in reqs], np.int32)
+            latency = kw.get("latency_mode", False)
+            check(np.array_equal(labels, exp["labels_latency" if latency
+                                             else "labels"]),
+                  f"{name}: served labels differ from JAX's")
+            check(np.array_equal(steps, exp["steps_latency"]) if latency
+                  else bool((steps == prog.T).all()),
+                  f"{name}: served steps differ from JAX's")
+            print(f"[lanes] {name}: {len(reqs)} images in {wall:.3f} s wall "
+                  f"({1e6 * wall / len(reqs):.2f} us/image; scheduler built "
+                  f"in {built:.3f} s), system "
+                  f"{st['system_us_per_image']:.2f} us/image, accelerator "
+                  f"{st['accel_us_per_image']:.2f} us/image, latency p50 / "
+                  f"p95 / p99 {st['p50_latency_us']:.1f} / "
+                  f"{st['p95_latency_us']:.1f} / {st['p99_latency_us']:.1f} "
+                  f"us, batch_fill_mean {st['batch_fill_mean']:.2f}, batches "
+                  f"per lane {per_lane}, launches "
+                  f"{ {k: counts[k] for k in per_batch} } (batches + "
+                  f"{workers} warm-ups), {workers} streams of their own, 0 "
+                  f"device-wide syncs — card: {card}")
+
+        # 2. a closed loop: 8 clients, each submit -> result() in turn
+        clients, per_client = 8, len(xte) // 8
+        torch.cuda.synchronize()
+        reset_launches()
+        s = ServingScheduler(art, workers=2, max_batch=SERVE_BATCH,
+                             kernel="fused")
+        got = np.full(len(xte), -1, np.int32)
+        errors = []
+
+        def client(c):
+            for i in range(c, clients * per_client, clients):
+                req = s.result(s.submit(xte[i]), timeout=120.0)
+                got[i] = req.label
+            if got[c::clients].min() < 0:
+                errors.append(c)
+
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(clients)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+        alive = [t for t in threads if t.is_alive()]
+        st = s.stats()
+        per_lane = [lane.batches_served for lane in s.lanes]
+        counts = launch_counts()
+        s.close()
+        check(not alive and not errors, f"closed loop: clients {errors} "
+              f"failed, {len(alive)} still waiting")
+        check(np.array_equal(got, exp["labels"]),
+              "closed loop: labels differ from JAX's")
+        want = st["batches"] + 2
+        check(counts["fused_event_lif_decode"] == want
+              and sum(counts.values()) == want,
+              f"closed loop: launches {counts}, expected "
+              f"fused_event_lif_decode {want} and nothing else")
+        launches["fused_event_lif_decode"] += want
+        print(f"[lanes] closed loop, {clients} clients x {per_client} "
+              f"requests, workers=2: {wall:.3f} s wall, latency p50 / p95 / "
+              f"p99 {st['p50_latency_us']:.1f} / {st['p95_latency_us']:.1f} "
+              f"/ {st['p99_latency_us']:.1f} us, batch_fill_mean "
+              f"{st['batch_fill_mean']:.2f}, batches per lane {per_lane}, "
+              f"labels equal JAX's — card: {card}")
+
+        # 3. faults on the card: every request completes with JAX's label or
+        # an explicit error; the ledgers of tests/test_resilience.py
+        def served(name, s, idx):
+            """Serve images ``idx``; hold every request to JAX's label or
+            an explicit error; returns (requests, stats)."""
+            rids = [s.submit(xte[i]) for i in idx]
+            done = s.drain()
+            st = s.stats()
+            s.close()
+            reqs = [done[r] for r in rids]
+            for r, i in zip(reqs, idx):
+                check((r.error is None and r.label == exp["labels"][i])
+                      or (r.error is not None and r.label is None),
+                      f"{name}: request {r.rid} served label {r.label} "
+                      f"(JAX's {exp['labels'][i]}), error {r.error}")
+            print(f"[lanes] fault scenario {name}: {len(reqs)} requests, "
+                  f"errors {st['errors']}, lane_faults {st['lane_faults']}, "
+                  f"requeued {st['requeued']}, watchdog_timeouts "
+                  f"{st['watchdog_timeouts']}, lane_restarts "
+                  f"{st['lane_restarts']}, quarantines {st['quarantines']}, "
+                  f"breaker_degraded {st['breaker_degraded']}, "
+                  f"integrity_failures {st['integrity_failures']}, "
+                  f"canary_failures {st['canary_failures']}, ecc_detected "
+                  f"{st['ecc_detected']}, recovery_ms_mean "
+                  f"{st['recovery_ms_mean']:.3f}, lane_health "
+                  f"{st['lane_health']} — card: {card}")
+            return reqs, st
+
+        idx = np.arange(256)
+        event = {"spec": "accelerator-event", "kernel": "fused",
+                 "workers": 1, "max_batch": SERVE_BATCH}
+        t_faults = time.perf_counter()
+        reqs, st = served("crash and retry", ServingScheduler(
+            art, faults="crash=0,seed=3", resilience={"backoff_s": 0.001},
+            **event), idx)
+        check(st["lane_faults"] >= 1 and st["requeued"] >= 1
+              and st["lane_restarts"] >= 1 and st["recoveries"] >= 1
+              and st["errors"] == 0 and st["recovery_ms_mean"] > 0
+              and any(r.attempts > 0 for r in reqs),
+              "crash and retry: the ledger shows no round trip")
+        reqs, st = served("startup SEU scrubbed", ServingScheduler(
+            art, faults="seu_weight=4,seed=5",
+            resilience={"backoff_s": 0.001}, **event), idx)
+        check(st["integrity_failures"] >= 1 and st["lane_restarts"] >= 1
+              and st["errors"] == 0
+              and not any(r.fallback_dense for r in reqs),
+              "startup SEU: not scrubbed before service")
+        reqs, st = served("watchdog replaces a hung lane", ServingScheduler(
+            art, faults=FaultPlan(seed=7, hang_batches=(0,), hang_s=1.5),
+            resilience={"watchdog_s": 0.2, "backoff_s": 0.001}, **event), idx)
+        check(st["watchdog_timeouts"] >= 1 and st["requeued"] >= 1
+              and st["lane_restarts"] >= 1 and st["errors"] == 0
+              and st["images_out"] == len(idx),
+              "watchdog: the hung lane was not replaced")
+        persistent = {"seu_weight_flips": 4, "persistent": True, "seed": 9}
+        reqs, st = served("persistent SEU degrades", ServingScheduler(
+            art, faults=persistent, resilience={"backoff_s": 0.001},
+            **event), idx)
+        check(st["quarantines"] >= 1 and st["breaker_degraded"] >= 1
+              and st["errors"] == 0 and all(r.fallback_dense for r in reqs)
+              and "degraded" in st["lane_health"],
+              "persistent SEU: not quarantined and degraded")
+        s = ServingScheduler(art, faults=persistent,
+                             resilience={"backoff_s": 0.001,
+                                         "degrade": False}, **event)
+        try:
+            s.submit(xte[0])
+            refused = None
+        except RuntimeError as e:
+            refused = str(e)
+        quarantines = s.stats()["quarantines"]
+        s.close()
+        check(refused is not None and "quarantined" in refused
+              and quarantines >= 1,
+              f"no-degrade: admission not refused ({refused})")
+        print(f"[lanes] fault scenario no-degrade: admission refused "
+              f"({refused}), quarantines {quarantines}")
+        reqs, st = served("breaker stops crash flapping", ServingScheduler(
+            art, faults=FaultPlan(seed=11, crash_batches=(0,),
+                                  persistent=True),
+            resilience={"backoff_s": 0.001, "max_retries": 4,
+                        "breaker_threshold": 2}, **event), idx)
+        check(st["breaker_degraded"] >= 1 and st["errors"] == 0
+              and any(r.fallback_dense for r in reqs),
+              "breaker: the crash flapping was not stopped")
+        board = {"spec": "board-py", "workers": 1, "max_batch": 8}
+        reqs, st = served("stuck group caught by the canary",
+                          ServingScheduler(
+                              art, faults="stuck=1,seed=13",
+                              canary_pool=xte[:32],
+                              resilience={"startup_checks": False,
+                                          "verify": True, "canary_every": 1,
+                                          "backoff_s": 0.001}, **board),
+                          idx[:32])
+        check(st["canary_failures"] >= 1 and st["lane_faults"] >= 1
+              and st["lane_restarts"] >= 1 and st["errors"] == 0,
+              "stuck group: not caught by the canary")
+        # seed 7 reaches the ECC readout on this artifact; at seed 15 JAX's
+        # upset flips bit 31 of a negative membrane in the first batch and
+        # raises (ROADMAP §3), and so does the port's: a lane fault, served
+        # after the rebuild, the ledger of tests/test_torch_resilience.py
+        reqs, st = served("membrane SEU caught by ECC", ServingScheduler(
+            art, faults="membrane=0.9,seed=7",
+            resilience={"startup_checks": False, "verify": True,
+                        "backoff_s": 0.001},
+            **{**board, "max_batch": 2}), idx[:4])
+        check(st["ecc_detected"] >= 1 and st["lane_restarts"] >= 1
+              and st["errors"] == 0, "membrane SEU: not caught by ECC")
+        reqs, st = served("membrane upset raises", ServingScheduler(
+            art, faults="membrane=0.9,seed=15",
+            resilience={"startup_checks": False, "verify": True,
+                        "backoff_s": 0.001}, **board), idx[:32])
+        check(st["lane_faults"] == 1 and st["lane_restarts"] == 1
+              and st["requeued"] == 8 and st["ecc_detected"] == 0
+              and st["errors"] == 0, "membrane upset: not JAX's ledger")
+        # a kernel that fails to launch is not a lane fault: the scheduler
+        # raises, and nothing is served around it on the dense path
+        real_lib = ops._lib
+        failing = types.SimpleNamespace(
+            fused_event_lif_decode=lambda *args: 1)   # cudaErrorInvalidValue
+        s = ServingScheduler(art, **event)
+        ops._lib = lambda: failing
+        try:
+            rids = [s.submit(xte[i]) for i in range(8)]
+            done = s.drain()
+            try:
+                s.submit(xte[0])
+                refused = None
+            except RuntimeError as e:
+                refused = e
+            st = s.stats()
+            s.close()
+            try:
+                ServingScheduler(art, **{**event, "workers": 0})
+                inline = None
+            except KernelError as e:
+                inline = str(e)
+        finally:
+            ops._lib = real_lib
+        check(all(done[r].error is not None and done[r].label is None
+                  and not done[r].fallback_dense
+                  and "launch failed with CUDA error 1" in done[r].error
+                  for r in rids)
+              and isinstance(getattr(refused, "__cause__", None), KernelError)
+              and st["breaker_degraded"] == 0 and st["lane_restarts"] == 0
+              and st["quarantines"] == 0 and inline is not None,
+              f"kernel failure: served around or not raised ({refused!r}, "
+              f"{inline!r}, {st['lane_health']})")
+        print(f"[lanes] fault scenario kernel failure: {len(rids)} requests "
+              f"failed with {done[rids[0]].error!r}; submit raised; inline "
+              f"commission raised {inline!r}; breaker_degraded 0, "
+              f"lane_restarts 0")
+        print(f"[lanes] fault scenarios: {time.perf_counter() - t_faults:.3f}"
+              f" s of wall — card: {card}")
+
+        # board-py under every dynamic plan, the canary and the static
+        # lowering pass, held to JAX's (src/repro_torch/assets/
+        # faults_expected.npz)
+        fexp = dict(np.load(os.path.join(ASSETS, "faults_expected.npz")))
+        cases = {"mnist": (art, xte[:64])}
+        for seed, fart, _, images, _ in fuzz:
+            cases[f"fuzz{seed}"] = (fart, images)
+        n_runs = n_raised = 0
+        t0 = time.perf_counter()
+        for case, (a, images) in cases.items():
+            for i, spec in enumerate(fexp["dynamic_plans"]):
+                for mode, latency in (("full", False), ("latency", True)):
+                    key = f"board_{case}_{i}_{mode}"
+                    rt = make_runtime(a, "board-py", latency_mode=latency,
+                                      faults=str(spec), device=dev)
+                    n_runs += 1
+                    if f"{key}_jax_raises" in fexp:
+                        # JAX's membrane upset raised here (bit 31 of a
+                        # negative membrane, ROADMAP §3): the port raises the
+                        # same error, naming the same word
+                        n_raised += 1
+                        try:
+                            rt.forward(images)
+                            raised = None
+                        except OverflowError as e:
+                            raised = str(e)
+                        check(raised == str(fexp[f"{key}_jax_raises"]),
+                              f"{key}: raised {raised!r}, JAX raised "
+                              f"{fexp[f'{key}_jax_raises']!r}")
+                        continue
+                    out = rt.forward(images)
+                    got = {"labels": out.labels.cpu().numpy(),
+                           "steps": out.steps.cpu().numpy(),
+                           "ecc": rt.last_ecc,
+                           "stuck": np.asarray(rt.stuck_groups, np.int64)}
+                    for k in BOARD_TRACE:
+                        got[k] = getattr(rt.last_trace, k)
+                    for k, v in got.items():
+                        check(v.dtype == fexp[f"{key}_{k}"].dtype
+                              and np.array_equal(v, fexp[f"{key}_{k}"]),
+                              f"{key}: {k} differs from JAX's ({spec})")
+                    for k, v in (("first_spike", out.first_spike),
+                                 ("v_final", out.v_final),
+                                 ("tick_counts", rt.last_tick_counts)):
+                        v = v.cpu().numpy() if hasattr(v, "cpu") else v
+                        check(sha256(v) == str(fexp[f"{key}_{k}_sha256"]),
+                              f"{key}: {k} differs from JAX's ({spec})")
+            canary = Canary.from_program(lower(a, device=dev), pool=images)
+            check(canary.images.tobytes()
+                  == fexp[f"canary_{case}_images"].tobytes()
+                  and np.array_equal(canary.want, fexp[f"canary_{case}_want"])
+                  and list(canary.covered_groups)
+                  == fexp[f"canary_{case}_covered"].tolist(),
+                  f"{case}: the canary differs from JAX's")
+            pristine = lower(a, device=dev)
+            for i, spec in enumerate(fexp["static_plans"]):
+                plan = FaultPlan.parse(str(spec))
+                key = f"corrupt_{case}_{i}"
+                bad = corrupt_artifact(a, plan)
+                check(bad.fingerprint() == str(fexp[f"{key}_fingerprint"])
+                      and integrity_errors(bad) == json.loads(
+                          str(fexp[f"{key}_errors"])),
+                      f"{key}: the corrupted clone differs from JAX's")
+                for name, arr in a.arrays.items():
+                    flat = bad.arrays[name].reshape(-1)
+                    diff = np.nonzero(arr.reshape(-1) != flat)[0]
+                    if f"{key}_{name}_idx" in fexp:
+                        check(np.array_equal(diff, fexp[f"{key}_{name}_idx"])
+                              and np.array_equal(flat[diff],
+                                                 fexp[f"{key}_{name}_val"]),
+                              f"{key}: {name} flips differ from JAX's")
+                    else:
+                        check(diff.size == 0, f"{key}: {name} flipped")
+                cprog = lower_with_faults(pristine, plan, device=dev)
+                check(cprog.device == dev and cprog.fingerprint
+                      != pristine.fingerprint
+                      and all(np.array_equal(
+                          getattr(cprog, n).cpu().numpy(),
+                          cprog.artifact[n]) and np.array_equal(
+                          getattr(pristine, n).cpu().numpy(), a[n])
+                          for n in ("w_int8", "thresholds", "w_padded",
+                                    "thr_padded")),
+                      f"{key}: the clone's tensors are not its corrupted "
+                      f"arrays, or the pristine program moved")
+        print(f"[lanes] board-py under {len(fexp['dynamic_plans'])} dynamic "
+              f"plans x 2 modes on {len(cases)} cases ({n_runs} runs, MNIST "
+              f"on 64 images): outputs, traces, tick histograms, last_ecc "
+              f"and stuck groups equal JAX's ({n_raised} runs where JAX's "
+              f"membrane upset raised: the port raised JAX's error); "
+              f"canaries and "
+              f"{len(fexp['static_plans'])} static plans' corrupted clones "
+              f"equal JAX's, each lowered on the card from its corrupted "
+              f"arrays; {time.perf_counter() - t0:.3f} s — card: {card}")
+
+        # 4. conformance: 25/25 oracles on each pinned seed (phase 3b's run)
+        check(sorted(conformance) == sorted(s for s, *_ in fuzz),
+              f"conformance reports for seeds {sorted(conformance)}")
+        for seed, rep in conformance.items():
+            check(rep.passed and not rep.not_ported
+                  and len(rep.outcomes) == 25
+                  and any(o.oracle == "fault-recovery" for o in rep.outcomes),
+                  f"fuzz seed {seed}: {rep.summary()}")
+        print(f"[lanes] run_case on the card (phase 3b): 25/25 oracles on "
+              f"each of seeds {sorted(conformance)}, fault-recovery "
+              f"included, none unported")
+        print(f"[lanes] phase wall {time.perf_counter() - t_phase:.3f} s — "
+              f"card: {card}")
+
+    lanes()
 
     # ------------------------------------------------------------- 4 overflow
     meta = copy.deepcopy(art.meta)

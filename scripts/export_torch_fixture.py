@@ -39,7 +39,27 @@ so the JAX side's artifact and outputs are exported once, here, into
     launcher's SNN request stream (``repro.launch.serve.serve_snn``:
     ``RandomState(0).rand(10000, n_in)`` in float32; ``serve_labels``,
     ``serve_images_sha256``). ``--only-transport`` writes this file alone,
-    from the committed artifacts.
+    from the committed artifacts;
+  * ``faults_expected.npz`` — the JAX fault subsystem (``repro.faults``)
+    on the committed artifacts (``static_plans`` and ``dynamic_plans``
+    name the plans, in order): ``plans_json``, the parse, ``describe``,
+    lane split, scrub and first ``rng`` draws of each spec in
+    ``PLAN_SPECS``; for each case (MNIST and the eight fuzz seeds) and each
+    static plan of ``STATIC_PLANS``, the bits ``corrupt_artifact`` flipped
+    (``corrupt_{case}_{i}_{array}_idx``/``_val``: flat indices and new
+    values), the clone's fingerprint and its checksum messages; for each
+    dynamic plan of ``DYNAMIC_PLANS`` (full-T and latency mode), ``board-py``
+    on the first ``BOARD_PY_IMAGES`` test images and on each fuzz case's
+    images: labels, steps, ``last_ecc``, the trace fields and the stuck
+    groups as arrays, digests of ``first_spike``, ``v_final`` and
+    ``last_tick_counts`` (``board_{case}_{i}_{mode}_…``), or, where JAX's
+    membrane upset raises ``OverflowError`` (it flips bit 31 of a negative
+    membrane and wraps one way only), its message (``…_jax_raises``) and
+    nothing else; and the canary
+    built from each case (MNIST with the first 64 test images as its pool,
+    each fuzz case with its own images): ``canary_{case}_images``,
+    ``_want``, ``_covered``. ``--only-faults`` writes this file alone, from
+    the committed artifacts.
 
 Run from the repo root (the CPU is enough):
 
@@ -48,14 +68,18 @@ Run from the repo root (the CPU is enough):
         --only-board
     PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/export_torch_fixture.py \
         --only-transport
+    PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/export_torch_fixture.py \
+        --only-faults
 """
 
 from __future__ import annotations
 
 import argparse
 import copy
+import dataclasses
 import hashlib
 import io
+import json
 import os
 import tempfile
 import time
@@ -71,6 +95,7 @@ from repro.core.lowering import lower
 from repro.core.program_io import serialize_program
 from repro.core.reference import SNNReference
 from repro.data import mnist
+from repro.faults import Canary, FaultPlan, corrupt_artifact, integrity_errors
 from repro.serving.snn_engine import SNNServeEngine
 from repro.training.ttfs_trainer import train_dense_proxy
 
@@ -249,6 +274,127 @@ def export_transport(out_dir: str) -> None:
           f"{len(out['serve_labels'])} served labels")
 
 
+#: fault-plan specs whose parse, describe, lane split, scrub and rng draws
+#: ``faults_expected.npz`` keeps
+PLAN_SPECS = ("", "seu_weight=4,aer_drop=0.02,crash=0:2,seed=7", "fifo=4",
+              "persistent=true,stuck=1", "seu_thr=1", "crash=0,seed=3",
+              "membrane=0.9,seed=15", "stuck=1,seed=13",
+              "aer_dup=0.3,aer_reorder=0.2,seed=4",
+              "hang=0,slow=0.01,lanes=0:1,seed=2",
+              "seu_weight_flips=4,persistent=1,seed=9",
+              "stuck=2,stuck_mode=silent,hang_s=1.5,seed=11")
+#: the seeded streams whose first draws are kept, per plan
+RNG_STREAMS = (("seu-w",), ("seu-thr",), ("aer", 0), ("aer", 1),
+               ("membrane", 0), ("membrane", 3), ("stuck",))
+#: static (artifact SEU) plans applied to every case
+STATIC_PLANS = ("seu_weight=3,seu_thr=1,seed=9", "seu_weight=4,seed=5",
+                "seu_weight=4,persistent=1,seed=9", "seu_thr=2,seed=1",
+                "seu_weight=64,seu_thr=8,seed=23")
+#: dynamic (board datapath) plans run through board-py. JAX's membrane
+#: upset raises OverflowError when it flips bit 31 of a negative membrane
+#: (it wraps one way only); the membrane plans' rates are low enough that
+#: JAX completes most of these runs
+DYNAMIC_PLANS = ("fifo=1", "membrane=0.05,seed=3", "membrane=0.2,seed=25",
+                 "stuck=1,seed=5", "stuck=2,stuck_mode=silent,seed=3",
+                 "aer_drop=0.3,seed=4", "aer_dup=0.5,seed=1",
+                 "aer_reorder=0.5,seed=1",
+                 "aer_drop=0.1,aer_dup=0.1,aer_reorder=0.1,stuck=1,fifo=4,"
+                 "seed=21")
+#: MNIST test images board-py runs under each dynamic plan
+BOARD_PY_IMAGES = 64
+
+
+def plan_record(spec: str) -> dict:
+    """What ``plans_json`` keeps of one spec."""
+    plan = FaultPlan.parse(spec)
+    fields = {f.name: getattr(plan, f.name)
+              for f in dataclasses.fields(plan)}
+    return {"spec": spec, "fields": json.loads(json.dumps(fields)),
+            "describe": plan.describe(),
+            "lane1": plan.for_lane(1).describe(),
+            "scrub": plan.after_scrub().describe(),
+            "flags": [plan.has_static, plan.has_dynamic,
+                      plan.has_lane_faults, plan.has_aer_faults,
+                      plan.is_clean],
+            "rng": [plan.rng(*stream).randint(1 << 30, size=8).tolist()
+                    for stream in RNG_STREAMS]}
+
+
+def fault_cases(out_dir: str) -> dict:
+    """case name -> (artifact, board-py images, canary pool), the cases of
+    ``faults_expected.npz``."""
+    art = Artifact.load(os.path.join(out_dir, "mnist_ttfs.npz"))
+    xte, _ = mnist.generate(10_000, 1235)
+    cases = {"mnist": (art, xte[:BOARD_PY_IMAGES], xte[:64])}
+    for seed in PINNED_SEEDS:
+        with np.load(os.path.join(out_dir, f"fuzz_seed{seed}.npz")) as z:
+            fart = Artifact.load(io.BytesIO(z["artifact"].tobytes()))
+            images = z["images"]
+        cases[f"fuzz{seed}"] = (fart, images, images)
+    return cases
+
+
+def faults_expected(out_dir: str) -> dict:
+    """The arrays of ``faults_expected.npz``, from the artifacts in
+    ``out_dir``."""
+    from repro.core.runtimes import make_runtime
+    out = {"plans_json": np.array(json.dumps(
+        [plan_record(s) for s in PLAN_SPECS], sort_keys=True)),
+           "static_plans": np.array(STATIC_PLANS),
+           "dynamic_plans": np.array(DYNAMIC_PLANS)}
+    for case, (art, images, pool) in fault_cases(out_dir).items():
+        for i, spec in enumerate(STATIC_PLANS):
+            bad = corrupt_artifact(art, FaultPlan.parse(spec))
+            key = f"corrupt_{case}_{i}"
+            for name, a in art.arrays.items():
+                flat, got = a.reshape(-1), bad.arrays[name].reshape(-1)
+                idx = np.nonzero(flat != got)[0]
+                if idx.size:
+                    out[f"{key}_{name}_idx"] = idx.astype(np.int64)
+                    out[f"{key}_{name}_val"] = got[idx]
+            out[f"{key}_fingerprint"] = np.array(bad.fingerprint())
+            out[f"{key}_errors"] = np.array(json.dumps(integrity_errors(bad)))
+        for i, spec in enumerate(DYNAMIC_PLANS):
+            for mode, latency in (("full", False), ("latency", True)):
+                rt = make_runtime(art, "board-py", latency_mode=latency,
+                                  faults=spec)
+                key = f"board_{case}_{i}_{mode}"
+                try:
+                    o = rt.forward(images)
+                except OverflowError as e:
+                    # JAX's one-way wrap of a membrane upset (ROADMAP §3):
+                    # kept as what JAX did, nothing to compare against
+                    out[f"{key}_jax_raises"] = np.array(str(e))
+                    continue
+                out[f"{key}_labels"] = np.asarray(o.labels, np.int32)
+                out[f"{key}_steps"] = np.asarray(o.steps, np.int32)
+                out[f"{key}_first_spike_sha256"] = np.array(
+                    digest(np.asarray(o.first_spike, np.int32)))
+                out[f"{key}_v_final_sha256"] = np.array(
+                    digest(np.asarray(o.v_final, np.int32)))
+                out[f"{key}_tick_counts_sha256"] = np.array(
+                    digest(rt.last_tick_counts))
+                out[f"{key}_ecc"] = rt.last_ecc
+                out[f"{key}_stuck"] = np.asarray(rt.stuck_groups, np.int64)
+                for k in BOARD_TRACE:
+                    out[f"{key}_{k}"] = np.asarray(getattr(rt.last_trace, k))
+        canary = Canary.from_artifact(art, pool=pool)
+        out[f"canary_{case}_images"] = canary.images
+        out[f"canary_{case}_want"] = canary.want
+        out[f"canary_{case}_covered"] = np.asarray(canary.covered_groups,
+                                                   np.int64)
+    return out
+
+
+def export_faults(out_dir: str) -> None:
+    t0 = time.perf_counter()
+    out = faults_expected(out_dir)
+    path = os.path.join(out_dir, "faults_expected.npz")
+    np.savez_compressed(path, **out)
+    print(f"wrote {path} in {time.perf_counter() - t0:.1f}s: {len(out)} "
+          f"arrays, {os.path.getsize(path)} bytes")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=ASSETS)
@@ -260,6 +406,9 @@ def main(argv=None) -> int:
     ap.add_argument("--only-transport", action="store_true",
                     help="only write transport_expected.npz, from the "
                          "committed artifacts")
+    ap.add_argument("--only-faults", action="store_true",
+                    help="only write faults_expected.npz, from the "
+                         "committed artifacts")
     a = ap.parse_args(argv)
     os.makedirs(a.out, exist_ok=True)
     if a.only_board:
@@ -268,11 +417,15 @@ def main(argv=None) -> int:
     if a.only_transport:
         export_transport(a.out)
         return 0
+    if a.only_faults:
+        export_faults(a.out)
+        return 0
     export_fuzz(a.out)
     if not a.skip_mnist:
         export_mnist(a.out)
     export_board(a.out)
     export_transport(a.out)
+    export_faults(a.out)
     return 0
 
 

@@ -20,9 +20,14 @@ is the audit path, small, steppable and slow, not a served path.
 ``board.batched.SNNBoardBatched`` is the batched path held bit-exact
 against it (outputs AND traces).
 
-Dynamic fault plans (membrane upsets, stuck groups, AER glitches, a forced
-FIFO depth) need ``faults/models.py``, which the port does not have yet:
-``faults=`` raises ``NotImplementedError``.
+``faults=`` takes a dynamic fault plan (``faults.plan.FaultPlan``),
+interpreted per image by the tick loop as in the JAX package: a forced FIFO
+depth, stuck-at groups (``faults.models.apply_stuck`` on the core's host
+thresholds), the glitching AER link (``FaultyAEREventQueue``) and membrane
+upsets after each tick (``MembraneUpsetInjector``), each seeded by the row's
+index in the batch. ``last_tick_counts`` and ``last_ecc`` record what the
+trace and ECC detectors read. ``None`` or a clean plan leaves the datapath
+bit-exact.
 """
 
 from __future__ import annotations
@@ -47,10 +52,6 @@ class SNNBoard:
                  latency_mode: bool = False,
                  cost: BoardCostModel = PYNQ_COST, faults=None,
                  device: str | torch.device = "cuda"):
-        if faults is not None:
-            raise NotImplementedError(
-                "dynamic fault plans need faults/models.py, not ported yet "
-                "(ROADMAP §1 item 5: worker lanes and resilience)")
         prog = lower(artifact, device=device)
         self.program = prog
         self.device = prog.device
@@ -63,17 +64,40 @@ class SNNBoard:
         self.depth = prog.e_max
         self.core = GroupedNeuronCore.from_program(prog, cost)
         self.n_pad = self.core.n_pad
+        # dynamic fault plan, interpreted per image by the tick loop
+        self.plan = faults
+        self.stuck_groups: list[int] = []
+        if faults is not None and faults.fifo_depth is not None:
+            self.depth = int(faults.fifo_depth)
+        if faults is not None and faults.stuck_groups:
+            from repro_torch.faults.models import apply_stuck
+            self.stuck_groups = apply_stuck(self.core, faults,
+                                            n_out=self.n_out)
         self.last_trace: BoardTrace | None = None
         #: (B, T) events dispatched per tick in the last forward
         self.last_tick_counts: np.ndarray | None = None
+        #: (B,) membrane parity hits in the last forward
+        self.last_ecc: np.ndarray | None = None
 
     # ------------------------------------------------------------- one image
-    def run_image(self, times: np.ndarray
+    def _make_queue(self, times: np.ndarray, image_key: int):
+        if self.plan is not None and self.plan.has_aer_faults:
+            from repro_torch.faults.models import FaultyAEREventQueue
+            return FaultyAEREventQueue(times, self.T, self.depth, self.plan,
+                                       image_key)
+        return AEREventQueue(times, self.T, self.depth)
+
+    def run_image(self, times: np.ndarray, image_key: int = 0
                   ) -> tuple[np.ndarray, np.ndarray, int, BoardTrace,
-                             np.ndarray]:
+                             np.ndarray, int]:
         """times (N_in,) int spike times -> (first (n_pad,), v (n_pad,),
-        ticks executed, trace, (T,) events dispatched per tick)."""
-        queue = AEREventQueue(times, self.T, self.depth)
+        ticks executed, trace, (T,) events dispatched per tick, membrane
+        parity hits). ``image_key`` seeds the image's fault draws."""
+        queue = self._make_queue(times, image_key)
+        upset = None
+        if self.plan is not None and self.plan.seu_membrane_rate:
+            from repro_torch.faults.models import MembraneUpsetInjector
+            upset = MembraneUpsetInjector(self.plan, image_key)
         core = self.core
         core.reset()
         events = stalls = 0
@@ -86,12 +110,14 @@ class SNNBoard:
             events += len(ids)
             stalls += queue.stalls_at(t)
             fired = core.tick(t)
+            if upset is not None:
+                upset.after_tick(core, t)
             if self.latency_mode and fired:
                 ticks = t + 1
                 break
         trace = account(events, ticks, stalls, core.n_pad, self.cost)
         return (core.first_flat.copy(), core.v_flat.copy(), ticks, trace,
-                tick_counts)
+                tick_counts, upset.ecc_hits if upset is not None else 0)
 
     # ------------------------------------------------------------- batch API
     def forward(self, images) -> SNNOutput:
@@ -114,18 +140,21 @@ class SNNBoard:
         rec.end(enc)
         run = rec.begin("board.run", "accel", trace=fwd.trace,
                         parent=fwd.sid) if fwd is not None else None
-        firsts, vs, steps, traces, tick_counts = [], [], [], [], []
-        for row in times:
-            first, v, ticks, trace, counts = self.run_image(row)
+        firsts, vs, steps, traces, tick_counts, eccs = [], [], [], [], [], []
+        for key, row in enumerate(times):
+            first, v, ticks, trace, counts, ecc = self.run_image(
+                row, image_key=key)
             firsts.append(first[:self.n_out])
             vs.append(v[:self.n_out])
             steps.append(ticks)
             traces.append(trace)
             tick_counts.append(counts)
+            eccs.append(ecc)
         first_l = torch.from_numpy(np.stack(firsts)).to(self.device)
         v_l = torch.from_numpy(np.stack(vs)).to(self.device)
         self.last_trace = stack_traces(traces)
         self.last_tick_counts = np.stack(tick_counts)
+        self.last_ecc = np.asarray(eccs, np.int64)
         if run is not None:
             totals, per = span_attrs(self.last_trace)
             rec.end(run, attrs=totals)

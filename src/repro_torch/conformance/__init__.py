@@ -9,8 +9,8 @@ times. This package generalizes the claim to *any valid artifact*:
     streams (floods, never-spike rows, exact-E_max boundaries, tie-heavy
     spike times), equal seed for seed to the JAX package's;
   * ``oracles`` — every advertised runtime spec of the port on the same
-    fuzzed artifact, through the oracle stack the port can run
-    (``ConformanceReport.not_ported`` names the rest);
+    fuzzed artifact, through the JAX package's whole oracle stack (the
+    fault-recovery oracle included);
   * ``golden``  — pinned-seed golden traces, checked against
     ``tests/golden/``;
   * ``transport_faults`` — a fault-injecting TCP proxy (truncations, flipped

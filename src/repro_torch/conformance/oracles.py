@@ -36,6 +36,10 @@ on the same artifact and adversarial image batch, on one device, asserting:
                   error bound scale/2 on the artifact's actual weights;
   events        — the packed frames respect the artifact's calibrated E_max
                   (no overflow flag on a stream the exporter sized for);
+  fault-recovery — a scheduler whose single worker lane crashes on its first
+                  batch (a seeded, recoverable lane fault) serves every
+                  image with the reference label, and its ledger shows the
+                  detection, the requeue and the rebuild;
   telemetry     — two seeded board runs produce bit-identical canonical span
                   trees, the per-image scheduler and the batched path
                   produce the SAME canonical tree, every span carries a
@@ -43,10 +47,9 @@ on the same artifact and adversarial image batch, on one device, asserting:
                   totals reconcile with an independent re-evaluation of the
                   board cost model.
 
-One oracle of the JAX package needs a module the port does not have yet:
-``fault-recovery`` (``faults/plan.py``, ROADMAP §1 item 5). ``run_case``
-does not run it and does not count it as passed: the report names it in
-``not_ported``, and ``passed`` means every oracle that ran passed.
+Every oracle of the JAX package runs: ``NOT_PORTED`` is empty. The report
+keeps its ``not_ported`` field (an oracle named there would not run and
+would not count as passed).
 
 Each oracle yields an ``OracleOutcome``; a ``ConformanceReport`` aggregates
 them and renders a failure summary naming spec, oracle, and mismatch counts.
@@ -71,9 +74,7 @@ from repro_torch.core.runtimes import (ADVERTISED_SPECS, make_runtime,
 from repro_torch.telemetry import trace as ttrace
 
 #: the JAX package's oracles this port cannot run yet, and what each needs
-NOT_PORTED = {
-    "fault-recovery": "faults/plan.py (ROADMAP §1 item 5)",
-}
+NOT_PORTED: dict[str, str] = {}
 
 
 @dataclasses.dataclass
@@ -301,6 +302,9 @@ def run_case(case: FuzzedCase, specs=ADVERTISED_SPECS, py_slice: int = 5, *,
         {"e_max": e_max, "peak_count": peak,
          "boundary_hit": int(peak == e_max)}))
 
+    # ---- fault recovery: serve through one seeded recoverable fault ------
+    outcomes.append(_fault_recovery_oracle(case, out_ref, device))
+
     # ---- telemetry: deterministic spans that reconcile with the account --
     outcomes.append(_telemetry_oracle(case, py_slice, device))
 
@@ -499,3 +503,60 @@ def _telemetry_oracle(case: FuzzedCase, py_slice: int,
         "telemetry", "board", not errs, "; ".join(errs),
         {"spans": len(t1.sorted_spans()), "fingerprint_stable":
          int(t1.fingerprint() == t2.fingerprint())})
+
+
+def _fault_recovery_oracle(case: FuzzedCase, out_ref,
+                           device: torch.device) -> OracleOutcome:
+    """Chaos conformance: serve the fuzzed images through a scheduler whose
+    single lane crashes on its first batch (seeded, recoverable). The
+    resilience tier must detect the fault, requeue the batch, scrub/rebuild
+    the lane, and serve EVERY request with a label bit-exact to the
+    reference — and the recovery ledger must show it happened."""
+    from repro_torch.faults.plan import FaultPlan
+    from repro_torch.serving.scheduler import ServingScheduler
+
+    images = case.images
+    B = images.shape[0]
+    plan = FaultPlan(seed=case.seed, crash_batches=(0,))
+    errs: list[str] = []
+    st: dict = {}
+    try:
+        with ServingScheduler(case.artifact, spec="reference", workers=1,
+                              max_batch=min(B, 8), max_wait_us=500.0,
+                              faults=plan,
+                              resilience={"backoff_s": 0.001},
+                              device=device) as s:
+            rids = [s.submit(img) for img in images]
+            done = s.drain()
+            st = s.stats()
+        failed = [(r, done[r].error) for r in rids
+                  if done[r].error is not None]
+        if failed:
+            errs.append(f"{len(failed)} requests errored after a recoverable "
+                        f"fault (first: rid {failed[0][0]}: {failed[0][1]})")
+        else:
+            got = np.asarray([done[r].label for r in rids])
+            want = _np(out_ref.labels)
+            n_mm = int(np.sum(got != want))
+            if n_mm:
+                errs.append(f"post-recovery labels mismatch reference on "
+                            f"{n_mm}/{B} images")
+        if st.get("lane_faults", 0) < 1:
+            errs.append("injected lane crash was never detected "
+                        "(lane_faults == 0)")
+        if st.get("requeued", 0) < 1:
+            errs.append("crashed batch was not requeued (requeued == 0)")
+        if st.get("lane_restarts", 0) < 1:
+            errs.append("lane was never rebuilt (lane_restarts == 0)")
+        if st.get("errors", 0):
+            errs.append(f"{st['errors']} requests gave up despite a "
+                        "one-shot recoverable fault")
+        if st.get("images_out", 0) != B:
+            errs.append(f"served {st.get('images_out', 0)}/{B} images")
+    except Exception as e:  # noqa: BLE001 — a hang/crash IS the failure mode
+        errs.append(f"serving through the fault raised "
+                    f"{type(e).__name__}: {e}")
+    return OracleOutcome(
+        "fault-recovery", "serving", not errs, "; ".join(errs),
+        {k: st.get(k, 0) for k in ("lane_faults", "requeued",
+                                   "lane_restarts", "recoveries")})

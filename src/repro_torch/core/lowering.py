@@ -446,10 +446,17 @@ def lower(artifact: Artifact | LoweredProgram, *,
     return _lower_uncached(artifact, dev)
 
 
-def lower_with_faults(artifact: Artifact | LoweredProgram, plan
-                      ) -> LoweredProgram:
-    """The static-fault lowering pass of ``repro.core.lowering``; it needs
-    ``faults/models.py``, which the port does not have yet."""
-    raise NotImplementedError(
-        "lower_with_faults needs faults/models.py, not ported yet "
-        "(ROADMAP: port queue, resilience and fault injection)")
+def lower_with_faults(artifact: Artifact | LoweredProgram, plan, *,
+                      device: str | torch.device = "cuda") -> LoweredProgram:
+    """The static-fault lowering pass: corrupt an in-memory CLONE of the
+    artifact per the plan's seeded SEU fields (host numpy, as in the JAX
+    package), then lower the clone on ``device``. The pristine artifact and
+    its cached program are untouched; the corrupted program gets its own
+    content fingerprint, so its ``(fingerprint, device)`` key never aliases
+    the pristine one. The device is resolved as ``lower`` resolves it, and
+    the clone's device tensors are copied from its corrupted host arrays
+    (``program_tensors``), the arrays the checksum detector re-hashes."""
+    from repro_torch.faults.models import corrupt_artifact
+    art = artifact.artifact if isinstance(artifact, LoweredProgram) \
+        else artifact
+    return lower(corrupt_artifact(art, plan), device=device)

@@ -36,7 +36,7 @@ import torch
 
 from repro_torch.core.artifact import Artifact
 from repro_torch.core.lowering import (LoweredProgram, get_cache, lower,
-                                       resolve_device)
+                                       lower_with_faults, resolve_device)
 from repro_torch.telemetry import trace as ttrace
 
 _REGISTRY: dict[str, Callable] = {}
@@ -68,6 +68,20 @@ def make_runtime(artifact: Artifact | LoweredProgram, spec: str, *,
     """Build the runtime named by ``spec`` over ``artifact`` (a raw
     ``Artifact`` or an already-lowered ``LoweredProgram``) on ``device``.
 
+    ``faults`` accepts anything ``faults.plan.FaultPlan.coerce`` does
+    (None | plan | spec string like ``"seu_weight=4,seed=7"`` | kwargs dict):
+
+      * a STATIC plan (artifact-resident SEU bit flips) is a lowering pass
+        (``lowering.lower_with_faults``): it corrupts an in-memory CLONE of
+        the artifact for any runtime family — the caller's artifact stays
+        pristine (it backs the scrub/reload recovery path) and the clone's
+        unchanged SHA-256 manifest is the detector;
+      * a DYNAMIC plan (membrane SEU, stuck groups, AER glitches, a forced
+        FIFO depth) is only emulated by the per-image ``board-py``
+        scheduler; every other spec rejects it with ``ValueError``;
+      * lane-fault fields are the serving scheduler's concern and are
+        ignored here.
+
     When a ``Tracer`` is installed, the ``runtime.build`` span's META gains
     ``cache_hit``, ``cache_bytes`` and ``cache_evictions``."""
     family, _, opts = spec.partition("-")
@@ -75,9 +89,17 @@ def make_runtime(artifact: Artifact | LoweredProgram, spec: str, *,
         raise ValueError(f"unknown runtime family {family!r} in spec "
                          f"{spec!r}; available: {available()}")
     if faults is not None:
-        raise NotImplementedError(
-            "fault plans need faults/plan.py and faults/models.py, not "
-            "ported yet (ROADMAP: port queue, resilience and fault injection)")
+        from repro_torch.faults.plan import DYNAMIC_FIELDS, FaultPlan
+        plan = FaultPlan.coerce(faults)
+        if plan.has_static:
+            artifact = lower_with_faults(artifact, plan, device=device)
+        if plan.has_dynamic:
+            if family != "board" or opts.partition("-")[0] != "py":
+                raise ValueError(
+                    f"dynamic fault plans (fields {DYNAMIC_FIELDS}) are only "
+                    f"emulated by the 'board-py' runtime; spec {spec!r} "
+                    f"cannot inject {plan.describe()}")
+            kw["faults"] = plan
     if isinstance(artifact, LoweredProgram):
         program = lower(artifact, device=device)
         program_hit = True
@@ -175,7 +197,7 @@ def _accelerator(prog: LoweredProgram, opts: str, kernel: str = "torch", **_):
 
 @register("board")
 def _board(prog: LoweredProgram, opts: str, latency_mode: bool = False,
-           kernel: str = "torch", **_):
+           kernel: str = "torch", faults=None, **_):
     from repro_torch.board import SNNBoard, SNNBoardBatched
     mode, _, k = opts.partition("-")
     if mode in ("", "batched"):
@@ -187,6 +209,8 @@ def _board(prog: LoweredProgram, opts: str, latency_mode: bool = False,
         if k:
             raise ValueError(f"board-py takes no kernel suffix, got {k!r} "
                              "(the per-image scheduler is host numpy)")
-        return SNNBoard(prog, latency_mode=latency_mode, device=prog.device)
+        # the host tick loop — the only family that emulates dynamic faults
+        return SNNBoard(prog, latency_mode=latency_mode, faults=faults,
+                        device=prog.device)
     raise ValueError(f"unknown board option {mode!r} "
                      "(use '', 'batched', 'py')")

@@ -24,6 +24,8 @@ import threading
 import time
 from pathlib import Path
 
+from repro_torch.kernels.common import KernelError
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -37,8 +39,9 @@ _libs: dict[str, ctypes.CDLL] = {}
 build_logs: dict[str, str] = {}
 
 
-class KernelBuildError(RuntimeError):
-    """nvcc is missing or refused a kernel source."""
+class KernelBuildError(KernelError):
+    """nvcc is missing or refused a kernel source, or its library does not
+    load."""
 
 
 def nvcc_path() -> str:
@@ -103,6 +106,10 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            lib = ctypes.CDLL(str(build([name])[name]))
+            path = build([name])[name]
+            try:
+                lib = ctypes.CDLL(str(path))
+            except OSError as e:
+                raise KernelBuildError(f"cannot load {path}: {e}") from e
             _libs[name] = lib
         return lib

@@ -16,8 +16,8 @@ import functools
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import (P, I, check_tensors, on_device,
-                                        raise_on, stream)
+from repro_torch.kernels.common import (P, I, check_tensors, count_launch,
+                                        on_device, raise_on, stream)
 from repro_torch.kernels.event_accum import ref as _ref
 
 #: kernel name -> launches since the last ``reset_launches()``
@@ -65,5 +65,5 @@ def event_accum(ids: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
                                       out.data_ptr(), rows, E, n_in, n_pad,
                                       stream(ids))
         raise_on(code, "event_accum")
-        LAUNCHES["event_accum"] += 1
+        count_launch(LAUNCHES, "event_accum")
     return out

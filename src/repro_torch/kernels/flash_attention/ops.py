@@ -33,7 +33,8 @@ import functools
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import P, I, L, on_device, raise_on, stream
+from repro_torch.kernels.common import (P, I, L, count_launch, on_device,
+                                        raise_on, stream)
 from repro_torch.kernels.flash_attention import ref as _ref
 
 SM90 = "flash_attention_sm90"
@@ -145,5 +146,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 v.data_ptr(), *v.stride(), out.data_ptr(), *out.stride(),
                 B, Hq, Hkv, Sq, Skv, D, *mask, DTYPES[q.dtype], stream(q))
     raise_on(code, name)
-    LAUNCHES[name] += 1
+    count_launch(LAUNCHES, name)
     return out

@@ -25,8 +25,8 @@ import torch
 
 from repro_torch.core.lif_dynamics import LIFResult
 from repro_torch.kernels import build
-from repro_torch.kernels.common import (P, I, check_tensors, on_device,
-                                        raise_on, stream)
+from repro_torch.kernels.common import (P, I, check_tensors, count_launch,
+                                        on_device, raise_on, stream)
 from repro_torch.kernels.fused_event_lif import ref as _ref
 
 #: kernel name -> launches since the last ``reset_launches()``
@@ -200,7 +200,7 @@ def fused_event_lif(ids: torch.Tensor, count: torch.Tensor, w: torch.Tensor,
                 thresholds.data_ptr(), first.data_ptr(), v.data_ptr(), B, T,
                 E, n_in, n_pad, int(leak_shift), *plan, stream(ids))
         raise_on(code, "fused_event_lif")
-        LAUNCHES["fused_event_lif"] += 1
+        count_launch(LAUNCHES, "fused_event_lif")
     return LIFResult(first_spike=first, v_final=v)
 
 
@@ -241,7 +241,7 @@ def fused_event_lif_decode(ids: torch.Tensor, count: torch.Tensor,
                 n_out, per_group, int(fallback == "membrane"), *plan,
                 stream(ids))
         raise_on(code, "fused_event_lif_decode")
-        LAUNCHES["fused_event_lif_decode"] += 1
+        count_launch(LAUNCHES, "fused_event_lif_decode")
     return LIFResult(first_spike=first, v_final=v), labels
 
 
@@ -272,5 +272,5 @@ def fused_event_lif_early_exit(ids: torch.Tensor, count: torch.Tensor,
                 steps.data_ptr(), B, T, E, n_in, n_pad, int(leak_shift),
                 *plan, stream(ids))
         raise_on(code, "fused_event_lif_early_exit")
-        LAUNCHES["fused_event_lif_early_exit"] += 1
+        count_launch(LAUNCHES, "fused_event_lif_early_exit")
     return LIFResult(first_spike=first, v_final=v), steps

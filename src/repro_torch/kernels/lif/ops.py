@@ -19,8 +19,8 @@ import torch
 
 from repro_torch.core.lif_dynamics import LIFResult
 from repro_torch.kernels import build
-from repro_torch.kernels.common import (P, I, L, check_tensors, on_device,
-                                        raise_on, stream)
+from repro_torch.kernels.common import (P, I, L, check_tensors, count_launch,
+                                        on_device, raise_on, stream)
 from repro_torch.kernels.lif import ref as _ref
 
 #: kernel name -> launches since the last ``reset_launches()``
@@ -66,5 +66,5 @@ def lif_fused(currents: torch.Tensor, thresholds: torch.Tensor,
                 thresholds.data_ptr(), first.data_ptr(), v.data_ptr(), B, T,
                 n, int(leak_shift), stream(currents))
         raise_on(code, "lif_fused")
-        LAUNCHES["lif_fused"] += 1
+        count_launch(LAUNCHES, "lif_fused")
     return LIFResult(first_spike=first, v_final=v)

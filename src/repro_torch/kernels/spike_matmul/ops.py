@@ -22,8 +22,8 @@ import functools
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import (P, I, L, check_tensors, on_device,
-                                        raise_on, stream)
+from repro_torch.kernels.common import (P, I, L, check_tensors, count_launch,
+                                        on_device, raise_on, stream)
 from repro_torch.kernels.spike_matmul import ref as _ref
 
 #: kernel name -> launches since the last ``reset_launches()``
@@ -99,6 +99,6 @@ def spike_matmul(raster: torch.Tensor, w: torch.Tensor, *,
                                        out.data_ptr(), M, K, N,
                                        int(how == "tma"), stream(raster))
         raise_on(code, "spike_matmul")
-        LAUNCHES["spike_matmul"] += 1
-        ROUTES[how] += 1
+        count_launch(LAUNCHES, "spike_matmul")
+        count_launch(ROUTES, how)
     return out

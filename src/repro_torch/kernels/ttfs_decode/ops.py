@@ -20,8 +20,8 @@ import functools
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import (P, I, L, check_tensors, on_device,
-                                        raise_on, stream)
+from repro_torch.kernels.common import (P, I, L, check_tensors, count_launch,
+                                        on_device, raise_on, stream)
 from repro_torch.kernels.ttfs_decode import ref as _ref
 
 #: kernel name -> launches since the last ``reset_launches()``
@@ -87,6 +87,6 @@ def ttfs_decode(first_spike: torch.Tensor, v_final: torch.Tensor, *,
                 int(fallback == "membrane"), int(how == "block"),
                 stream(first_spike))
         raise_on(code, "ttfs_decode")
-        LAUNCHES["ttfs_decode"] += 1
-        ROUTES[how] += 1
+        count_launch(LAUNCHES, "ttfs_decode")
+        count_launch(ROUTES, how)
     return labels

@@ -55,9 +55,13 @@ class SNNServeEngine:
     spike (with the accelerator's ``"cuda"``, the exit scan runs in PyTorch
     between the two kernels, as the JAX package runs it in ``jnp``; the
     board's latency mode runs no kernel, as in the JAX package).
-    ``workers >= 1``, a non-default ``max_wait_us``, ``faults=``,
-    ``resilience=`` and ``canary_pool=`` are not ported yet and raise
-    ``NotImplementedError``."""
+
+    ``workers=0`` (default) serves synchronously inside flush() — the
+    deterministic facade mode; ``workers>=1`` hands the queue to that many
+    continuous-batching worker lanes, each on a CUDA stream of its own on
+    the card, and ``max_wait_us``, ``faults=``, ``resilience=`` and
+    ``canary_pool=`` reach the scheduler as in the JAX package (see
+    ``serving.scheduler``)."""
 
     def __init__(self, artifact: Artifact, *, max_batch: int = 64,
                  kernel: str | None = None, latency_mode: bool = False,

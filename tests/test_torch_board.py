@@ -14,9 +14,11 @@ import numpy as np
 import pytest
 import torch
 
+from repro.board import SNNBoard as JSNNBoard
 from repro.board import energy as jenergy
 from repro.core.artifact import Artifact as JArtifact
 from repro.core.runtimes import make_runtime as jmake_runtime
+from repro.faults import FaultPlan as JFaultPlan
 from repro.serving.snn_engine import SNNServeEngine as JEngine
 from repro.telemetry import trace as jtrace
 from repro_torch.board import (AEREventQueue, GroupedNeuronCore, SNNBoard,
@@ -29,6 +31,7 @@ from repro_torch.core.lowering import lower
 from repro_torch.core.runtimes import (ADVERTISED_SPECS, make_runtime,
                                        registry_consistency_errors)
 from repro_torch.data import mnist
+from repro_torch.faults import FaultPlan
 from repro_torch.serving.snn_engine import SNNServeEngine
 from repro_torch.telemetry import trace as ttrace
 
@@ -222,8 +225,20 @@ def test_board_engine_kernels_and_refusals(served_images):
     # no board_* keys on the accelerator
     assert not any(k.startswith("board_") for k in
                    SNNServeEngine(art, device="cpu").stats())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SNNBoard(art, faults="seu_membrane=1", device="cpu")
+    # a dynamic fault plan reaches the host tick loop, as in JAX: a forced
+    # FIFO depth, a stuck group and a glitching AER link
+    plan = "fifo=2,stuck=1,aer_drop=0.1,seed=3"
+    board = SNNBoard(art, faults=FaultPlan.parse(plan), device="cpu")
+    jboard = JSNNBoard(JArtifact.load(MNIST_ART),
+                       faults=JFaultPlan.parse(plan))
+    out, jout = board.forward(x[:8]), jboard.forward(x[:8])
+    for key in ("labels", "first_spike", "v_final", "steps"):
+        assert np.array_equal(getattr(out, key).numpy(),
+                              np.asarray(getattr(jout, key))), key
+    assert board.depth == jboard.depth == 2
+    assert board.stuck_groups == jboard.stuck_groups != []
+    for key in ("last_tick_counts", "last_ecc"):
+        assert np.array_equal(getattr(board, key), getattr(jboard, key))
 
 
 def test_registry_is_consistent():

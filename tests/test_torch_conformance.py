@@ -2,8 +2,9 @@
 package on the CPU: ``fuzz_case`` equal seed for seed (artifact
 fingerprint, images, times, notes; exact), ``golden.check`` clean on
 ``tests/golden/`` (the JAX package's snapshots, bit for bit), ``run_case``
-passing every ported oracle with each oracle's verdict equal to JAX's and
-the three unported ones named, a divergent runtime caught, and the JSONL
+running all of JAX's oracles (none left unported) with each oracle's
+verdict equal to JAX's, the fault-recovery oracle on the pinned seeds
+beside JAX's, a divergent runtime caught, and the JSONL
 and Prometheus exporters writing what JAX's write for the same contents."""
 
 import contextlib
@@ -16,13 +17,16 @@ import torch
 from repro.conformance import fuzz_case as jfuzz_case
 from repro.conformance import run_case as jrun_case
 from repro.conformance.fuzz import images_from_times as jimages_from_times
+from repro.conformance.oracles import \
+    _fault_recovery_oracle as _jfault_recovery_oracle
 from repro.core.runtimes import make_runtime as jmake_runtime
 from repro.telemetry import export as jexport
 from repro.telemetry import trace as jtrace
 from repro.telemetry.metrics import MetricsRegistry as JRegistry
 from repro_torch.conformance import fuzz_case, golden, run_case
 from repro_torch.conformance.fuzz import images_from_times
-from repro_torch.conformance.oracles import NOT_PORTED
+from repro_torch.conformance.oracles import (NOT_PORTED,
+                                             _fault_recovery_oracle)
 from repro_torch.core import runtimes, ttfs
 from repro_torch.core.runtimes import make_runtime
 from repro_torch.core.types import SNNOutput
@@ -112,19 +116,38 @@ def test_oracle_stack_passes_like_jax(reports, seed):
     rep, jrep = reports[seed]
     assert rep.passed, rep.summary()
     got, want = _verdicts(rep), _verdicts(jrep)
-    assert set(got) | set(rep.not_ported) == set(want)
-    assert set(rep.not_ported) == {"fault-recovery"} == set(NOT_PORTED)
-    assert {"program-io", "transport"} <= set(got)
-    assert not set(got) & set(rep.not_ported)
+    assert set(got) == set(want)
+    assert rep.not_ported == {} == NOT_PORTED
+    assert {"program-io", "transport", "fault-recovery"} <= set(got)
+    assert len(rep.outcomes) == len(jrep.outcomes)
     for oracle, ok in got.items():
         assert ok == want[oracle], oracle
     for oracle in ("program-io", "transport"):
         (o,) = [o for o in rep.outcomes if o.oracle == oracle]
         (jo,) = [o for o in jrep.outcomes if o.oracle == oracle]
         assert o.stats == jo.stats, oracle
-    assert "not ported, not run: fault-recovery" in rep.summary()
+    assert "not ported, not run: none" in rep.summary()
     diff = {o.spec for o in rep.outcomes if o.oracle == "differential"}
     assert diff == set(runtimes.ADVERTISED_SPECS) - {"reference"}
+
+
+@pytest.mark.parametrize("seed", golden.PINNED_SEEDS)
+def test_fault_recovery_oracle_passes_like_jax(seed):
+    """The fault-recovery oracle on each pinned seed: the scheduler's one
+    lane crashes on its first batch, recovers, and serves every image with
+    the reference label; the recovery ledger equals JAX's."""
+    case, jcase = fuzz_case(seed), jfuzz_case(seed)
+    out_ref = make_runtime(case.artifact, "reference",
+                           device="cpu").forward(case.images)
+    got = _fault_recovery_oracle(case, out_ref, torch.device("cpu"))
+    want = _jfault_recovery_oracle(
+        jcase, jmake_runtime(jcase.artifact, "reference").forward(
+            jcase.images))
+    assert got.passed and want.passed, (got.detail, want.detail)
+    assert (got.oracle, got.spec) == (want.oracle, want.spec)
+    for k in ("lane_faults", "lane_restarts", "recoveries"):
+        assert got.stats[k] == want.stats[k] == 1, k
+    assert got.stats["requeued"] >= 1 and want.stats["requeued"] >= 1
 
 
 class _Divergent:

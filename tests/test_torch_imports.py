@@ -195,3 +195,47 @@ def test_authoring_entry_points_raise_without_cuda(monkeypatch):
             make()
     art = deploy.export(model, calib_images=x, calib_labels=y, device="cpu")
     assert lower(art, device="cpu").n_out == 150
+
+
+#: modules whose files the walk must reach (the worker lanes and resilience
+#: slice)
+RESILIENCE = ("faults/__init__.py", "faults/plan.py", "faults/models.py",
+              "faults/detect.py", "serving/scheduler.py",
+              "serving/snn_engine.py", "kernels/common.py")
+
+
+def test_walk_covers_the_resilience_modules():
+    walked = {os.path.relpath(p, PORT) for p in _port_files()}
+    assert set(RESILIENCE) <= walked
+
+
+def test_resilience_entry_points_raise_without_cuda(monkeypatch):
+    """Worker lanes, fault plans, the static lowering pass, the board's
+    dynamic plans and the canary refuse to fall back to the CPU; each runs
+    there when asked for ``device="cpu"``."""
+    from repro_torch.board import SNNBoard
+    from repro_torch.core.lowering import lower_with_faults
+    from repro_torch.core.runtimes import make_runtime
+    from repro_torch.faults import Canary, FaultPlan
+    from repro_torch.serving.scheduler import ServingScheduler
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    art = Artifact.load(MNIST_ART)
+    plan = FaultPlan.parse("seu_weight=2,seed=1")
+    makes = (lambda **kw: ServingScheduler(art, workers=2, **kw),
+             lambda **kw: ServingScheduler(art, faults="crash=0", **kw),
+             lambda **kw: SNNServeEngine(art, workers=1, max_wait_us=500.0,
+                                         resilience={"verify": True}, **kw),
+             lambda **kw: make_runtime(art, "board-py",
+                                       faults="fifo=2,stuck=1", **kw),
+             lambda **kw: lower_with_faults(art, plan, **kw),
+             lambda **kw: SNNBoard(art, faults=FaultPlan(stuck_groups=1),
+                                   **kw),
+             lambda **kw: Canary.from_artifact(art, **kw))
+    for make in makes:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+    for make in makes:
+        made = make(device="cpu")
+        if hasattr(made, "close"):
+            made.close()

@@ -1,0 +1,371 @@
+"""The port's serving resilience against the JAX package's on the CPU: the
+lane health state machine end to end — detection (checksum / canary /
+trace / ECC / watchdog), bounded retry with requeue, scrub/rebuild
+recovery, quarantine, and circuit-breaker degradation to the dense
+fallback. Each scenario of the JAX package's ``tests/test_resilience.py``
+runs here against the port with JAX's assertions, on the committed MNIST
+artifact; then one worker lane of each package serves the same requests
+under the same fault plan, and the two ledgers are held equal: labels,
+errored requests and their messages, ``fallback_dense`` flags, lane health
+and every counter that does not depend on timing. Every scenario keeps the
+invariant: each admitted request completes with the reference label or an
+explicit error — never silently wrong, never hung."""
+
+import os
+import threading
+import time
+
+import numpy as np
+import pytest
+
+from repro.core.artifact import Artifact as JArtifact
+from repro.faults import FaultPlan as JFaultPlan
+from repro.serving.scheduler import ServingScheduler as JScheduler
+from repro_torch.core.artifact import Artifact
+from repro_torch.core.reference import SNNReference
+from repro_torch.data import mnist
+from repro_torch.faults import FaultPlan
+from repro_torch.serving import scheduler as sched_mod
+from repro_torch.serving.scheduler import ServingError, ServingScheduler
+from repro_torch.serving.snn_engine import SNNServeEngine
+
+ROOT = os.path.normpath(os.path.join(os.path.dirname(__file__), ".."))
+MNIST_ART = os.path.join(ROOT, "src", "repro_torch", "assets",
+                         "mnist_ttfs.npz")
+CPU = "cpu"
+
+
+@pytest.fixture(scope="module")
+def art():
+    return Artifact.load(MNIST_ART)
+
+
+@pytest.fixture(scope="module")
+def xte():
+    return mnist.generate(64, 1235)[0]
+
+
+@pytest.fixture(scope="module")
+def want(art, xte):
+    return SNNReference(art, device=CPU).forward(xte).labels.numpy()
+
+
+def _serve_all(sched, images):
+    rids = [sched.submit(x) for x in images]
+    done = sched.drain()
+    return np.asarray([done[r].label for r in rids]), done, rids
+
+
+def _event(art, **kw):
+    return ServingScheduler(art, spec="accelerator-event", kernel="fused",
+                            device=CPU, **kw)
+
+
+# ----------------------------------------------------------- crash + retry
+def test_lane_crash_retries_to_bitexact_labels(art, xte, want):
+    with _event(art, workers=1, max_batch=8, max_wait_us=500.0,
+                faults="crash=0,seed=3",
+                resilience={"backoff_s": 0.001}) as s:
+        got, done, rids = _serve_all(s, xte[:24])
+        st = s.stats()
+    assert np.array_equal(got, want[:24])
+    assert all(done[r].error is None for r in rids)
+    assert st["lane_faults"] >= 1 and st["requeued"] >= 1
+    assert st["lane_restarts"] >= 1 and st["recoveries"] >= 1
+    assert st["errors"] == 0 and st["recovery_ms_mean"] > 0
+    assert any(done[r].attempts > 0 for r in rids)
+
+
+def test_startup_seu_scrubbed_before_service(art, xte, want):
+    with _event(art, workers=1, max_batch=8, max_wait_us=500.0,
+                faults="seu_weight=4,seed=5",
+                resilience={"backoff_s": 0.001}) as s:
+        got, done, rids = _serve_all(s, xte[:16])
+        st = s.stats()
+    assert np.array_equal(got, want[:16])
+    assert st["integrity_failures"] >= 1 and st["lane_restarts"] >= 1
+    assert st["errors"] == 0
+    assert all(not done[r].fallback_dense for r in rids)
+
+
+# ---------------------------------------------------------------- watchdog
+def test_watchdog_replaces_hung_lane(art, xte, want):
+    plan = FaultPlan(seed=7, hang_batches=(0,), hang_s=1.5)
+    with _event(art, workers=1, max_batch=4, max_wait_us=500.0, faults=plan,
+                resilience={"watchdog_s": 0.2, "backoff_s": 0.001}) as s:
+        got, done, rids = _serve_all(s, xte[:12])
+        st = s.stats()
+        hung = [t for t in s._threads if t.name == "serve-lane-0"]
+    assert np.array_equal(got, want[:12])
+    assert st["watchdog_timeouts"] >= 1 and st["requeued"] >= 1
+    assert st["lane_restarts"] >= 1 and st["errors"] == 0
+    # the hung thread woke, served its stale batch and completed nothing
+    # twice: every request completed exactly once, by the replacement
+    assert len(hung) == 1 and not hung[0].is_alive()
+    assert all(done[r].lane == 0 and done[r].attempts >= 0 for r in rids)
+    assert st["images_out"] == 12
+
+
+def test_watchdog_never_loses_a_batch_that_ends_as_it_fires(art, xte, want):
+    """The watchdog reads a lane's ``busy_since`` and then its in-flight
+    requests. Here the first batch is slow, and the watchdog's read of
+    ``busy_since`` waits (up to 1 s) for the lane to end that batch before
+    it reads the requests: the lane must not end it while the watchdog
+    holds the scheduler's lock, so the batch is requeued and served by the
+    replacement lane, never dropped. (A loaded host may time out a later
+    batch too, so the counters are lower bounds.)"""
+    ended = threading.Event()
+
+    class RacingLane(sched_mod._Lane):
+        @property
+        def busy_since(self):
+            b = self._busy
+            if (threading.current_thread().name == "serve-watchdog"
+                    and b is not None and time.perf_counter() - b > 0.5):
+                ended.wait(timeout=1.0)
+            return b
+
+        @busy_since.setter
+        def busy_since(self, value):
+            self._busy = value
+            if value is None:
+                ended.set()
+
+    with _event(art, workers=1, max_batch=4, max_wait_us=500.0,
+                resilience={"watchdog_s": 0.5, "backoff_s": 0.001}) as s:
+        lane = s.lanes[0]
+        with s._cv:
+            lane.__class__ = RacingLane
+            lane._busy = None
+        serve = lane.serve
+
+        def slow_first(images, k, probe=False):
+            if not probe and not ended.is_set():
+                time.sleep(0.8)
+            return serve(images, k, probe)
+
+        lane.serve = slow_first
+        rids = [s.submit(x) for x in xte[:4]]
+        got = [s.result(r, timeout=30.0).label for r in rids]
+        st = s.stats()
+    assert got == list(want[:4])
+    assert st["watchdog_timeouts"] >= 1 and st["requeued"] >= 4
+    assert st["errors"] == 0 and st["images_out"] == 4
+
+
+# --------------------------------------------------- quarantine + breaker
+def test_persistent_seu_quarantines_and_degrades(art, xte, want):
+    faults = {"seu_weight_flips": 4, "persistent": True, "seed": 9}
+    with _event(art, workers=1, max_batch=8, max_wait_us=500.0,
+                faults=faults, resilience={"backoff_s": 0.001}) as s:
+        got, done, rids = _serve_all(s, xte[:16])
+        st = s.stats()
+    assert np.array_equal(got, want[:16])
+    assert st["quarantines"] >= 1 and st["breaker_degraded"] >= 1
+    assert st["errors"] == 0
+    assert all(done[r].fallback_dense for r in rids)
+    assert "degraded" in st["lane_health"]
+
+
+def test_persistent_seu_without_degrade_refuses_admission(art, xte):
+    faults = {"seu_weight_flips": 4, "persistent": True, "seed": 9}
+    s = _event(art, workers=1, max_batch=8, max_wait_us=500.0,
+               faults=faults,
+               resilience={"backoff_s": 0.001, "degrade": False})
+    try:
+        with pytest.raises(RuntimeError, match="quarantined"):
+            s.submit(xte[0])
+        assert s.stats()["quarantines"] >= 1
+    finally:
+        s.close()
+
+
+def test_circuit_breaker_stops_crash_flapping(art, xte, want):
+    plan = FaultPlan(seed=11, crash_batches=(0,), persistent=True)
+    with _event(art, workers=1, max_batch=8, max_wait_us=500.0, faults=plan,
+                resilience={"backoff_s": 0.001, "max_retries": 4,
+                            "breaker_threshold": 2}) as s:
+        got, done, rids = _serve_all(s, xte[:16])
+        st = s.stats()
+    assert np.array_equal(got, want[:16])
+    assert st["breaker_degraded"] >= 1 and st["errors"] == 0
+    assert any(done[r].fallback_dense for r in rids)
+
+
+# ----------------------------------------------- mid-flight board detectors
+def test_stuck_group_caught_by_canary_mid_flight(art, xte, want):
+    with ServingScheduler(art, spec="board-py", workers=1, max_batch=2,
+                          max_wait_us=500.0, faults="stuck=1,seed=13",
+                          canary_pool=xte[:32],
+                          resilience={"startup_checks": False,
+                                      "verify": True, "canary_every": 1,
+                                      "backoff_s": 0.001},
+                          device=CPU) as s:
+        got, done, rids = _serve_all(s, xte[:4])
+        st = s.stats()
+    assert np.array_equal(got, want[:4])
+    assert st["canary_failures"] >= 1 and st["lane_faults"] >= 1
+    assert st["lane_restarts"] >= 1 and st["errors"] == 0
+
+
+def test_membrane_seu_caught_by_ecc_mid_flight(art, xte, want):
+    # seed 7: on this artifact JAX's upset at seed 15 flips bit 31 of a
+    # negative membrane in the first batch and raises before the ECC readout
+    # (ROADMAP §3); the port raises there too, and the ledger scenario
+    # "membrane upset raises" holds that path to JAX's
+    with ServingScheduler(art, spec="board-py", workers=1, max_batch=2,
+                          max_wait_us=500.0, faults="membrane=0.9,seed=7",
+                          resilience={"startup_checks": False,
+                                      "verify": True, "backoff_s": 0.001},
+                          device=CPU) as s:
+        got, done, rids = _serve_all(s, xte[:4])
+        st = s.stats()
+    assert np.array_equal(got, want[:4])
+    assert st["ecc_detected"] >= 1 and st["lane_restarts"] >= 1
+    assert st["errors"] == 0
+
+
+# --------------------------------------------------------- close semantics
+def test_context_exit_completes_every_admitted_request(art, xte):
+    with _event(art, workers=1, max_batch=4,
+                max_wait_us=10_000_000.0) as s:
+        rids = [s.submit(x) for x in xte[:32]]
+    done = s.drain()
+    assert sorted(done) == rids
+    for r in rids:
+        req = done[r]
+        assert (req.label is not None) or (req.error == "scheduler closed")
+    with pytest.raises(RuntimeError, match="closed"):
+        s.submit(xte[0])
+
+
+def test_close_drain_serves_backlog_first(art, xte, want):
+    s = _event(art, workers=1, max_batch=4, max_wait_us=500.0)
+    rids = [s.submit(x) for x in xte[:20]]
+    s.close(drain=True)
+    done = s.drain()
+    got = np.asarray([done[r].label for r in rids])
+    assert np.array_equal(got, want[:20])
+    assert all(done[r].error is None for r in rids)
+    assert s.stats()["errors"] == 0
+
+
+# ------------------------------------------------------------ engine facade
+def test_engine_classify_through_crash_recovery(art, xte, want):
+    eng = SNNServeEngine(art, backend="accelerator", max_batch=8, workers=1,
+                         faults="crash=0,seed=17",
+                         resilience={"backoff_s": 0.001}, device=CPU)
+    try:
+        got = eng.classify(xte[:16])
+        st = eng.stats()
+    finally:
+        eng.close()
+    assert np.array_equal(got, want[:16])
+    assert st["lane_faults"] >= 1 and st["errors"] == 0
+
+
+def test_engine_classify_raises_serving_error_on_gave_up(art, xte):
+    def boom(images, k, probe=False):
+        raise RuntimeError("lane keeps dying")
+
+    eng = SNNServeEngine(art, backend="accelerator", max_batch=4, workers=1,
+                         resilience={"max_retries": 0, "backoff_s": 0.001},
+                         device=CPU)
+    try:
+        eng.sched.lanes[0].serve = boom
+        with pytest.raises(ServingError, match="lane keeps dying"):
+            eng.classify(xte[:2])
+    finally:
+        eng.close()
+
+
+# ------------------------------------------- one lane, both packages, ledgers
+#: counters of ``stats()`` that do not depend on timing on one lane whose
+#: first batch takes every request (max_batch = the request count, a long
+#: deadline): the batches, and so the whole fault sequence, are the same
+LEDGER = ("images_out", "errors", "batches", "lane_faults", "requeued",
+          "lane_restarts", "quarantines", "breaker_degraded", "recoveries",
+          "integrity_checks", "integrity_failures", "canary_checks",
+          "canary_failures", "trace_checks", "trace_failures",
+          "ecc_detected", "overflow_fallbacks", "watchdog_timeouts",
+          "abandoned_results")
+
+#: scenario -> (spec, requests, faults, resilience, canary pool size)
+SCENARIOS = {
+    "crash": ("accelerator-event", 8, "crash=0,seed=3", {}, 0),
+    "crash gave up": ("accelerator-event", 8,
+                      "crash=0,persistent=1,seed=3",
+                      {"max_retries": 0, "breaker_threshold": 10}, 0),
+    "crash twice": ("accelerator-event", 8, "crash=0:1,seed=4",
+                    {"max_retries": 1}, 0),
+    "startup seu": ("accelerator-event", 8, "seu_weight=4,seed=5", {}, 0),
+    "startup threshold seu": ("reference", 8, "seu_thr=2,seed=1", {}, 0),
+    "persistent seu degrades": ("accelerator-event", 8,
+                                "seu_weight=4,persistent=1,seed=9", {}, 0),
+    "persistent seu retires": ("accelerator-event", 8,
+                               "seu_weight=4,persistent=1,seed=9",
+                               {"degrade": False}, 0),
+    "breaker": ("accelerator-event", 8, "crash=0,persistent=1,seed=11",
+                {"max_retries": 4, "breaker_threshold": 2}, 0),
+    "crash on another lane": ("accelerator-event", 8,
+                              "crash=0,lanes=1,seed=3", {}, 0),
+    "stuck canary": ("board-py", 4, "stuck=1,seed=13",
+                     {"startup_checks": False, "verify": True,
+                      "canary_every": 1}, 32),
+    "stuck startup canary": ("board-py", 4, "stuck=1,seed=13", {}, 32),
+    # a seed on which JAX's membrane upset never flips bit 31 of a negative
+    # membrane, and one on which it does: the upset raises in both packages
+    # (ROADMAP §3), a lane fault that is requeued and served after the rebuild
+    "membrane ecc": ("board-py", 4, "membrane=0.9,seed=7",
+                     {"startup_checks": False, "verify": True}, 0),
+    "membrane upset raises": ("board-py", 4, "membrane=0.9,seed=15",
+                              {"startup_checks": False, "verify": True}, 0),
+    "aer trace": ("board-py", 4, "aer_drop=0.3,seed=4",
+                  {"startup_checks": False, "verify": True}, 0),
+    "fifo clean": ("board-py", 4, "fifo=1",
+                   {"startup_checks": False, "verify": True}, 0),
+}
+
+
+def _ledger(make, sched_kw, images):
+    """Serve ``images`` on one lane; (per-request outcome, lane health,
+    counters), or the admission refusal's message."""
+    s = make(**sched_kw)
+    try:
+        try:
+            rids = [s.submit(x) for x in images]
+        except RuntimeError as e:
+            return str(e), s.stats()["lane_health"], {
+                k: s.stats()[k] for k in LEDGER}
+        done = s.drain()
+        st = s.stats()
+    finally:
+        s.close()
+    reqs = [(done[r].label, done[r].error, done[r].fallback_dense,
+             done[r].attempts, done[r].lane) for r in rids]
+    return reqs, st["lane_health"], {k: st[k] for k in LEDGER}
+
+
+@pytest.mark.parametrize("scenario", SCENARIOS)
+def test_one_lane_ledger_equals_jax(art, xte, want, scenario):
+    spec, n, faults, res, pool = SCENARIOS[scenario]
+    images = xte[:n]
+    kw = dict(workers=1, max_batch=n, max_wait_us=10_000_000.0,
+              resilience={"backoff_s": 0.001, **res})
+    if pool:
+        kw["canary_pool"] = xte[:pool]
+    port_kernel = {"accelerator-event": "fused"}.get(spec)
+    jax_kernel = {"accelerator-event": "jnp"}.get(spec)
+    got = _ledger(lambda **k: ServingScheduler(
+        art, spec=spec, kernel=port_kernel, faults=FaultPlan.parse(faults),
+        device=CPU, **k), kw, images)
+    jart = JArtifact.load(MNIST_ART)
+    expect = _ledger(lambda **k: JScheduler(
+        jart, spec=spec, kernel=jax_kernel, faults=JFaultPlan.parse(faults),
+        **k), kw, images)
+    assert got == expect
+    if isinstance(got[0], list):
+        # never a wrong label: a label is the reference's, or there is none
+        for (label, error, *_), ref in zip(got[0], want[:n]):
+            assert (error is None and label == ref) or (
+                error is not None and label is None)

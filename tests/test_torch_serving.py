@@ -2,8 +2,9 @@
 every advertised spec (the ``-cuda`` ones included, on their kernels' plain
 versions) against the golden conformance seeds, the served MNIST artifact
 against the JAX SNNServeEngine (full-T and latency mode), the overflow→dense
-reroute, and every path the port refuses so far (the board family is held
-in ``test_torch_board.py``)."""
+reroute, the serving paths once refused and now JAX's (worker lanes, fault
+plans, canaries, a tampered artifact's quarantine), and what the port still
+refuses (the board family is held in ``test_torch_board.py``)."""
 
 import copy
 import io
@@ -12,7 +13,10 @@ import os
 import numpy as np
 import pytest
 
+from repro.core import lowering as jlowering
 from repro.core.artifact import Artifact as JArtifact
+from repro.core.runtimes import make_runtime as jmake_runtime
+from repro.faults import FaultPlan as JFaultPlan
 from repro.serving.snn_engine import SNNServeEngine as JEngine
 from repro_torch.core import lowering
 from repro_torch.core.accelerator import SNNAccelerator
@@ -20,6 +24,7 @@ from repro_torch.core.artifact import Artifact
 from repro_torch.core.reference import SNNReference
 from repro_torch.core.runtimes import ADVERTISED_SPECS, make_runtime
 from repro_torch.data import mnist
+from repro_torch.faults import FaultPlan
 from repro_torch.serving.snn_engine import SNNServeEngine
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
@@ -122,24 +127,63 @@ def test_overflow_reroute_matches_jax(served_images):
 
 
 def test_refused_paths_raise_not_implemented():
-    art = Artifact.load(MNIST_ART)
-    refused = [
-        lambda: SNNServeEngine(art, workers=1, device="cpu"),
-        lambda: SNNServeEngine(art, faults="crash=0", device="cpu"),
-        lambda: SNNServeEngine(art, canary_pool=np.zeros((1, 784), np.float32),
-                               device="cpu"),
-        lambda: SNNServeEngine(art, resilience={"verify": True},
-                               device="cpu"),
-        lambda: SNNServeEngine(art, max_wait_us=500.0, device="cpu"),
-        lambda: make_runtime(art, "board-py", faults="seu_membrane=1",
-                             device="cpu"),
-        lambda: make_runtime(art, "reference", faults="seu_weight=1",
-                             device="cpu"),
-        lambda: lowering.lower_with_faults(art, None),
-    ]
-    for make in refused:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make()
+    """Nothing of the serving tier raises NotImplementedError any more: the
+    paths once refused here do what the JAX package does with the same
+    arguments, and the port still refuses what JAX refuses."""
+    art, jart = Artifact.load(MNIST_ART), JArtifact.load(MNIST_ART)
+    x = np.asarray(mnist.generate(8, 1235)[0])
+    # worker lanes, a batching deadline, per-batch verification and a canary
+    # pool: each engine serves the reference's labels with JAX's settings
+    want = SNNReference(art, device="cpu").forward(x).labels.tolist()
+    for kw in ({"workers": 1}, {"max_wait_us": 500.0},
+               {"resilience": {"verify": True}},
+               {"canary_pool": np.zeros((1, 784), np.float32)}):
+        eng = SNNServeEngine(art, max_batch=4, device="cpu", **kw)
+        jeng = JEngine(jart, max_batch=4, kernel="jnp", **kw)
+        try:
+            assert eng.classify(x).tolist() == want, kw
+            assert jeng.classify(x).tolist() == want, kw
+            st, jst = eng.stats(), jeng.stats()
+        finally:
+            eng.close()
+            jeng.close()
+        for key in ("workers", "max_wait_us", "canary_checks",
+                    "integrity_checks", "trace_checks", "images_out",
+                    "lane_health"):
+            assert st[key] == jst[key], (kw, key)
+    # a lane crash in inline mode: the batch error-completes and the first
+    # flush re-raises, as in JAX; nothing strands
+    eng = SNNServeEngine(art, max_batch=4, faults="crash=0", device="cpu")
+    jeng = JEngine(jart, max_batch=4, kernel="jnp", faults="crash=0")
+    errors = []
+    for e in (eng, jeng):
+        rids = [e.submit(img) for img in x[:4]]
+        with pytest.raises(RuntimeError, match="injected lane crash") as ei:
+            e.flush()
+        done = e.flush()
+        errors.append((str(ei.value), sorted(done) == rids,
+                       [done[r].error for r in rids],
+                       e.stats()["errors"]))
+        e.close()
+    assert errors[0] == errors[1]
+    # fault plans in the registry and the static lowering pass
+    with pytest.raises(ValueError, match="unknown fault-plan key") as got:
+        make_runtime(art, "board-py", faults="seu_membrane=1", device="cpu")
+    with pytest.raises(ValueError) as jgot:
+        jmake_runtime(jart, "board-py", faults="seu_membrane=1")
+    assert str(got.value) == str(jgot.value)
+    rt = make_runtime(art, "reference", faults="seu_weight=1", device="cpu")
+    jrt = jmake_runtime(jart, "reference", faults="seu_weight=1")
+    assert rt.art.fingerprint() == jrt.art.fingerprint() != art.fingerprint()
+    for lower_with_faults in (
+            lambda: lowering.lower_with_faults(art, None, device="cpu"),
+            lambda: jlowering.lower_with_faults(jart, None)):
+        with pytest.raises(AttributeError, match="has_static"):
+            lower_with_faults()
+    plan = "seu_weight=3,seu_thr=1,seed=9"
+    assert lowering.lower_with_faults(
+        art, FaultPlan.parse(plan), device="cpu").fingerprint == \
+        jlowering.lower_with_faults(jart, JFaultPlan.parse(plan)).fingerprint
     with pytest.raises(ValueError):
         SNNServeEngine(art, backend="bogus", device="cpu")
     with pytest.raises(ValueError):
@@ -170,8 +214,31 @@ def test_engine_rejects_malformed_images_and_closes_cleanly():
 
 
 def test_tampered_artifact_fails_lane_commissioning():
-    art = Artifact.load(MNIST_ART)
-    art.arrays["w_padded"] = art.arrays["w_padded"].copy()
-    art.arrays["w_padded"][3, 3] ^= 1
-    with pytest.raises(RuntimeError, match="startup checks"):
-        SNNServeEngine(art, device="cpu")
+    """A flipped bit in the artifact fails the lane's startup checksum; the
+    rebuild from the same (tampered) artifact fails it again, so the lane is
+    quarantined and circuit-broken onto the dense path, as in JAX: every
+    request is served and flagged ``fallback_dense``."""
+    served = []
+    for load, engine, kw in ((JArtifact.load, JEngine, {"kernel": "jnp"}),
+                             (Artifact.load, SNNServeEngine,
+                              {"device": "cpu"})):
+        art = load(MNIST_ART)
+        art.arrays["w_padded"] = art.arrays["w_padded"].copy()
+        art.arrays["w_padded"][3, 3] ^= 1
+        eng = engine(art, max_batch=8, **kw)
+        x = np.asarray(mnist.generate(8, 1235)[0])
+        rids = [eng.submit(img) for img in x]
+        done = eng.flush()
+        st = eng.stats()
+        eng.close()
+        served.append(([done[r].label for r in rids],
+                       [done[r].fallback_dense for r in rids],
+                       {k: st[k] for k in ("integrity_checks",
+                                           "integrity_failures",
+                                           "lane_faults", "quarantines",
+                                           "breaker_degraded", "errors",
+                                           "lane_health")}))
+    assert served[0] == served[1]
+    assert all(served[1][1])
+    assert served[1][2]["integrity_failures"] == 2
+    assert served[1][2]["lane_health"] == ["degraded"]
