@@ -208,7 +208,10 @@ Phases (any failure exits non-zero; nothing is caught):
                a ragged case at the 128-row tile's scale (Sq = Skv = 1111)
                and Qwen3-8B's head shape, the last two read through
                (B, S, H, D) views as the model hands them over, at S 2048
-               and at the prefill's own shape (B 2, S 4096). The inputs the
+               and at the prefill's own shape (B 2, S 4096), and the
+               shapes phase 6b adds, as views: Mixtral's window (B 1, 32/8
+               heads, S 8192, window 4096) and Qwen3-MoE's GQA group of 16
+               (B 2, 64/4 heads, S 4096). The inputs the
                tensor-core kernel does not take go to the split-TF32 kernel,
                in both types (float32 at 2e-5, bf16 at 2e-2): the sweep at D
                16 and D 256, and D 128 q, k, v with padded rows, a misaligned
@@ -242,6 +245,36 @@ Phases (any failure exits non-zero; nothing is caught):
                one prefill on the kernel under torch.profiler (device time by
                kernel group, the device's busy share of the window), and the
                float32 decode step (median of 16 warm steps, 4 profiled);
+  6b. families — the MoE and SSM families (a function of its own,
+               families()), with TF32 off for float32 products. Mixtral-8x7B
+               (16 of 32 layers at full width, 46.9 GB in bf16; 1 x 8192
+               tokens, twice its window) and Qwen3-MoE-235B-A22B (8 of 94
+               layers, 42.3 GB; 2 x 4096 tokens): the bf16 make_prefill_step
+               counted (flash_attention_sm90 once per layer, nothing
+               else), each MoE sublayer on its own inputs (loads, drops and
+               aux at the served capacity factor 1.0; moe_ffn at the least
+               drop-free factor against moe_ffn_dense_oracle, 2e-2 element
+               by element and a relative error norm of 1e-2) and each
+               attention on its own views against the plain version, as
+               in phase 6; at 2 layers of full width in float32, the
+               forward on a copy of the config at a drop-free factor
+               (flash_attention once per layer) against token-by-token
+               decode (2e-3), and ServeEngine on 8 prompts at the served
+               factor, each served token the forward's greedy choice. The
+               card's float32 moe_ffn against JAX's outputs
+               (src/repro_torch/assets/moe_expected.npz, inputs redrawn from
+               their RandomState seeds): top_i and keep equal, output within
+               1e-5, aux within 1e-6. Mamba2-780M whole (48 layers): the
+               bf16 prefill of 2 x 4096 tokens launches no kernel;
+               ssd_chunked against ssd_naive_ref on layer 0's own float32
+               inputs (1e-4); the float32 forward against decode at 4
+               layers; ServeEngine on 8 prompts. For each prefill its wall
+               time (median of 3 warm runs) and one run under torch.profiler
+               with moe_ffn, ssd_chunked and the attention launch in
+               record_function ranges: device time by group (attention,
+               expert products, dispatch/combine glue, SSD, other products,
+               other) and the busy share; and the float32 decode step
+               (median of 16);
   7. times   — per kernel at the serving shape: its device time alone (CUDA
                events around 20 back-to-back launches queued behind a spin
                kernel, so no host dispatch falls between them; median of 50
@@ -372,6 +405,10 @@ ATTN_CASES = {
                        "movedim view"),
     "qwen3-8b prefill": (2, 32, 8, 4096, 4096, 128, True, None, 0, None,
                          "movedim view"),
+    "mixtral window": (1, 32, 8, 8192, 8192, 128, True, 4096, 0, None,
+                       "movedim view"),
+    "qwen3-moe heads": (2, 64, 4, 4096, 4096, 128, True, None, 0, None,
+                        "movedim view"),
 }
 #: inputs the tensor-core kernel does not take, which go to the split-TF32
 #: kernel in both types: the sweep at D 16 and D 256, and D 128 q, k and v
@@ -416,6 +453,34 @@ PREFILL_B, PREFILL_S = 2, 4096
 PREFILL_FLOOR_FACTOR = 2.0
 #: the forward against token-by-token decode, float32 (tests/test_models.py)
 DECODE_TOL = 2e-3
+#: phase 6b, the MoE models' bf16 prefill at full width, depth cut to fit one
+#: 80 GB card: arch -> (layers, batch rows, tokens a row). Mixtral's 32
+#: layers take 93.4 GB in bf16, 16 take 46.9 (its 8,192 tokens are twice its
+#: window, so the window masks); Qwen3-MoE's 94 take 470, 8 take 42.3.
+MOE_PREFILL = {"mixtral-8x7b": (16, 1, 8192),
+               "qwen3-moe-235b-a22b": (8, 2, 4096)}
+#: Mamba2-780M, whole (48 layers, 1.6 GB in bf16): prefill batch and tokens
+SSM_ARCH, SSM_PREFILL = "mamba2-780m", (2, 4096)
+#: the float32 forward against token-by-token decode (DECODE_TOL): layers
+#: of full width for each family, on 2 x F32_TOKENS tokens; the MoE models
+#: run it on a copy of their config at a drop-free capacity factor (at S 1
+#: decode drops nothing, the forward at the served factor 1.0 does)
+MOE_F32_LAYERS, SSM_F32_LAYERS, F32_TOKENS = 2, 4, 256
+#: a bf16 MoE sublayer against moe_ffn_dense_oracle on its own inputs at a
+#: drop-free capacity, one batch row at a time: the relative error norm
+#: ||got - want|| / ||want|| of the row's output, and each token's error
+#: norm over the row's mean token norm (a token routed to another expert
+#: reads about 1). Not element by element: moe_ffn rounds each weighted
+#: expert output to bf16 before the sum over k, as JAX's does, and the
+#: oracle sums in float32, so two outputs of 8-16 that cancel differ by a
+#: bf16 step of theirs (0.0625 on an H100 at Mixtral's full width)
+MOE_BF16_REL_TOL, MOE_BF16_TOKEN_TOL = 1e-2, 5e-2
+#: the card's float32 moe_ffn against JAX's (src/repro_torch/assets/
+#: moe_expected.npz): routing exact, output and aux within these
+MOE_ASSET_TOL, MOE_AUX_TOL = 1e-5, 1e-6
+#: ssd_chunked against ssd_naive_ref on a full-width layer's own float32
+#: inputs (JAX's bound, tests/test_models.py::test_ssd_chunked_vs_naive)
+SSD_TOL = 1e-4
 ATTN_TIME_S = (4096, 32768)
 #: samples and back-to-back launches of attention's times at S = 4096, whose
 #: launches take up to milliseconds, not microseconds
@@ -440,19 +505,51 @@ def card_line() -> str:
     return out[0].strip()
 
 
+def is_gemm(kernel: str) -> bool:
+    return any(s in kernel.lower()
+               for s in ("gemm", "gemv", "nvjet", "xmma", "cutlass"))
+
+
 def group_of(kernel: str) -> str:
     if "flash_sm90_kernel" in kernel:
         return "flash_attention_sm90 (csrc/flash_attention_sm90.cu)"
     if "flash_kernel" in kernel:
         return "flash_attention (csrc/flash_attention.cu)"
-    if any(s in kernel.lower() for s in ("gemm", "nvjet", "xmma", "cutlass")):
+    if is_gemm(kernel):
         return "matrix products (cuBLAS)"
     return "other (norms, RoPE, SiLU, casts, embedding, softmax, copies)"
 
 
-def profile(fn) -> dict:
+#: the record_function ranges phase 6b profiles its prefills under; the
+#: profiler also shows each as a device-side span, which is not a kernel
+PROFILE_RANGES = ("moe_ffn", "ssd_chunked", "flash_attention")
+
+
+def family_group(kernel: str, ranges: list[str]) -> str:
+    """The group of a kernel of phase 6b's prefills, from its name and the
+    names of the ops and ``record_function`` ranges it ran under
+    (``moe_ffn``, ``ssd_chunked``)."""
+    if "flash_sm90_kernel" in kernel or "flash_kernel" in kernel:
+        return "attention (flash_attention kernels)"
+    if "ssd_chunked" in ranges:
+        return "SSD (ssd_chunked: products, masks, exps, the recurrence)"
+    if "moe_ffn" in ranges:
+        return ("expert products (and the router's)" if is_gemm(kernel)
+                else "MoE dispatch / combine glue (softmax, sort, cumsum, "
+                     "scatter, gather)")
+    if is_gemm(kernel):
+        return "other matrix products (projections, LM head)"
+    return "other (norms, RoPE, conv, SiLU, casts, embedding)"
+
+
+def profile(fn, grouper=None) -> dict:
     """Device time by kernel over one call of ``fn`` under torch.profiler,
-    and the device's busy share of the window (kernel time over wall)."""
+    and the device's busy share of the window (kernel time over wall).
+    ``grouper(kernel, ranges)`` groups each kernel by its name and the op
+    and range names it ran under (``family_group``); without it, by name
+    alone (``group_of``). ``covered`` is the share of the device time tied
+    to the op that launched it (above 1 if the profiler tied a kernel to
+    two ops)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
@@ -465,19 +562,48 @@ def profile(fn) -> dict:
         wall_ms = 1e3 * (time.perf_counter() - t0)
     kernels = {}
     for ev in prof.key_averages():     # the device's own events only
-        if ev.device_type != DeviceType.CUDA:
+        if ev.device_type != DeviceType.CUDA or ev.key in PROFILE_RANGES:
             continue
         dev_us = getattr(ev, "self_device_time_total",
                          getattr(ev, "self_cuda_time_total", 0))
         if dev_us:
             kernels[ev.key] = kernels.get(ev.key, 0.0) + dev_us / 1e3
     groups: dict[str, float] = {}
-    for name, ms in kernels.items():
-        groups[group_of(name)] = groups.get(group_of(name), 0.0) + ms
+    tied: dict[str, float] = {}        # kernel name -> ms tied to an op
+    if grouper is None:
+        for name, ms in kernels.items():
+            groups[group_of(name)] = groups.get(group_of(name), 0.0) + ms
+    else:
+        # each kernel under the op that launched it (its ``kernels``), an
+        # op counted once by its correlation id; the rest (the kernels'
+        # ctypes launches, under no op) by name alone
+        seen = set()
+        for ev in prof.events():
+            launched = [k for k in getattr(ev, "kernels", ())
+                        if k.name not in PROFILE_RANGES]
+            if ev.device_type != DeviceType.CPU or not launched \
+                    or ev.id in seen:
+                continue
+            seen.add(ev.id)
+            ranges, up = [], ev
+            while up is not None:
+                ranges.append(up.name)
+                up = up.cpu_parent
+            for kern in launched:
+                g = grouper(kern.name, ranges)
+                groups[g] = groups.get(g, 0.0) + kern.duration / 1e3
+                tied[kern.name] = tied.get(kern.name, 0.0) \
+                    + kern.duration / 1e3
+        for name, ms in kernels.items():
+            rest = ms - tied.get(name, 0.0)
+            if rest > 0:
+                g = grouper(name, [])
+                groups[g] = groups.get(g, 0.0) + rest
     busy = sum(kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
     return {"wall_ms": wall_ms, "device_ms": busy,
             "busy_share": busy / wall_ms, "groups_ms": groups,
+            "covered": sum(tied.values()) / busy if busy else 0.0,
             "top_ms": dict(top)}
 
 
@@ -2627,6 +2753,119 @@ def main() -> int:
             samples.append(1e3 * (time.perf_counter() - t0))
         return statistics.median(samples)
 
+    def tokens(vocab, B, S, seed=17):
+        return torch.from_numpy(TokenPipeline(TokenPipelineConfig(
+            vocab=vocab, seq_len=S, global_batch=B, seed=seed))
+            .global_batch_at(0)["tokens"]).to(dev)
+
+    def drawn(cfg, dtype, seed, tag="[families]"):
+        t0 = time.perf_counter()
+        lm = LM(cfg, dtype=dtype, device=dev).init_params(
+            torch.Generator(dev).manual_seed(seed))
+        torch.cuda.synchronize()
+        n = sum(p.numel() for p in lm.parameters())
+        nbytes = sum(p.numel() * p.element_size()
+                     for p in lm.parameters())
+        print(f"{tag} {cfg.name}: {cfg.n_layers} layers of the period "
+              f"{cfg.period}, d_model {cfg.d_model}, vocab {cfg.vocab}: {n} "
+              f"parameters, {nbytes / 1e9:.2f} GB in {dtype} (float32 "
+              f"leaves included), drawn on the card in "
+              f"{time.perf_counter() - t0:.2f} s")
+        return lm
+
+    def forward_vs_decode(lm, kname, n_launch, tag="[families]"):
+        """The float32 forward (counted: ``kname`` ``n_launch`` times,
+        nothing else) against token-by-token prefill, within
+        DECODE_TOL."""
+        cfg = lm.cfg
+        toks = tokens(cfg.vocab, 2, F32_TOKENS, seed=18)
+        reset_launches()
+        full, aux = lm.forward(toks)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        want = {**{n: 0 for n in KERNELS}}
+        if kname:
+            want[kname] = n_launch
+            launches[kname] += counts[kname]
+        check(counts == want, f"{cfg.name} float32 forward launched "
+              f"{counts}, expected {want}")
+        t0 = time.perf_counter()
+        last, cache = lm.prefill(toks, s_max=F32_TOKENS)
+        torch.cuda.synchronize()
+        derr = float((full[:, -1] - last[:, 0]).abs().max())
+        print(f"{tag} {cfg.name} at {cfg.n_layers} layers, float32, "
+              f"2 x {F32_TOKENS} tokens, capacity factor "
+              f"{cfg.capacity_factor}: forward (launches {counts}, aux "
+              f"{float(aux):.6f}) vs prefill ({F32_TOKENS} decode "
+              f"steps, {time.perf_counter() - t0:.2f} s) last logits max "
+              f"|err| {derr:.3g} (tolerance {DECODE_TOL})")
+        check(derr < DECODE_TOL, f"{cfg.name}: decode differs from the "
+              f"forward by {derr}")
+
+    def serve_and_time(lm, served_cfg, check_cfg, tag="[families]"):
+        """ServeEngine on 8 prompts in float32 at the served config; each
+        served token the greedy choice of the forward at ``check_cfg``
+        (the same weights) within DECODE_TOL; then the decode step
+        alone, median of 16."""
+        lm.cfg = served_cfg
+        eng = ServeEngine(lm, max_batch=4, s_max=256, device=dev)
+        rng_p = np.random.RandomState(0)
+        prompts = [rng_p.randint(1, served_cfg.vocab, rng_p.randint(4, 17))
+                   .astype(np.int32) for _ in range(8)]
+        reset_launches()
+        outs = eng.generate(prompts, max_new=16)
+        counts = launch_counts()
+        st = eng.stats()
+        check(all(n == 0 for n in counts.values()), f"decode launched a "
+              f"kernel: {counts}")
+        check(len(outs) == 8 and all(len(o) == 16 for o in outs)
+              and all(0 <= t < served_cfg.vocab for o in outs for t in o),
+              "ServeEngine did not serve 16 tokens to each of 8 prompts")
+        lm.cfg = check_cfg
+        gap = 0.0
+        for i in range(0, 8, 4):
+            chunk, served = prompts[i:i + 4], outs[i:i + 4]
+            S = max(len(p) for p in chunk)
+            seq = np.zeros((len(chunk), S + 16), np.int64)
+            for b, (p, o) in enumerate(zip(chunk, served)):
+                seq[b, S - len(p):S] = p
+                seq[b, S:] = o
+            lg, _ = lm.forward(torch.from_numpy(seq[:, :-1]).to(dev))
+            lg = lg[:, S - 1:].float()
+            got = lg.gather(-1, torch.from_numpy(seq[:, S:]).to(dev)[
+                ..., None])
+            gap = max(gap, float((lg.amax(dim=-1) - got[..., 0]).max()))
+        lm.cfg = served_cfg
+        check(gap <= DECODE_TOL, f"{served_cfg.name}: a served token is "
+              f"{gap} below the forward's greedy choice")
+        print(f"{tag} {served_cfg.name} ServeEngine (float32, "
+              f"{served_cfg.n_layers} layers, capacity factor "
+              f"{served_cfg.capacity_factor}): 8 prompts, max_new 16, "
+              f"max_batch 4: accelerator {st['accelerator_s']:.3f} s, "
+              f"system {st['system_s']:.3f} s, tokens_out "
+              f"{st['tokens_out']}; every served token within {gap:.3g} "
+              f"of the greedy logit of the forward at capacity factor "
+              f"{check_cfg.capacity_factor}; launches {counts} — card: "
+              f"{card}")
+        print(f"{tag} ServeEngine stats: {json.dumps(st, sort_keys=True)}")
+        state = {"cache": lm.init_cache(4, 256)}
+        one = torch.ones((4, 1), dtype=torch.int32, device=dev)
+
+        def decode(steps=1):
+            for _ in range(steps):
+                _, state["cache"] = lm.decode_step(state["cache"], one)
+
+        decode(16)
+        step_ms = wall_ms(decode, runs=16)
+        nbytes = sum(p.numel() * p.element_size() for p in lm.parameters())
+        print(f"{tag} {served_cfg.name} decode step, float32, "
+              f"{served_cfg.n_layers} layers, 4 rows, 256-slot cache: "
+              f"{step_ms:.2f} ms (median of 16); reading the "
+              f"{nbytes / 1e9:.2f} GB of weights once takes "
+              f"{1e3 * nbytes / HBM_BYTES_PER_S:.2f} ms — card: {card}")
+        show_profile(f"{served_cfg.name} 4 decode steps",
+                     profile(lambda: decode(4)), card)
+
     other, walls = {}, {}
     for name, attention in (("kernel", fa.flash_attention),
                             ("plain", fa_ref.flash_attention_ref),
@@ -2667,90 +2906,329 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # the forward against token-by-token prefill: 4 layers, float32
-    cfg4 = dataclasses.replace(cfg, n_layers=4)
-    lm4 = LM(cfg4, dtype=torch.float32, device=dev).init_params(
-        torch.Generator(dev).manual_seed(1))
-    toks4 = torch.from_numpy(TokenPipeline(TokenPipelineConfig(
-        vocab=cfg.vocab, seq_len=256, global_batch=2, seed=18))
-        .global_batch_at(0)["tokens"]).to(dev)
-    reset_launches()
-    full, _ = lm4.forward(toks4)
-    torch.cuda.synchronize()
-    counts = launch_counts()
-    check(counts == {**{n: 0 for n in KERNELS}, "flash_attention": 4},
-          f"the float32 forward at 4 layers launched {counts}, expected "
-          f"flash_attention once per layer")
-    launches["flash_attention"] += counts["flash_attention"]
-    t0 = time.perf_counter()
-    last, cache = lm4.prefill(toks4, s_max=256)
-    torch.cuda.synchronize()
-    derr = float((full[:, -1] - last[:, 0]).abs().max())
-    print(f"[lm] {cfg.name} at 4 layers, float32, 2 x 256 tokens: forward "
-          f"(launches {counts}) vs prefill (256 decode steps, "
-          f"{time.perf_counter() - t0:.2f} s) last logits max |err| "
-          f"{derr:.3g} (tolerance {DECODE_TOL}), cache len {cache['len']}")
-    check(derr < DECODE_TOL, f"decode differs from the forward by {derr}")
-    del lm4, full, last, cache
+    lm4 = drawn(dataclasses.replace(cfg, n_layers=4), torch.float32, seed=1,
+                tag="[lm]")
+    forward_vs_decode(lm4, "flash_attention", 4, tag="[lm]")
+    del lm4
     torch.cuda.empty_cache()
 
-    # serving, float32 as the launcher serves
-    lm32 = LM(cfg, dtype=torch.float32, device=dev).init_params(
-        torch.Generator(dev).manual_seed(0))
-    eng = ServeEngine(lm32, max_batch=4, s_max=256, device=dev)
-    rng_p = np.random.RandomState(0)
-    prompts = [rng_p.randint(1, cfg.vocab, rng_p.randint(4, 17))
-               .astype(np.int32) for _ in range(8)]
-    reset_launches()
-    outs = eng.generate(prompts, max_new=16)
-    counts = launch_counts()
-    st = eng.stats()
-    check(all(n == 0 for n in counts.values()), f"decode launched a kernel "
-          f"(its attention is plain PyTorch, as in JAX): {counts}")
-    check(len(outs) == 8 and all(len(o) == 16 for o in outs)
-          and all(0 <= t < cfg.vocab for o in outs for t in o),
-          "ServeEngine did not serve 16 tokens to each of 8 prompts")
-    # each served token is the forward's greedy choice over the left-padded
-    # prompt and the tokens served before it, within the decode tolerance
-    gap = 0.0
-    for i in range(0, 8, 4):
-        chunk, served = prompts[i:i + 4], outs[i:i + 4]
-        S = max(len(p) for p in chunk)
-        seq = np.zeros((len(chunk), S + 16), np.int64)
-        for b, (p, o) in enumerate(zip(chunk, served)):
-            seq[b, S - len(p):S] = p
-            seq[b, S:] = o
-        lg, _ = lm32.forward(torch.from_numpy(seq[:, :-1]).to(dev))
-        lg = lg[:, S - 1:].float()                 # (B, 16, V)
-        got = lg.gather(-1, torch.from_numpy(seq[:, S:]).to(dev)[..., None])
-        gap = max(gap, float((lg.amax(dim=-1) - got[..., 0]).max()))
-    check(gap <= DECODE_TOL, f"a served token is {gap} below the forward's "
-          f"greedy choice")
-    print(f"[lm] ServeEngine (float32, {cfg.n_layers} layers): 8 prompts of "
-          f"{[len(p) for p in prompts]} tokens, max_new 16, max_batch 4: "
-          f"accelerator {st['accelerator_s']:.3f} s, system "
-          f"{st['system_s']:.3f} s, host overhead {st['host_overhead_s']:.3f}"
-          f" s, tokens_out {st['tokens_out']}; every served token within "
-          f"{gap:.3g} of the forward's greedy logit; launches {counts} — "
-          f"card: {card}")
-    print(f"[lm] ServeEngine stats: {json.dumps(st, sort_keys=True)}")
-    # the decode step alone: 4 rows against a 256-slot cache
-    state = {"cache": lm32.init_cache(4, 256)}
-    one = torch.ones((4, 1), dtype=torch.int32, device=dev)
-
-    def decode(steps=1):
-        for _ in range(steps):
-            _, state["cache"] = lm32.decode_step(state["cache"], one)
-
-    decode(16)
-    step_ms = wall_ms(decode, runs=16)
-    weight_bytes = sum(p.numel() * p.element_size() for p in lm32.parameters())
-    print(f"[lm] decode step, float32, 4 rows, 256-slot cache: {step_ms:.2f} "
-          f"ms (median of 16); reading the {weight_bytes / 1e9:.1f} GB of "
-          f"weights once takes {1e3 * weight_bytes / HBM_BYTES_PER_S:.2f} ms "
-          f"— card: {card}")
-    show_profile("4 decode steps", profile(lambda: decode(4)), card)
-    del lm32, eng, state
+    # serving, float32 as the launcher serves, and the decode step alone
+    lm32 = drawn(cfg, torch.float32, seed=0, tag="[lm]")
+    serve_and_time(lm32, cfg, cfg, tag="[lm]")
+    del lm32
     torch.cuda.empty_cache()
+
+    # ------------------------------------------- 6b MoE and SSM families
+    # Mixtral-8x7B and Qwen3-MoE (bf16 prefill at full width, depth cut to
+    # fit the card) with each attention and MoE sublayer held on its own
+    # inputs, their float32 forward against decode and ServeEngine, the
+    # card's moe_ffn against JAX's, and Mamba2-780M whole (a function of its
+    # own, as 3b)
+    def families() -> None:
+        from repro_torch.models import mamba2, moe
+
+        t_phase = time.perf_counter()
+        check(not torch.backends.cuda.matmul.allow_tf32,
+              "TF32 is on for float32 products: the router's would round")
+
+        def n_attn(cfg):
+            return cfg.n_periods * cfg.period.count("attn")
+
+        def ranged(name, fn):
+            def run(*args, **kw):
+                with torch.profiler.record_function(name):
+                    return fn(*args, **kw)
+            return run
+
+        def timed_profile(what, fn, tokens_n):
+            """Wall time of ``fn`` (median of 3 warm runs) and one run under
+            torch.profiler with moe_ffn and ssd_chunked in ranges of their
+            own, printed by group."""
+            ms = wall_ms(fn)
+            print(f"[families] {what}: {ms:.1f} ms (median of 3 warm runs; "
+                  f"{tokens_n * 1e3 / ms:.0f} tokens/s) — card: {card}")
+            real_moe, real_ssd = moe.moe_ffn, mamba2.ssd_chunked
+            moe.moe_ffn = ranged("moe_ffn", real_moe)
+            mamba2.ssd_chunked = ranged("ssd_chunked", real_ssd)
+            # the kernel's ctypes launch runs under no op: a range of its
+            # own ties it to one
+            layers.flash_attention = ranged("flash_attention",
+                                            fa.flash_attention)
+            try:
+                prof = profile(fn, family_group)
+            finally:
+                moe.moe_ffn, mamba2.ssd_chunked = real_moe, real_ssd
+                layers.flash_attention = fa.flash_attention
+            show_profile(what, prof, card)
+            print(f"[profile] {what}: {prof['covered']:.3f} of the device "
+                  f"time is tied to the op that launched it (the rest, the "
+                  f"attention kernels' ctypes launches among it, is grouped "
+                  f"by kernel name alone)")
+            return ms, prof
+
+        def hold_moe(name, i, x, p, out, cfg):
+            """One MoE sublayer of the counted prefill on its own inputs: its
+            routing at the served factor (loads, drops, aux), the served
+            output recomputed, and moe_ffn at a drop-free factor against
+            moe_ffn_dense_oracle."""
+            E, k = cfg.n_experts, cfg.top_k
+            B, S, _ = x.shape
+            r = moe.route(x, p["router"], n_experts=E, top_k=k,
+                          capacity_factor=cfg.capacity_factor)
+            flat_e = r.top_i.reshape(B, S * k)
+            loads = torch.zeros((B, E), dtype=torch.int64, device=dev)
+            loads.scatter_add_(1, flat_e, torch.ones_like(flat_e))
+            drops = int((~r.keep).sum())
+            again, _ = moe.moe_ffn(x, p, n_experts=E, top_k=k,
+                                   capacity_factor=cfg.capacity_factor)
+            check(torch.equal(again, out), f"{name} MoE sublayer {i}: the "
+                  f"served output is not moe_ffn's on the same inputs")
+            worst = {"err": 0.0, "rel": 0.0, "token": 0.0}
+            for b in range(B):          # a row at a time: the buffers of the
+                xb = x[b:b + 1]         # drop-free factor are large
+                # the least factor whose capacity holds the heaviest expert
+                most = int(loads[b].max())
+                free = most * E / (S * k)
+                while moe.capacity(S, k, E, free) < most:
+                    free *= 1.0 + 1e-6
+                check(bool(moe.route(xb, p["router"], n_experts=E, top_k=k,
+                                     capacity_factor=free).keep.all()),
+                      f"{name} MoE sublayer {i}: factor {free} still drops")
+                got, _ = moe.moe_ffn(xb, p, n_experts=E, top_k=k,
+                                     capacity_factor=free)
+                want = moe.moe_ffn_dense_oracle(xb, p, n_experts=E,
+                                                top_k=k).float()
+                diff = got.float() - want
+                norms = want.norm(dim=-1)
+                worst["err"] = max(worst["err"], float(diff.abs().max()))
+                worst["rel"] = max(worst["rel"],
+                                   float(diff.norm() / want.norm()))
+                worst["token"] = max(worst["token"], float(
+                    diff.norm(dim=-1).max() / norms.mean()))
+                del got, want, diff
+            check(worst["rel"] <= MOE_BF16_REL_TOL
+                  and worst["token"] <= MOE_BF16_TOKEN_TOL,
+                  f"{name} MoE sublayer {i} differs from the dense oracle: "
+                  f"relative error norm {worst['rel']:.3g} (limit "
+                  f"{MOE_BF16_REL_TOL}), a token's error norm "
+                  f"{worst['token']:.3g} of the mean (limit "
+                  f"{MOE_BF16_TOKEN_TOL})")
+            total = loads.sum(0)
+            print(f"[families] {name} MoE sublayer {i}: expert loads (both "
+                  f"rows) min {int(total.min())} max {int(total.max())} of "
+                  f"capacity {r.capacity} a row, {drops} of {B * S * k} "
+                  f"assignments dropped at factor {cfg.capacity_factor}, aux "
+                  f"{float(r.aux):.6f}; at the least drop-free factor of "
+                  f"each row (last {free:.4f}, capacity "
+                  f"{moe.capacity(S, k, E, free)}) against the dense "
+                  f"oracle: relative error norm {worst['rel']:.3g}, a "
+                  f"token's error norm at most {worst['token']:.3g} of the "
+                  f"mean, max |err| {worst['err']:.3g}")
+            return drops
+
+        # 1. the MoE models: bf16 prefill, counted, every sublayer held
+        for arch, (n_layers, B, S) in MOE_PREFILL.items():
+            cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
+            lm = drawn(cfg, torch.bfloat16, seed=0)
+            toks = tokens(cfg.vocab, B, S)
+            prefill = make_prefill_step(lm)
+            seen_attn, seen_moe = [], []
+
+            def rec_attn(q, k, v, **kw):
+                out = fa.flash_attention(q, k, v, **kw)
+                seen_attn.append((q, k, v, kw, out))
+                return out
+
+            real_moe = moe.moe_ffn
+
+            def rec_moe(x, p, **kw):
+                out, aux = real_moe(x, p, **kw)
+                seen_moe.append((x, p, out))
+                return out, aux
+
+            layers.flash_attention, moe.moe_ffn = rec_attn, rec_moe
+            reset_launches()
+            try:
+                t0 = time.perf_counter()
+                logits = prefill(toks)
+                torch.cuda.synchronize()
+                first_s = time.perf_counter() - t0
+                counts = launch_counts()
+            finally:
+                layers.flash_attention, moe.moe_ffn = fa.flash_attention, \
+                    real_moe
+            want = {**{n: 0 for n in KERNELS},
+                    "flash_attention_sm90": n_attn(cfg)}
+            check(counts == want, f"{arch} prefill launched {counts}, "
+                  f"expected flash_attention_sm90 once per layer and nothing "
+                  f"else")
+            launches["flash_attention_sm90"] += counts["flash_attention_sm90"]
+            check(logits.shape == (B, S, cfg.vocab)
+                  and bool(torch.isfinite(logits).all()),
+                  f"{arch} prefill logits are not finite or not (B, S, V)")
+            print(f"[families] {arch} make_prefill_step on {B} x {S} tokens: "
+                  f"{first_s:.3f} s (first call); launches {counts} — card: "
+                  f"{card}")
+            del logits
+            check(len(seen_moe) == n_layers and len(seen_attn) == n_layers,
+                  f"{arch}: not one attention and one MoE call per layer")
+            drops = sum(hold_moe(arch, i, x, p, out, cfg)
+                        for i, (x, p, out) in enumerate(seen_moe))
+            print(f"[families] {arch}: {drops} assignments dropped over "
+                  f"{n_layers} MoE sublayers at the served capacity factor "
+                  f"{cfg.capacity_factor}")
+            del seen_moe
+            timed_profile(f"{arch} bf16 prefill ({n_layers} layers, {B} x "
+                          f"{S} tokens)", lambda: prefill(toks), B * S)
+            del lm, prefill
+            torch.cuda.empty_cache()
+            layer_rel = [0.0, float("inf")]
+            for i, (q, k, v, kw, got) in enumerate(seen_attn):
+                readings = hold_attention("flash_attention_sm90",
+                                          f"{arch} prefill layer {i}",
+                                          "bfloat16", q, k, v, kw, got,
+                                          layer_rel)
+                print(f"[families] {arch} prefill layer {i} attention "
+                      f"against the plain version on its own inputs: "
+                      f"{readings}")
+            q0, k0 = seen_attn[0][:2]
+            print(f"[families] {arch} prefill attention, all {n_layers} "
+                  f"layers: q {tuple(q0.shape)} strides {q0.stride()}, k "
+                  f"{tuple(k0.shape)}, {seen_attn[0][3]}: largest q tile "
+                  f"relative error norm {layer_rel[0]:.3g}, smallest planted "
+                  f"fault {layer_rel[1]:.3g}, limit "
+                  f"{ATTN_REL_TOL['bfloat16']}")
+            del seen_attn, q0, k0
+            torch.cuda.empty_cache()
+
+            # 2. float32 at MOE_F32_LAYERS layers: the forward (8b once an
+            # attention sublayer) against decode at a drop-free factor, then
+            # ServeEngine at the served factor
+            served = dataclasses.replace(cfg, n_layers=MOE_F32_LAYERS)
+            free = dataclasses.replace(
+                served, capacity_factor=served.n_experts / served.top_k)
+            lm32 = drawn(free, torch.float32, seed=1)
+            forward_vs_decode(lm32, "flash_attention", n_attn(free))
+            serve_and_time(lm32, served, free)
+            del lm32
+            torch.cuda.empty_cache()
+
+        # 3. the card's moe_ffn in float32 against JAX's outputs
+        with np.load(os.path.join(ASSETS, "moe_expected.npz")) as z:
+            expected = {name: z[name] for name in z.files}
+        for case in sorted({n.rsplit("_", 1)[0] for n in expected
+                            if n.endswith("_meta")}):
+            meta = json.loads(str(expected[f"{case}_meta"]))
+            rng = np.random.RandomState(meta["seed"])   # the exporter's draw
+            d, E, f, k = meta["d"], meta["E"], meta["f"], meta["k"]
+            x = rng.randn(meta["B"], meta["S"], d).astype(np.float32)
+            p = {"router": (rng.randn(d, E) * meta["router_scale"]).astype(
+                np.float32)}
+            for name, shape in (("w_gate", (E, d, f)), ("w_up", (E, d, f)),
+                                ("w_down", (E, f, d))):
+                p[name] = (rng.randn(*shape) / np.sqrt(shape[1])).astype(
+                    np.float32)
+            xt = torch.from_numpy(x).to(dev)
+            pt = {n: torch.from_numpy(w).to(dev) for n, w in p.items()}
+            cf = meta["capacity_factor"]
+            got, aux = moe.moe_ffn(xt, pt, n_experts=E, top_k=k,
+                                   capacity_factor=cf)
+            r = moe.route(xt, pt["router"], n_experts=E, top_k=k,
+                          capacity_factor=cf)
+            want = expected[f"{case}_out"]
+            err = float(np.abs(got.cpu().numpy() - want).max())
+            aux_err = abs(float(aux) - float(expected[f"{case}_aux"]))
+            # how far each float32 result lies from the same function in
+            # float64 on the card (the two packages' roundings add)
+            y64, _ = moe.moe_ffn(xt.double(), {n: w.double() for n, w in
+                                               pt.items()},
+                                 n_experts=E, top_k=k, capacity_factor=cf)
+            y64 = y64.cpu().numpy()
+            same_i = np.array_equal(r.top_i.cpu().numpy(),
+                                    expected[f"{case}_top_i"])
+            same_keep = np.array_equal(r.keep.cpu().numpy(),
+                                       expected[f"{case}_keep"])
+            print(f"[families] moe_ffn {case} (B {meta['B']}, S {meta['S']}, "
+                  f"d {d}, E {E}, top-{k}, f {f}, factor {cf}) float32 on the "
+                  f"card against JAX's (moe_expected.npz): top_i equal "
+                  f"{same_i}, keep equal {same_keep} "
+                  f"({int((~r.keep).sum())} dropped), output max |err| "
+                  f"{err:.3g} (tolerance {MOE_ASSET_TOL}), aux |err| "
+                  f"{aux_err:.3g} (tolerance {MOE_AUX_TOL}); from moe_ffn in "
+                  f"float64 on the card: the card's float32 "
+                  f"{float(np.abs(got.cpu().numpy() - y64).max()):.3g}, "
+                  f"JAX's {float(np.abs(want - y64).max()):.3g}")
+            check(same_i and same_keep, f"moe {case}: the card's routing "
+                  f"differs from JAX's")
+            check(err <= MOE_ASSET_TOL and aux_err <= MOE_AUX_TOL,
+                  f"moe {case}: output {err:.3g} / aux {aux_err:.3g} from "
+                  f"JAX's")
+
+        # 4. Mamba2-780M, whole: bf16 prefill (no kernel), ssd_chunked
+        # against the naive recurrence on a layer's own inputs, float32
+        # forward against decode, ServeEngine
+        cfg = get_config(SSM_ARCH)
+        B, S = SSM_PREFILL
+        lm = drawn(cfg, torch.bfloat16, seed=0)
+        toks = tokens(cfg.vocab, B, S)
+        prefill = make_prefill_step(lm)
+        real_ssd, ssd_in = mamba2.ssd_chunked, []
+
+        def rec_ssd(x, a, B_, C_, chunk, constrain=None, init_state=None):
+            if not ssd_in:                      # the first layer's inputs
+                ssd_in.append((x, a, B_, C_, chunk))
+            return real_ssd(x, a, B_, C_, chunk, constrain, init_state)
+
+        mamba2.ssd_chunked = rec_ssd
+        reset_launches()
+        try:
+            t0 = time.perf_counter()
+            logits = prefill(toks)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            counts = launch_counts()
+        finally:
+            mamba2.ssd_chunked = real_ssd
+        check(all(n == 0 for n in counts.values()), f"{cfg.name} prefill "
+              f"launched a kernel (it has no attention): {counts}")
+        check(logits.shape == (B, S, cfg.vocab)
+              and bool(torch.isfinite(logits).all()),
+              f"{cfg.name} prefill logits are not finite or not (B, S, V)")
+        print(f"[families] {cfg.name} make_prefill_step on {B} x {S} tokens: "
+              f"{first_s:.3f} s (first call); launches {counts} — card: "
+              f"{card}")
+        del logits
+        x, a, B_, C_, chunk = ssd_in.pop()
+        y, _ = real_ssd(x, a, B_, C_, chunk)
+        t0 = time.perf_counter()
+        naive = mamba2.ssd_naive_ref(x, a, B_, C_)
+        torch.cuda.synchronize()
+        err = float((y - naive).abs().max())
+        print(f"[families] {cfg.name} layer 0 ssd_chunked (chunk {chunk}) "
+              f"against ssd_naive_ref ({S} steps, "
+              f"{time.perf_counter() - t0:.2f} s) on its own inputs x "
+              f"{tuple(x.shape)} {x.dtype}, B_ {tuple(B_.shape)} {B_.dtype}: "
+              f"max |err| {err:.3g} (tolerance {SSD_TOL}), max |y| "
+              f"{float(y.abs().max()):.3g}")
+        check(err <= SSD_TOL, f"ssd_chunked differs from ssd_naive_ref by "
+              f"{err}")
+        del x, a, B_, C_, y, naive
+        timed_profile(f"{cfg.name} bf16 prefill ({cfg.n_layers} layers, {B} "
+                      f"x {S} tokens)", lambda: prefill(toks), B * S)
+        del lm, prefill
+        torch.cuda.empty_cache()
+        lm4 = drawn(dataclasses.replace(cfg, n_layers=SSM_F32_LAYERS),
+                    torch.float32, seed=1)
+        forward_vs_decode(lm4, None, 0)
+        del lm4
+        lm32 = drawn(cfg, torch.float32, seed=0)
+        serve_and_time(lm32, cfg, cfg)
+        del lm32
+        torch.cuda.empty_cache()
+        print(f"[families] phase wall {time.perf_counter() - t_phase:.3f} s "
+              f"— card: {card}")
+
+    families()
 
     # --------------------------------------------------------------- 7 times
     images = xte[:SERVE_BATCH]

@@ -59,7 +59,15 @@ so the JAX side's artifact and outputs are exported once, here, into
     built from each case (MNIST with the first 64 test images as its pool,
     each fuzz case with its own images): ``canary_{case}_images``,
     ``_want``, ``_covered``. ``--only-faults`` writes this file alone, from
-    the committed artifacts.
+    the committed artifacts;
+  * ``moe_expected.npz`` — the JAX package's ``moe_ffn`` on the inputs of
+    ``MOE_CASES`` (a Mixtral-like and a Qwen3-MoE-like layer at capacity
+    factor 1.0, so that assignments drop): for each case, ``{case}_meta``
+    (the JSON recipe ``draw_moe_case`` draws x and the weights from, with
+    its ``numpy.random.RandomState`` seed; the inputs are not stored),
+    ``{case}_out`` (float32), ``{case}_aux``, ``{case}_top_i`` and
+    ``{case}_keep`` (the routing ``jax_routing`` reads off JAX's own
+    functions). ``--only-moe`` writes this file alone.
 
 Run from the repo root (the CPU is enough):
 
@@ -70,6 +78,8 @@ Run from the repo root (the CPU is enough):
         --only-transport
     PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/export_torch_fixture.py \
         --only-faults
+    PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/export_torch_fixture.py \
+        --only-moe
 """
 
 from __future__ import annotations
@@ -96,6 +106,7 @@ from repro.core.program_io import serialize_program
 from repro.core.reference import SNNReference
 from repro.data import mnist
 from repro.faults import Canary, FaultPlan, corrupt_artifact, integrity_errors
+from repro.models import moe as jmoe
 from repro.serving.snn_engine import SNNServeEngine
 from repro.training.ttfs_trainer import train_dense_proxy
 
@@ -395,6 +406,81 @@ def export_faults(out_dir: str) -> None:
           f"arrays, {os.path.getsize(path)} bytes")
 
 
+#: the MoE layers of moe_expected.npz: width, experts, top-k, expert width,
+#: batch, sequence, capacity factor (1.0: the loads are uneven and
+#: assignments drop), the router's scale and the RandomState seed. The
+#: scale gives the logits of the full-width models' routers (0.02 at d 4096,
+#: std 1.3): at 0.5 (std 8, |logit| up to 30) one float32 step of a logit
+#: moves the renormalised weights by 3e-6 and the outputs by 1e-5 between
+#: two correct float32 products (the routing itself does not depend on the
+#: scale)
+MOE_CASES = {
+    "mixtral": dict(d=256, E=8, k=2, f=512, B=2, S=128, capacity_factor=1.0,
+                    router_scale=0.08, seed=23),
+    "qwen3_moe": dict(d=256, E=32, k=8, f=128, B=2, S=128,
+                      capacity_factor=1.0, router_scale=0.08, seed=24),
+}
+
+
+def draw_moe_case(meta: dict) -> tuple[np.ndarray, dict]:
+    """x (B, S, d) and the MoE weights of a ``MOE_CASES`` recipe, float32,
+    drawn from ``RandomState(seed)`` in this order: x, router, w_gate, w_up,
+    w_down (``chip_smoke.py`` draws them the same way)."""
+    rng = np.random.RandomState(meta["seed"])
+    d, E, f = meta["d"], meta["E"], meta["f"]
+    x = rng.randn(meta["B"], meta["S"], d).astype(np.float32)
+    p = {"router": (rng.randn(d, E) * meta["router_scale"]).astype(np.float32)}
+    for name, shape in (("w_gate", (E, d, f)), ("w_up", (E, d, f)),
+                        ("w_down", (E, f, d))):
+        p[name] = (rng.randn(*shape) / np.sqrt(shape[1])).astype(np.float32)
+    return x, p
+
+
+def jax_routing(x, router, *, n_experts: int, top_k: int,
+                capacity_factor: float) -> tuple[np.ndarray, np.ndarray]:
+    """(top_i (B, S, k), keep (B, S*k)) as ``repro.models.moe.moe_ffn``
+    computes them, line for line in JAX (moe_ffn returns neither)."""
+    import jax
+    import jax.numpy as jnp
+    B, S, _ = x.shape
+    C = jmoe.capacity(S, top_k, n_experts, capacity_factor)
+    logits = jnp.asarray(x, jnp.float32) @ jnp.asarray(router, jnp.float32)
+    probs = jax.nn.softmax(logits, axis=-1)
+    _, top_i = jax.lax.top_k(probs, top_k)
+    flat_e = top_i.reshape(B, S * top_k)
+    onehot = jax.nn.one_hot(flat_e, n_experts, dtype=jnp.int32)
+    pos = jnp.sum((jnp.cumsum(onehot, axis=1) - 1) * onehot, axis=-1)
+    return np.asarray(top_i), np.asarray(pos < C)
+
+
+def moe_expected() -> dict:
+    out = {}
+    for case, meta in MOE_CASES.items():
+        x, p = draw_moe_case(meta)
+        kw = dict(n_experts=meta["E"], top_k=meta["k"])
+        y, aux = jmoe.moe_ffn(x, p, capacity_factor=meta["capacity_factor"],
+                              **kw)
+        top_i, keep = jax_routing(x, p["router"],
+                                  capacity_factor=meta["capacity_factor"],
+                                  **kw)
+        assert not keep.all(), f"{case}: no assignment drops"
+        out[f"{case}_meta"] = np.array(json.dumps(meta, sort_keys=True))
+        out[f"{case}_out"] = np.asarray(y, np.float32)
+        out[f"{case}_aux"] = np.float32(aux)
+        out[f"{case}_top_i"] = top_i.astype(np.int16)
+        out[f"{case}_keep"] = keep
+    return out
+
+
+def export_moe(out_dir: str) -> None:
+    t0 = time.perf_counter()
+    out = moe_expected()
+    path = os.path.join(out_dir, "moe_expected.npz")
+    np.savez_compressed(path, **out)
+    print(f"wrote {path} in {time.perf_counter() - t0:.1f}s: {len(out)} "
+          f"arrays, {os.path.getsize(path)} bytes")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=ASSETS)
@@ -409,6 +495,8 @@ def main(argv=None) -> int:
     ap.add_argument("--only-faults", action="store_true",
                     help="only write faults_expected.npz, from the "
                          "committed artifacts")
+    ap.add_argument("--only-moe", action="store_true",
+                    help="only write moe_expected.npz")
     a = ap.parse_args(argv)
     os.makedirs(a.out, exist_ok=True)
     if a.only_board:
@@ -420,12 +508,16 @@ def main(argv=None) -> int:
     if a.only_faults:
         export_faults(a.out)
         return 0
+    if a.only_moe:
+        export_moe(a.out)
+        return 0
     export_fuzz(a.out)
     if not a.skip_mnist:
         export_mnist(a.out)
     export_board(a.out)
     export_transport(a.out)
     export_faults(a.out)
+    export_moe(a.out)
     return 0
 
 

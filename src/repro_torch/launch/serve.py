@@ -4,6 +4,8 @@ SNN classifier, with its leader/follower program distribution).
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --reduced \\
         --requests 16 --max-new 12 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \\
+        --reduced --device cpu      # also mamba2-780m, jamba-1.5-large-398b
 
 LM parameters are drawn in float32 from a seeded generator, as the JAX
 launcher draws them (``repro.launch.serve``); the prompts are JAX's, from

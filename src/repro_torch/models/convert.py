@@ -1,12 +1,16 @@
 """Carry a JAX ``LM``'s parameters across into the port's ``LM``.
 
 JAX keeps a parameter tree: ``embed``, ``final_norm`` (``final_norm_b``),
-``lm_head`` at the top, and the layers stacked over ``n_periods`` under
-``blocks["0:attn"][name]``, each leaf of shape (n_layers, ...). Slice i of
-each stacked leaf becomes ``lm.layers[i][name]``. Matrices keep JAX's
-``x @ w`` orientation, (in, out), which is the port's too, so nothing is
-transposed. The tree arrives as numpy arrays (``jax.device_get`` or
-``np.asarray`` on each leaf): the port imports nothing of JAX.
+``lm_head`` at the top, and the sublayers of one period stacked over
+``n_periods`` under ``blocks["{i}:{kind}"][name]``, each leaf of shape
+(n_periods, ...). Slice p of each stacked leaf becomes
+``lm.layers[p]["{i}:{kind}"][name]``. Matrices keep JAX's ``x @ w``
+orientation, (in, out), which is the port's too, so nothing is transposed.
+Each leaf keeps its own dtype: a bf16 tree's router, ``A_log``, ``D`` and
+``dt_bias`` are float32 in both packages, and a leaf whose dtype differs
+from the port's is refused, never cast. The tree arrives as numpy arrays
+(``jax.device_get`` or ``np.asarray`` on each leaf): the port imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -21,20 +25,22 @@ from repro_torch.models.model import LM
 def lm_from_jax(cfg: ArchConfig, params: dict, *,
                 device: str | torch.device = "cuda") -> LM:
     """JAX ``LM.init_params`` tree of numpy arrays -> the port's ``LM`` on
-    ``device``, in the tree's dtype (float32 or bfloat16). Raises on a
-    missing, extra or misshapen parameter."""
+    ``device``, in the tree's dtype (float32 or bfloat16; the embedding's).
+    Raises on a missing, extra, misshapen or differently typed
+    parameter."""
     lm = LM(cfg, dtype=_torch_dtype(np.asarray(params["embed"]).dtype),
             device=device)
     blocks = params["blocks"]
-    if set(blocks) != {"0:attn"}:
-        raise ValueError(f"expected one dense period '0:attn'; got "
+    keys = {f"{i}:{kind}" for i, kind in enumerate(cfg.period)}
+    if set(blocks) != keys:
+        raise ValueError(f"expected the period {sorted(keys)}; got "
                          f"{sorted(blocks)}")
-    stacked = blocks["0:attn"]
     top = {k: v for k, v in params.items() if k != "blocks"}
     _load(lm.top, top, "params")
-    for i, layer in enumerate(lm.layers):
-        _load(layer, {k: np.asarray(v)[i] for k, v in stacked.items()},
-              f"blocks['0:attn'][{i}]")
+    for n, i, kind, sub in lm.sublayers():
+        key = f"{i}:{kind}"
+        _load(sub, {k: np.asarray(v)[n] for k, v in blocks[key].items()},
+              f"blocks[{key!r}][{n}]")
     return lm
 
 
@@ -57,6 +63,9 @@ def _load(dest, src: dict, where: str) -> None:
         if tuple(arr.shape) != tuple(w.shape):
             raise ValueError(f"{where}[{name!r}]: shape {arr.shape}, the port "
                              f"expects {tuple(w.shape)}")
+        if _torch_dtype(arr.dtype) != w.dtype:
+            raise TypeError(f"{where}[{name!r}]: dtype {arr.dtype}, the port "
+                            f"holds {w.dtype}")
         if arr.dtype.name == "bfloat16":
             # numpy has no bfloat16: move its bits, then reinterpret
             t = torch.from_numpy(np.array(arr).view(np.int16))

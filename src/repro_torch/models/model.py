@@ -1,19 +1,28 @@
-"""The LM zoo's model, dense family: one forward / prefill / decode.
+"""The LM zoo's model: one forward / prefill / decode over every family the
+port runs.
 
-The port of ``repro.models.model.LM`` for the configurations whose period is
-one attention sublayer with a dense FFN (Qwen3, Qwen2.5, Yi, Mistral-Nemo).
-``LM`` is an ``nn.Module`` holding its parameters under JAX's names, one
-``nn.ParameterDict`` per layer (JAX stacks them over ``n_periods`` under
-``blocks["0:attn"]``); weight matrices keep JAX's ``x @ w`` orientation,
-(in, out), so a JAX parameter tree loads without a transpose
-(``models/convert.py``). What JAX's ``constrain`` callbacks, ``remat`` and
-``attn_gqa_mode`` steer (sharding and memory under XLA) has no counterpart
-here and changes no result.
+The port of ``repro.models.model.LM``. A model is ``cfg.n_periods`` periods
+of the sublayers of ``cfg.period`` (dense and MoE: one ``"attn"``; Mamba2:
+one ``"mamba"``; Jamba: one attention and seven mamba sublayers). Each
+sublayer holds attention or mamba parameters, plus a MoE FFN where
+``cfg.is_moe_layer(i)``, else the dense FFN where ``d_ff`` is set. ``LM``
+is an ``nn.Module`` holding them under JAX's names: ``layers[p]`` is period
+p, an ``nn.ModuleDict`` of one ``nn.ParameterDict`` per sublayer, keyed
+``"{i}:{kind}"`` as JAX's ``blocks`` are (JAX stacks them over
+``n_periods``). Weight matrices keep JAX's ``x @ w`` orientation, (in, out),
+so a JAX parameter tree loads without a transpose (``models/convert.py``).
+The router, ``A_log``, ``D`` and ``dt_bias`` are float32 whatever the
+model's dtype, as JAX draws them. What JAX's ``constrain`` callbacks,
+``remat``, ``attn_gqa_mode`` and ``moe_buf_mode`` steer (sharding and memory
+under XLA) has no counterpart here and changes no result.
 
 Full-sequence attention (``forward``) runs the flash-attention kernel once
-per layer on the card. Decode (``decode_step``) attends with plain PyTorch
-against a KV cache that it updates in place, as JAX computes it with jnp.
-The other families raise ``NotImplementedError`` naming their ROADMAP item.
+per attention sublayer on the card. Decode (``decode_step``) attends with
+plain PyTorch against a KV cache that it updates in place, as JAX computes
+it with jnp; the MoE FFN and the SSD mixer are plain PyTorch products
+(``models/moe.py``, ``models/mamba2.py``), as JAX leaves them to XLA. The
+audio and vision families raise ``NotImplementedError`` naming their
+ROADMAP item.
 
     lm = LM(get_config("qwen3-8b"))                # bf16 on the card
     lm.init_params(torch.Generator("cuda").manual_seed(0))
@@ -22,74 +31,124 @@ The other families raise ``NotImplementedError`` naming their ROADMAP item.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 from torch import nn
 
 from repro_torch.core.lowering import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import mamba2, moe
 from repro_torch.models.config import ArchConfig
 
 #: the ROADMAP §1 item that ports each family the port does not run yet
 _WAITING = {
-    "moe": "item 6 (MoE, models/moe.py)",
-    "ssm": "item 7 (Mamba2/SSD, models/mamba2.py)",
-    "hybrid": "items 6 and 7 (MoE and Mamba2/SSD: Jamba)",
     "audio": "item 8 (Whisper)",
     "vlm": "item 9 (InternVL)",
 }
 
 
-def check_dense(cfg: ArchConfig) -> None:
-    """Raise unless the port runs ``cfg``: the dense family (one attention
-    sublayer per period, a dense FFN, no encoder and no frontend)."""
-    if cfg.family != "dense" or cfg.period != ("attn",) or cfg.n_experts \
-            or cfg.enc_layers or cfg.frontend:
+def check_supported(cfg: ArchConfig) -> None:
+    """Raise unless the port runs ``cfg``: every family but the audio
+    encoder-decoder and the vision frontend."""
+    if cfg.enc_layers or cfg.frontend or cfg.family in _WAITING:
         item = _WAITING.get(cfg.family, "§1")
         raise NotImplementedError(
-            f"{cfg.name}: the port runs the dense LM family only; the "
-            f"{cfg.family} family waits for ROADMAP §1 {item}")
+            f"{cfg.name}: the port does not run the {cfg.family} LM family "
+            f"yet; it waits for ROADMAP §1 {item}")
 
 
-def _layer_shapes(cfg: ArchConfig) -> dict[str, tuple[tuple[int, ...], str]]:
-    """name -> (shape, how JAX initialises it: "normal", "ones", "zeros")."""
+class Leaf(NamedTuple):
+    """A parameter's shape, how JAX initialises it (``"normal"`` times
+    ``scale``, ``"ones"``, ``"zeros"`` or ``"a_log"``, log(linspace(1, 16,
+    H))), and whether it stays float32 in a model of another dtype."""
+    shape: tuple[int, ...]
+    init: str
+    scale: float = 0.02
+    float32: bool = False
+
+
+def _attn_shapes(cfg: ArchConfig) -> dict[str, Leaf]:
     d, hq, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    p = {"ln": ((d,), "ones"),
-         "wq": ((d, hq * dh), "normal"),
-         "wk": ((d, hkv * dh), "normal"),
-         "wv": ((d, hkv * dh), "normal"),
-         "wo": ((hq * dh, d), "normal")}
+    p = {"ln": Leaf((d,), "ones"),
+         "wq": Leaf((d, hq * dh), "normal"),
+         "wk": Leaf((d, hkv * dh), "normal"),
+         "wv": Leaf((d, hkv * dh), "normal"),
+         "wo": Leaf((hq * dh, d), "normal")}
     if cfg.norm == "layernorm":
-        p["ln_b"] = ((d,), "zeros")
+        p["ln_b"] = Leaf((d,), "zeros")
     if cfg.qkv_bias:
-        p["bq"] = ((hq * dh,), "zeros")
-        p["bk"] = ((hkv * dh,), "zeros")
-        p["bv"] = ((hkv * dh,), "zeros")
+        p["bq"] = Leaf((hq * dh,), "zeros")
+        p["bk"] = Leaf((hkv * dh,), "zeros")
+        p["bv"] = Leaf((hkv * dh,), "zeros")
     if cfg.qk_norm:
-        p["q_norm"] = ((dh,), "ones")
-        p["k_norm"] = ((dh,), "ones")
-    if cfg.d_ff and cfg.act == "gelu":
-        p.update({"ln2": ((d,), "ones"),
-                  "w_in": ((d, cfg.d_ff), "normal"),
-                  "b_in": ((cfg.d_ff,), "zeros"),
-                  "w_out": ((cfg.d_ff, d), "normal"),
-                  "b_out": ((d,), "zeros")})
-        if cfg.norm == "layernorm":
-            p["ln2_b"] = ((d,), "zeros")
-    elif cfg.d_ff:
-        p.update({"ln2": ((d,), "ones"),
-                  "w_gate": ((d, cfg.d_ff), "normal"),
-                  "w_up": ((d, cfg.d_ff), "normal"),
-                  "w_down": ((cfg.d_ff, d), "normal")})
+        p["q_norm"] = Leaf((dh,), "ones")
+        p["k_norm"] = Leaf((dh,), "ones")
     return p
 
 
-def _top_shapes(cfg: ArchConfig) -> dict[str, tuple[tuple[int, ...], str]]:
-    p = {"embed": ((cfg.vocab, cfg.d_model), "normal"),
-         "final_norm": ((cfg.d_model,), "ones")}
+def _mamba_shapes(cfg: ArchConfig) -> dict[str, Leaf]:
+    d, d_in = cfg.d_model, cfg.d_inner
+    H, N, G, K = cfg.ssm_heads, cfg.ssm_d_state, cfg.ssm_n_groups, \
+        cfg.ssm_conv
+    conv_ch = d_in + 2 * G * N
+    return {"ln": Leaf((d,), "ones"),
+            "in_proj": Leaf((d, 2 * d_in + 2 * G * N + H), "normal"),
+            "conv_w": Leaf((K, conv_ch), "normal", scale=0.1),
+            "conv_b": Leaf((conv_ch,), "zeros"),
+            "A_log": Leaf((H,), "a_log", float32=True),
+            "D": Leaf((H,), "ones", float32=True),
+            "dt_bias": Leaf((H,), "zeros", float32=True),
+            "norm": Leaf((d_in,), "ones"),
+            "out_proj": Leaf((d_in, d), "normal")}
+
+
+def _ffn_shapes(cfg: ArchConfig, idx_in_period: int) -> dict[str, Leaf]:
+    d = cfg.d_model
+    if cfg.is_moe_layer(idx_in_period):
+        E, f = cfg.n_experts, cfg.d_ff_expert
+        return {"ln2": Leaf((d,), "ones"),
+                "router": Leaf((d, E), "normal", float32=True),
+                "w_gate": Leaf((E, d, f), "normal"),
+                "w_up": Leaf((E, d, f), "normal"),
+                "w_down": Leaf((E, f, d), "normal")}
+    if not cfg.d_ff:
+        return {}
+    if cfg.act == "gelu":
+        p = {"ln2": Leaf((d,), "ones"),
+             "w_in": Leaf((d, cfg.d_ff), "normal"),
+             "b_in": Leaf((cfg.d_ff,), "zeros"),
+             "w_out": Leaf((cfg.d_ff, d), "normal"),
+             "b_out": Leaf((d,), "zeros")}
+        if cfg.norm == "layernorm":
+            p["ln2_b"] = Leaf((d,), "zeros")
+        return p
+    return {"ln2": Leaf((d,), "ones"),
+            "w_gate": Leaf((d, cfg.d_ff), "normal"),
+            "w_up": Leaf((d, cfg.d_ff), "normal"),
+            "w_down": Leaf((cfg.d_ff, d), "normal")}
+
+
+def _sublayer_shapes(cfg: ArchConfig, i: int, kind: str) -> dict[str, Leaf]:
+    """Sublayer ``i`` of the period, of ``kind``, as JAX's
+    ``_period_params`` builds it."""
+    if kind == "attn":
+        p = _attn_shapes(cfg)
+    elif kind == "mamba":
+        p = _mamba_shapes(cfg)
+    else:
+        raise ValueError(kind)
+    p.update(_ffn_shapes(cfg, i))
+    return p
+
+
+def _top_shapes(cfg: ArchConfig) -> dict[str, Leaf]:
+    p = {"embed": Leaf((cfg.vocab, cfg.d_model), "normal"),
+         "final_norm": Leaf((cfg.d_model,), "ones")}
     if cfg.norm == "layernorm":
-        p["final_norm_b"] = ((cfg.d_model,), "zeros")
+        p["final_norm_b"] = Leaf((cfg.d_model,), "zeros")
     if not cfg.tie_embeddings:
-        p["lm_head"] = ((cfg.d_model, cfg.vocab), "normal")
+        p["lm_head"] = Leaf((cfg.d_model, cfg.vocab), "normal")
     return p
 
 
@@ -97,21 +156,26 @@ class LM(nn.Module):
     def __init__(self, cfg: ArchConfig, *, dtype: torch.dtype = torch.bfloat16,
                  device: str | torch.device = "cuda"):
         """Allocates the parameters (uninitialised) on ``device`` in
-        ``dtype``; ``init_params`` draws them, ``convert`` loads JAX's."""
+        ``dtype`` (the float32 leaves in float32); ``init_params`` draws
+        them, ``convert`` loads JAX's."""
         super().__init__()
-        check_dense(cfg)
+        check_supported(cfg)
         dev = resolve_device(device)
         self.cfg = cfg
 
         def alloc(shapes):
             return nn.ParameterDict({
-                name: nn.Parameter(torch.empty(shape, dtype=dtype, device=dev),
-                                   requires_grad=False)
-                for name, (shape, _) in shapes.items()})
+                name: nn.Parameter(torch.empty(
+                    leaf.shape, device=dev,
+                    dtype=torch.float32 if leaf.float32 else dtype),
+                    requires_grad=False)
+                for name, leaf in shapes.items()})
 
         self.top = alloc(_top_shapes(cfg))
-        self.layers = nn.ModuleList(alloc(_layer_shapes(cfg))
-                                    for _ in range(cfg.n_layers))
+        self.layers = nn.ModuleList(
+            nn.ModuleDict({f"{i}:{kind}": alloc(_sublayer_shapes(cfg, i, kind))
+                           for i, kind in enumerate(cfg.period)})
+            for _ in range(cfg.n_periods))
 
     @property
     def device(self) -> torch.device:
@@ -121,25 +185,38 @@ class LM(nn.Module):
     def dtype(self) -> torch.dtype:
         return self.top["embed"].dtype
 
+    def sublayers(self):
+        """(period, index in the period, kind, parameters) of every
+        sublayer, in the order the forward runs them."""
+        for p, block in enumerate(self.layers):
+            for i, kind in enumerate(self.cfg.period):
+                yield p, i, kind, block[f"{i}:{kind}"]
+
     # ================================================================ params
     @torch.no_grad()
     def init_params(self, generator: torch.Generator) -> "LM":
         """Draw every parameter as ``LM.init_params`` does: matrices
-        normal(0, 1) * 0.02 drawn in float32 and cast, norms one, biases
-        zero. ``generator`` lies on the parameters' device; the same seed
-        gives the same parameters, but not JAX's numbers (``convert`` carries
-        those across)."""
+        normal(0, 1) times their scale (0.02; 0.1 for the conv) drawn in
+        float32 and cast, norms and ``D`` one, biases zero, ``A_log``
+        log(linspace(1, 16, H)). ``generator`` lies on the parameters'
+        device; the same seed gives the same parameters, but not JAX's
+        numbers (``convert`` carries those across)."""
         groups = [(self.top, _top_shapes(self.cfg))] + [
-            (p, _layer_shapes(self.cfg)) for p in self.layers]
+            (sub, _sublayer_shapes(self.cfg, i, kind))
+            for _, i, kind, sub in self.sublayers()]
         for params, shapes in groups:
-            for name, (shape, how) in shapes.items():
+            for name, leaf in shapes.items():
                 w = params[name]
-                if how == "normal":
-                    w.copy_(torch.randn(shape, generator=generator,
+                if leaf.init == "normal":
+                    w.copy_(torch.randn(leaf.shape, generator=generator,
                                         dtype=torch.float32,
-                                        device=w.device).mul_(0.02))
+                                        device=w.device).mul_(leaf.scale))
+                elif leaf.init == "a_log":
+                    w.copy_(torch.log(torch.linspace(
+                        1.0, 16.0, leaf.shape[0], dtype=torch.float32,
+                        device=w.device)))
                 else:
-                    w.fill_(1.0 if how == "ones" else 0.0)
+                    w.fill_(1.0 if leaf.init == "ones" else 0.0)
         return self
 
     # =============================================================== helpers
@@ -181,14 +258,22 @@ class LM(nn.Module):
         out = out.movedim(1, 2).reshape(x.shape[0], x.shape[1], -1)
         return x + out @ p["wo"]
 
-    def _ffn(self, x, p):
+    def _ffn(self, x, p, idx_in_period):
+        """-> (x + the FFN's output, its aux loss, float32)."""
+        c = self.cfg
+        if c.is_moe_layer(idx_in_period):
+            y, aux = moe.moe_ffn(self._norm(x, p, "ln2"), p,
+                                 n_experts=c.n_experts, top_k=c.top_k,
+                                 capacity_factor=c.capacity_factor)
+            return x + y, aux
+        zero = torch.zeros((), dtype=torch.float32, device=x.device)
         if "ln2" not in p:
-            return x
+            return x, zero
         h = self._norm(x, p, "ln2")
-        if self.cfg.act == "gelu":
+        if c.act == "gelu":
             return x + L.gelu_mlp(h, p["w_in"], p["b_in"], p["w_out"],
-                                  p["b_out"])
-        return x + L.swiglu(h, p["w_gate"], p["w_up"], p["w_down"])
+                                  p["b_out"]), zero
+        return x + L.swiglu(h, p["w_gate"], p["w_up"], p["w_down"]), zero
 
     def _head(self, x):
         top = self.top
@@ -202,62 +287,88 @@ class LM(nn.Module):
     @torch.no_grad()
     def forward(self, tokens: torch.Tensor):
         """Prefill forward: tokens (B, S) on the model's device ->
-        (logits (B, S, V), aux loss), aux a float32 zero (no experts)."""
+        (logits (B, S, V), aux loss), aux the float32 sum of the MoE
+        sublayers' load-balance losses (zero without experts)."""
         x = self.top["embed"][tokens.long()]
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
-        for p in self.layers:
-            x = self._ffn(self._attn_full(x, p, positions), p)
-        return self._head(x), torch.zeros((), dtype=torch.float32,
-                                          device=x.device)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for _, i, kind, p in self.sublayers():
+            if kind == "attn":
+                x = self._attn_full(x, p, positions)
+            else:
+                x = x + mamba2.mamba2_mixer(self._norm(x, p), p, self.cfg)
+            x, a = self._ffn(x, p, i)
+            aux = aux + a
+        return self._head(x), aux
 
     # ================================================================= cache
     def init_cache(self, B: int, s_max: int) -> dict:
-        """An empty KV cache in the parameters' dtype, JAX's layout:
-        ``blocks["0:attn"]["k"|"v"]`` of (n_layers, B, Hkv, s_kv, D), s_kv =
-        min(s_max, window) under a sliding window, and ``len``, the tokens
-        seen (a host int)."""
+        """An empty decode cache, JAX's layout: for each sublayer
+        ``blocks["{i}:{kind}"]`` holds, over the n_periods periods, an
+        attention sublayer's ``"k"`` and ``"v"`` (n_periods, B, Hkv, s_kv,
+        D) in the parameters' dtype, s_kv = min(s_max, window) under a
+        sliding window, and a mamba sublayer's ``"state"`` (n_periods, B, H,
+        N, P) in float32 and ``"conv"`` (n_periods, B, K-1, conv_ch) in the
+        parameters' dtype; ``len`` is the tokens seen (a host int)."""
         c = self.cfg
         s_kv = min(s_max, c.attn_window) if c.attn_window else s_max
-        shape = (c.n_layers, B, c.n_kv_heads, s_kv, c.d_head)
-        return {"blocks": {"0:attn": {
-                    "k": torch.zeros(shape, dtype=self.dtype,
-                                     device=self.device),
-                    "v": torch.zeros(shape, dtype=self.dtype,
-                                     device=self.device)}},
-                "len": 0}
+
+        def zeros(*shape, dtype=self.dtype):
+            return torch.zeros((c.n_periods, B) + shape, dtype=dtype,
+                               device=self.device)
+
+        blocks = {}
+        for i, kind in enumerate(c.period):
+            if kind == "attn":
+                entry = {"k": zeros(c.n_kv_heads, s_kv, c.d_head),
+                         "v": zeros(c.n_kv_heads, s_kv, c.d_head)}
+            else:
+                conv_ch = c.d_inner + 2 * c.ssm_n_groups * c.ssm_d_state
+                entry = {"state": zeros(c.ssm_heads, c.ssm_d_state,
+                                        c.ssm_head_dim, dtype=torch.float32),
+                         "conv": zeros(c.ssm_conv - 1, conv_ch)}
+            blocks[f"{i}:{kind}"] = entry
+        return {"blocks": blocks, "len": 0}
 
     @torch.no_grad()
     def decode_step(self, cache: dict, tokens: torch.Tensor):
         """tokens (B, 1) -> (logits (B, 1, V), cache). One new token at
-        position ``cache["len"]`` for every row; its K and V are written into
-        the cache in place (JAX returns a new cache), and the returned cache
-        is the same tensors with ``len`` one higher."""
+        position ``cache["len"]`` for every row; its K and V, and each mamba
+        sublayer's new state and conv window, are written into the cache in
+        place (JAX returns a new cache), and the returned cache is the same
+        tensors with ``len`` one higher."""
         c = self.cfg
         B = tokens.shape[0]
         pos = int(cache["len"])
         x = self.top["embed"][tokens.long()]
         positions = torch.full((B, 1), pos, dtype=torch.int32,
                                device=x.device)
-        kc_all = cache["blocks"]["0:attn"]["k"]
-        vc_all = cache["blocks"]["0:attn"]["v"]
-        s_kv = kc_all.shape[3]
-        rotated = c.attn_window is not None and s_kv == c.attn_window
-        slot = pos % s_kv if rotated else min(pos, s_kv - 1)
-        cache_len = min(pos + 1, s_kv)
-        for i, p in enumerate(self.layers):
+        blocks = cache["blocks"]
+        for n, i, kind, p in self.sublayers():
+            pc = blocks[f"{i}:{kind}"]
             h = self._norm(x, p)
-            q, k, v = self._qkv(h, p)
-            q, k = self._rope(q, k, positions)
-            kc, vc = kc_all[i], vc_all[i]
-            kc[:, :, slot] = k[:, 0]
-            vc[:, :, slot] = v[:, 0]
-            out = L.decode_attention(q.movedim(1, 2), kc, vc,
-                                     cache_len=cache_len,
-                                     window=c.attn_window,
-                                     window_rotated=rotated)
-            x = x + out.movedim(1, 2).reshape(B, 1, -1) @ p["wo"]
-            x = self._ffn(x, p)
-        return self._head(x), {"blocks": cache["blocks"], "len": pos + 1}
+            if kind == "attn":
+                q, k, v = self._qkv(h, p)
+                q, k = self._rope(q, k, positions)
+                kc, vc = pc["k"][n], pc["v"][n]
+                s_kv = kc.shape[2]
+                rotated = c.attn_window is not None and s_kv == c.attn_window
+                slot = pos % s_kv if rotated else min(pos, s_kv - 1)
+                kc[:, :, slot] = k[:, 0]
+                vc[:, :, slot] = v[:, 0]
+                out = L.decode_attention(q.movedim(1, 2), kc, vc,
+                                         cache_len=min(pos + 1, s_kv),
+                                         window=c.attn_window,
+                                         window_rotated=rotated)
+                x = x + out.movedim(1, 2).reshape(B, 1, -1) @ p["wo"]
+            else:
+                st = mamba2.SSMState(state=pc["state"][n], conv=pc["conv"][n])
+                y, st = mamba2.mamba2_decode_step(h, p, c, st)
+                x = x + y
+                pc["state"][n] = st.state
+                pc["conv"][n] = st.conv
+            x, _ = self._ffn(x, p, i)
+        return self._head(x), {"blocks": blocks, "len": pos + 1}
 
     def prefill(self, tokens: torch.Tensor, s_max: int):
         """The decode cache built token by token through ``decode_step``

@@ -1,0 +1,139 @@
+"""Mixture-of-Experts FFN with capacity-based dispatch.
+
+The port of ``repro.models.moe`` (``capacity``, ``moe_ffn``,
+``moe_ffn_dense_oracle``), step for step:
+
+  * routing in float32: a softmax over all E experts of
+    ``x.float() @ router.float()``, the top k renormalised, and the Switch
+    load-balance aux ``E * sum(mean(probs) * mean(onehot(top-1)))``;
+  * no (tokens, E, C) one-hot dispatch tensor: per batch row the
+    assignments, flattened token-major then k, get a position in their
+    expert's buffer from a cumsum over a (S*k, E) one-hot; ``keep = pos < C``
+    and dropped assignments add exactly zero;
+  * a (B, E, C, d) buffer in ``x.dtype``, filled by a scatter-add, SwiGLU
+    experts as batched products over E, and the combine weight cast to
+    ``x.dtype`` before the multiply, summed over k.
+
+``jax.lax.top_k`` takes the lowest index first among equal values and
+``torch.topk`` does not, so the top k come from a stable descending sort.
+The expert products are ``torch.matmul``, as JAX leaves its einsums to XLA;
+no kernel of this package runs here. ``moe_ffn_shard_map`` (expert
+parallelism over a device mesh) waits for ROADMAP §1 item 11.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+Constrain = Callable[[torch.Tensor, tuple], torch.Tensor]
+
+
+def capacity(S: int, top_k: int, n_experts: int, factor: float) -> int:
+    c = int(math.ceil(S * top_k / n_experts * factor))
+    return max(8, ((c + 7) // 8) * 8)   # sublane-align, as JAX does
+
+
+def topk(probs: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``jax.lax.top_k`` over the last axis: the k largest values in
+    descending order, the lowest index first among equal values."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+class Routing(NamedTuple):
+    """What ``moe_ffn`` decides before it touches an expert."""
+    top_w: torch.Tensor     # (B, S, k) renormalised float32 weights
+    top_i: torch.Tensor     # (B, S, k) expert ids, int64
+    pos: torch.Tensor       # (B, S*k) int32 position in the expert's buffer
+    keep: torch.Tensor      # (B, S*k) pos < C
+    aux: torch.Tensor       # float32 scalar, the Switch load-balance loss
+    capacity: int           # C
+
+
+def _probs(x: torch.Tensor, router: torch.Tensor) -> torch.Tensor:
+    return torch.softmax(x.float() @ router.float(), dim=-1)     # (B, S, E)
+
+
+def route(x: torch.Tensor, router: torch.Tensor, *, n_experts: int,
+          top_k: int, capacity_factor: float = 1.0) -> Routing:
+    """``moe_ffn``'s routing and dispatch coordinates on x (B, S, d)."""
+    B, S, _ = x.shape
+    E, k = n_experts, top_k
+    C = capacity(S, k, E, capacity_factor)
+    probs = _probs(x, router)
+    top_w, top_i = topk(probs, k)
+    top_w = top_w / top_w.sum(dim=-1, keepdim=True)
+    me = probs.mean(dim=(0, 1))                                  # (E,)
+    ce = F.one_hot(top_i[..., 0], E).float().mean(dim=(0, 1))
+    aux = E * torch.sum(me * ce)
+    flat_e = top_i.reshape(B, S * k)
+    # JAX's sum((cumsum(onehot) - 1) * onehot, -1), as (cumsum - 1) read at
+    # each assignment's own expert; the one-hot is laid out (B, E, S*k) so
+    # that the cumsum runs along its innermost axis (a scan along the outer
+    # one took 12.9 ms a Qwen3-MoE layer on an H100)
+    experts = torch.arange(E, device=x.device)[None, :, None]
+    onehot = (flat_e[:, None, :] == experts).to(torch.int32)    # (B, E, S*k)
+    counts = onehot.cumsum(dim=2, dtype=torch.int32)
+    pos = counts.gather(1, flat_e[:, None, :])[:, 0] - 1
+    return Routing(top_w, top_i, pos, pos < C, aux, C)
+
+
+def moe_ffn(x: torch.Tensor, p, *, n_experts: int, top_k: int,
+            capacity_factor: float = 1.0, constrain: Constrain | None = None,
+            buf_mode: str = "e_sharded"
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """x (B, S, d); p: router (d, E), w_gate/w_up (E, d, f), w_down (E, f, d)
+    -> (out (B, S, d), aux float32 scalar). ``constrain`` and ``buf_mode``
+    steer only JAX's sharding; they change no result and are accepted for
+    the signature's sake."""
+    del constrain, buf_mode
+    B, S, d = x.shape
+    E, k = n_experts, top_k
+    r = route(x, p["router"], n_experts=E, top_k=k,
+              capacity_factor=capacity_factor)
+    C = r.capacity
+    flat_e = r.top_i.reshape(B, S * k)
+    pos_c = r.pos.clamp(max=C - 1)
+
+    # ---- dispatch: scatter-add the kept assignments into (E, B, C, d)
+    xk = x.repeat_interleave(k, dim=1)                           # (B, S*k, d)
+    vals = xk.masked_fill_(~r.keep[..., None], 0)
+    b_idx = torch.arange(B, device=x.device)[:, None]
+    slot = (flat_e * B + b_idx) * C + pos_c                      # (B, S*k)
+    buf = torch.zeros((E * B * C, d), dtype=x.dtype, device=x.device)
+    buf.index_add_(0, slot.reshape(-1), vals.reshape(-1, d))
+
+    # ---- experts (SwiGLU), one batched product over E
+    buf = buf.view(E, B * C, d)
+    h = torch.matmul(buf, p["w_gate"])
+    u = torch.matmul(buf, p["w_up"])
+    y = torch.matmul(F.silu(h) * u, p["w_down"])                 # (E, B*C, d)
+
+    # ---- combine
+    out_k = y.view(E * B * C, d)[slot.reshape(-1)].view(B, S * k, d)
+    out_k = out_k.masked_fill_(~r.keep[..., None], 0)
+    out_k = out_k * r.top_w.reshape(B, S * k)[..., None].to(x.dtype)
+    out = out_k.view(B, S, k, d).sum(dim=2)
+    return out, r.aux.float()
+
+
+def moe_ffn_dense_oracle(x: torch.Tensor, p, *, n_experts: int,
+                         top_k: int) -> torch.Tensor:
+    """Every expert on every token, the top k combined: no capacity, no
+    drops. ``moe_ffn`` equals it wherever nothing drops."""
+    probs = _probs(x, p["router"])
+    top_w, top_i = topk(probs, top_k)
+    top_w = top_w / top_w.sum(dim=-1, keepdim=True)
+    mask = F.one_hot(top_i, n_experts).float()                   # (B, S, k, E)
+    w_e = torch.einsum("bske,bsk->bse", mask, top_w).to(x.dtype)  # (B, S, E)
+    # JAX's einsum over e, one expert at a time (no (B, E, S, f) tensor):
+    # the sum over e is kept in float32 and rounded to x's dtype once
+    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for e in range(n_experts):
+        y = (F.silu(x @ p["w_gate"][e]) * (x @ p["w_up"][e])) @ p["w_down"][e]
+        out += y.float() * w_e[..., e, None].float()
+    return out.to(x.dtype)

@@ -24,8 +24,8 @@ def make_serve_step(lm: LM) -> Callable:
 
 def make_prefill_step(lm: LM) -> Callable:
     """prefill_step(tokens (B, S)) -> logits (B, S, V): the full forward, no
-    labels. On the card each layer's attention is one launch of the flash
-    kernel."""
+    labels. On the card each attention sublayer is one launch of the flash
+    kernel; MoE and mamba sublayers launch none."""
     def prefill_step(tokens: torch.Tensor) -> torch.Tensor:
         logits, _ = lm.forward(tokens)
         return logits

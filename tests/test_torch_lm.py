@@ -20,7 +20,6 @@ from repro.configs import registry as jregistry, shapes as jshapes
 from repro.data.tokens import TokenPipeline as JPipeline
 from repro.data.tokens import TokenPipelineConfig as JPipelineConfig
 from repro.models import layers as jlayers
-from repro.models.model import LM as JLM
 from repro.serving.engine import ServeEngine as JServeEngine
 from repro.training import lm_step as jlm_step
 from repro_torch.configs import registry, shapes
@@ -28,21 +27,14 @@ from repro_torch.data.tokens import TokenPipeline, TokenPipelineConfig
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.launch import serve
 from repro_torch.models import layers
-from repro_torch.models.convert import lm_from_jax
 from repro_torch.models.model import LM
 from repro_torch.serving.engine import ServeEngine
 from repro_torch.training import lm_step
 
+from _torch_lm_families import (LOGIT_TOL, jax_prefill, pair, prompts,
+                                tokens)
+
 DENSE = ("qwen3-8b", "yi-6b", "qwen2.5-32b", "mistral-nemo-12b")
-LOGIT_TOL = 1e-4
-
-
-def _pair(cfg_j, cfg_t, seed):
-    """(JAX LM, its float32 params, the port's LM holding the same)."""
-    jlm = JLM(cfg_j)
-    params = jlm.init_params(jax.random.PRNGKey(seed), jnp.float32)
-    lm = lm_from_jax(cfg_t, jax.tree.map(np.asarray, params), device="cpu")
-    return jlm, params, lm
 
 
 @pytest.fixture(scope="module")
@@ -51,27 +43,11 @@ def models():
 
     def get(arch):
         if arch not in cache:
-            cache[arch] = _pair(jregistry.reduced(jregistry.get_config(arch)),
+            cache[arch] = pair(jregistry.reduced(jregistry.get_config(arch)),
                                 registry.reduced(registry.get_config(arch)),
                                 seed=1)
         return cache[arch]
     return get
-
-
-def _jax_prefill(jlm, params, toks, s_max):
-    """JAX's ``LM.prefill`` (token by token through ``decode_step``), with
-    the step jitted once so the loop runs at test speed."""
-    step = jax.jit(jlm.decode_step)
-    cache = jlm.init_cache(toks.shape[0], s_max, dtype=params["embed"].dtype)
-    logits = None
-    for t in range(toks.shape[1]):
-        logits, cache = step(params, cache, jnp.asarray(toks[:, t:t + 1]))
-    return logits, cache
-
-
-def _tokens(vocab, B=2, S=24, seed=2):
-    return np.random.RandomState(seed).randint(0, vocab, (B, S)).astype(
-        np.int32)
 
 
 # ------------------------------------------------------------ configurations
@@ -109,22 +85,24 @@ def test_qwen3_8b_size():
     assert cfg.param_count() == 8_190_427_136
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + ("mixtral-8x7b", "qwen3-moe-235b-a22b",
+                                  "mamba2-780m", "jamba-1.5-large-398b"))
 def test_module_parameter_count(arch, models):
-    """The module holds exactly JAX's parameters: its matrices are what
-    ``param_count()`` counts, and norms and biases, which that count leaves
-    out, make up the rest of JAX's tree."""
+    """The module holds exactly JAX's parameters: its matrices other than
+    the routers and its 3-D expert tensors are what ``param_count()``
+    counts, and the routers, norms, biases and SSM vectors, which that
+    count leaves out, make up the rest of JAX's tree."""
     jlm, params, lm = models(arch)
     cfg = lm.cfg
-    matrices = sum(p.numel() for p in lm.parameters() if p.dim() == 2)
-    assert matrices == cfg.param_count()
+    counted = sum(p.numel() for name, p in lm.named_parameters()
+                  if p.dim() == 3
+                  or (p.dim() == 2 and not name.endswith(".router")))
+    assert counted == cfg.param_count()
     jax_total = sum(int(np.prod(x.shape)) for x in jax.tree.leaves(params))
     assert sum(p.numel() for p in lm.parameters()) == jax_total
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x7b", "qwen3-moe-235b-a22b",
-                                  "mamba2-780m", "jamba-1.5-large-398b",
-                                  "whisper-tiny", "internvl2-26b"])
+@pytest.mark.parametrize("arch", ["whisper-tiny", "internvl2-26b"])
 def test_other_families_are_refused_naming_their_item(arch):
     cfg = registry.reduced(registry.get_config(arch))
     with pytest.raises(NotImplementedError, match="ROADMAP §1 item"):
@@ -195,7 +173,7 @@ def test_decode_attention_matches_jax(window, rotated):
 @pytest.mark.parametrize("arch", ["qwen3-8b", "yi-6b", "qwen2.5-32b"])
 def test_forward_matches_jax(arch, models):
     jlm, params, lm = models(arch)
-    toks = _tokens(lm.cfg.vocab)
+    toks = tokens(lm.cfg.vocab)
     want, aux_j = jlm.forward(params, jnp.asarray(toks))
     fa_ops.reset_launches()
     got, aux = lm.forward(torch.from_numpy(toks))
@@ -210,8 +188,8 @@ def test_forward_matches_jax(arch, models):
 @pytest.mark.parametrize("arch", ["qwen3-8b", "yi-6b", "qwen2.5-32b"])
 def test_decode_and_prefill_match_jax(arch, models):
     jlm, params, lm = models(arch)
-    toks = _tokens(lm.cfg.vocab)
-    want, jcache = _jax_prefill(jlm, params, toks, s_max=32)
+    toks = tokens(lm.cfg.vocab)
+    want, jcache = jax_prefill(jlm, params, toks, s_max=32)
     got, cache = lm.prefill(torch.from_numpy(toks), s_max=32)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=LOGIT_TOL,
                                atol=LOGIT_TOL)
@@ -233,7 +211,7 @@ def test_decode_and_prefill_match_jax(arch, models):
 @pytest.mark.parametrize("arch", ["qwen3-8b", "yi-6b"])
 def test_incremental_decode_matches_forward(arch, models):
     _, _, lm = models(arch)
-    toks = torch.from_numpy(_tokens(lm.cfg.vocab, seed=3))
+    toks = torch.from_numpy(tokens(lm.cfg.vocab, seed=3))
     full, _ = lm.forward(toks)
     last, _ = lm.prefill(toks, s_max=32)
     assert float((full[:, -1] - last[:, 0]).abs().max()) < 2e-3
@@ -247,14 +225,14 @@ def test_windowed_dense_ring_cache_matches_jax():
                                 attn_window=8)
     cfg_t = dataclasses.replace(registry.reduced(registry.get_config(base)),
                                 attn_window=8)
-    jlm, params, lm = _pair(cfg_j, cfg_t, seed=3)
+    jlm, params, lm = pair(cfg_j, cfg_t, seed=3)
     toks = np.random.RandomState(4).randint(0, cfg_t.vocab, (1, 24)).astype(
         np.int32)
     want_full, _ = jlm.forward(params, jnp.asarray(toks))
     got_full, _ = lm.forward(torch.from_numpy(toks))
     np.testing.assert_allclose(got_full.numpy(), np.asarray(want_full),
                                rtol=LOGIT_TOL, atol=LOGIT_TOL)
-    want, jcache = _jax_prefill(jlm, params, toks, s_max=64)
+    want, jcache = jax_prefill(jlm, params, toks, s_max=64)
     got, cache = lm.prefill(torch.from_numpy(toks), s_max=64)
     assert cache["blocks"]["0:attn"]["k"].shape[3] == 8
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=LOGIT_TOL,
@@ -267,7 +245,7 @@ def test_windowed_dense_ring_cache_matches_jax():
 
 def test_prefill_step_equals_forward(models):
     jlm, params, lm = models("qwen3-8b")
-    toks = _tokens(lm.cfg.vocab, seed=5)
+    toks = tokens(lm.cfg.vocab, seed=5)
     got = lm_step.make_prefill_step(lm)(torch.from_numpy(toks))
     assert torch.equal(got, lm.forward(torch.from_numpy(toks))[0])
     want = jlm_step.make_prefill_step(jlm)(params, jnp.asarray(toks))
@@ -284,30 +262,25 @@ def test_init_params_draws_like_jax():
     assert a.dtype == torch.bfloat16          # JAX's default dtype
     for (name, pa), pb in zip(a.named_parameters(), b.parameters()):
         assert torch.equal(pa, pb), name
-    wq = a.layers[0]["wq"].float()
+    wq = a.layers[0]["0:attn"]["wq"].float()
     assert abs(float(wq.std()) - 0.02) < 0.002
-    assert torch.equal(a.layers[1]["ln"], torch.ones_like(a.layers[1]["ln"]))
-    assert not a.layers[0]["bq"].any()
+    ln = a.layers[1]["0:attn"]["ln"]
+    assert torch.equal(ln, torch.ones_like(ln))
+    assert not a.layers[0]["0:attn"]["bq"].any()
 
 
 # ------------------------------------------------------------------- serving
-def _prompts(vocab, n, seed=0):
-    rng = np.random.RandomState(seed)
-    return [rng.randint(1, vocab, rng.randint(4, 16)).astype(np.int32)
-            for _ in range(n)]
-
-
 @pytest.mark.parametrize("eos", [None, "first"])
 def test_serve_engine_matches_jax(eos, models):
     jlm, params, lm = models("qwen3-8b")
-    prompts = _prompts(lm.cfg.vocab, 4)
+    ps = prompts(lm.cfg.vocab, 4)
     if eos == "first":      # a token the greedy decode emits: rows stop early
         eos = JServeEngine(jlm, params, max_batch=3, s_max=64).generate(
-            prompts, max_new=6)[0][2]
+            ps, max_new=6)[0][2]
     jeng = JServeEngine(jlm, params, max_batch=3, s_max=64, eos=eos)
-    want = jeng.generate(prompts, max_new=6)
+    want = jeng.generate(ps, max_new=6)
     eng = ServeEngine(lm, max_batch=3, s_max=64, eos=eos, device="cpu")
-    got = eng.generate(prompts, max_new=6)
+    got = eng.generate(ps, max_new=6)
     assert got == want
     st, jst = eng.stats(), jeng.stats()
     assert set(st) == set(jst)
