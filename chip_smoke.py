@@ -211,7 +211,13 @@ Phases (any failure exits non-zero; nothing is caught):
                and at the prefill's own shape (B 2, S 4096), and the
                shapes phase 6b adds, as views: Mixtral's window (B 1, 32/8
                heads, S 8192, window 4096) and Qwen3-MoE's GQA group of 16
-               (B 2, 64/4 heads, S 4096). The inputs the
+               (B 2, 64/4 heads, S 4096), and phase 6c's: Whisper's
+               encoder (B 16, 6/6 heads, S 1500, D 64, non-causal: the
+               kv tail of a ragged key length unmasked by causality), its
+               cross-attention (Sq 448 over Skv 1500) and its decode step's
+               (one query over 1,500 keys, q a view, k and v a contiguous
+               cache slice), and InternVL's GQA group of 6 (B 2, 48/8
+               heads, S 4096). The inputs the
                tensor-core kernel does not take go to the split-TF32 kernel,
                in both types (float32 at 2e-5, bf16 at 2e-2): the sweep at D
                16 and D 256, and D 128 q, k, v with padded rows, a misaligned
@@ -275,6 +281,34 @@ Phases (any failure exits non-zero; nothing is caught):
                expert products, dispatch/combine glue, SSD, other products,
                other) and the busy share; and the float32 decode step
                (median of 16);
+  6c. frontends — the audio encoder-decoder and the vision prefix (a
+               function of its own, frontends()), random weights from a
+               seed. Whisper-tiny whole (4 + 4 layers, d 384): the bf16
+               make_prefill_step on 16 x 448 tokens with enc_frames (16,
+               1500, 384) counted (flash_attention_sm90 12 times: 4 encoder,
+               4 self-, 4 cross-attentions; nothing else), each attention on
+               its own views against the plain version; in float32 the
+               forward (flash_attention 12 times) against 256 decode steps
+               with the cross cache filled from encode through
+               LM._cross_kv (2e-3; flash_attention 4 times a step) and
+               ServeEngine on 8 prompts against the zero cross cache, as the
+               launcher serves (4 launches a decode step, each served token
+               the greedy choice of the forward over the same zero keys);
+               the card's float32 whisper-tiny against JAX's
+               (src/repro_torch/assets/whisper_expected.npz, model and
+               inputs redrawn from its recipe by draw_whisper, 1e-4).
+               InternVL2-26B whole (48 layers, 19.86 B parameters, 39.7 GB
+               in bf16): the bf16 prefill on 2 x 4096 tokens with
+               patch_embeds (2, 256, 6144) counted (flash_attention_sm90 48
+               times, nothing else), each layer's attention on its own
+               views, the splice exact (the first 256 embedded positions
+               the patches in bf16, other tokens under them bit-identical
+               logits); at 2 layers of full width in float32 the forward
+               against decode and ServeEngine. For each bf16 prefill its
+               wall time (median of 3 warm runs), one profiled run
+               (encode, the cross-attention and the LM head in ranges of
+               their own) and the LM head's product alone; the float32
+               decode step (median of 16); the peak memory of each model;
   7. times   — per kernel at the serving shape: its device time alone (CUDA
                events around 20 back-to-back launches queued behind a spin
                kernel, so no host dispatch falls between them; median of 50
@@ -300,7 +334,12 @@ Phases (any failure exits non-zero; nothing is caught):
                at (B 1, S 4096) in float32, its bound the lesser of the CUDA
                cores' (67 TFLOP/s) and split TF32's (three TF32 products a
                multiply-add at 495 TFLOP/s), and in bf16 with a d stride of
-               2 (the element loads), beside SDPA.
+               2 (the element loads), beside SDPA; and at phase 6c's shapes:
+               Whisper's encoder and cross-attention and InternVL's prefill
+               on the tensor-core kernel, Whisper's decode cross-attention
+               in float32 on the split-TF32 one, each beside the plain
+               version, SDPA (non-causal where the model's is) and its
+               bound (all Sq x Skv pairs where nothing is masked).
 
 The last lines are a ``kernels`` summary, one JSON object with every
 kernel's numbers, the card's name and power limit, and the result line
@@ -379,8 +418,10 @@ BACK_TO_BACK = 20
 SPIN_CYCLES = 20_000_000
 #: flash attention against its plain version: B, Hq, Hkv, Sq, Skv, D, causal,
 #: window, q_offset, kv_len, and the layout of q, k and v ("contiguous"
-#: (B, H, S, D), or "movedim view": drawn (B, S, H, D) as the model's
-#: projections are and handed over as (B, H, S, D) views)
+#: (B, H, S, D); "movedim view": drawn (B, S, H, D) as the model's
+#: projections are and handed over as (B, H, S, D) views; "decode cross": q
+#: such a view, k and v contiguous, as a decode step's cross-attention reads
+#: a slice of the cache's xk, xv)
 ATTN_CASES = {
     "sweep-1": (1, 4, 4, 128, 128, 64, True, None, 0, None, "contiguous"),
     "sweep-2 gqa+offset": (2, 8, 2, 128, 256, 64, True, None, 128, None,
@@ -409,6 +450,14 @@ ATTN_CASES = {
                        "movedim view"),
     "qwen3-moe heads": (2, 64, 4, 4096, 4096, 128, True, None, 0, None,
                         "movedim view"),
+    "whisper encoder": (16, 6, 6, 1500, 1500, 64, False, None, 0, None,
+                        "movedim view"),
+    "whisper cross": (16, 6, 6, 448, 1500, 64, False, None, 0, None,
+                      "movedim view"),
+    "whisper decode cross": (8, 6, 6, 1, 1500, 64, False, None, 0, None,
+                             "decode cross"),
+    "internvl heads": (2, 48, 8, 4096, 4096, 128, True, None, 0, None,
+                       "movedim view"),
 }
 #: inputs the tensor-core kernel does not take, which go to the split-TF32
 #: kernel in both types: the sweep at D 16 and D 256, and D 128 q, k and v
@@ -481,6 +530,17 @@ MOE_ASSET_TOL, MOE_AUX_TOL = 1e-5, 1e-6
 #: ssd_chunked against ssd_naive_ref on a full-width layer's own float32
 #: inputs (JAX's bound, tests/test_models.py::test_ssd_chunked_vs_naive)
 SSD_TOL = 1e-4
+#: phase 6c: Whisper-tiny and InternVL2-26B whole, their bf16 prefill's
+#: batch rows and decoder tokens (Whisper's encoder takes cross_len 1,500
+#: frames a row; InternVL's first n_patches 256 positions are patches)
+WHISPER_ARCH, WHISPER_PREFILL = "whisper-tiny", (16, 448)
+VLM_ARCH, VLM_PREFILL = "internvl2-26b", (2, 4096)
+#: InternVL's float32 forward against decode and ServeEngine: layers of
+#: full width (its 48 would take 79 GB in float32)
+VLM_F32_LAYERS = 2
+#: the card's float32 whisper-tiny against JAX's
+#: (src/repro_torch/assets/whisper_expected.npz): encoder rows and logits
+WHISPER_ASSET_TOL = 1e-4
 ATTN_TIME_S = (4096, 32768)
 #: samples and back-to-back launches of attention's times at S = 4096, whose
 #: launches take up to milliseconds, not microseconds
@@ -520,9 +580,11 @@ def group_of(kernel: str) -> str:
     return "other (norms, RoPE, SiLU, casts, embedding, softmax, copies)"
 
 
-#: the record_function ranges phase 6b profiles its prefills under; the
-#: profiler also shows each as a device-side span, which is not a kernel
-PROFILE_RANGES = ("moe_ffn", "ssd_chunked", "flash_attention")
+#: the record_function ranges phases 6b and 6c profile their prefills
+#: under; the profiler also shows each as a device-side span, which is not a
+#: kernel
+PROFILE_RANGES = ("moe_ffn", "ssd_chunked", "flash_attention", "encode",
+                  "cross_attention", "lm_head")
 
 
 def family_group(kernel: str, ranges: list[str]) -> str:
@@ -540,6 +602,37 @@ def family_group(kernel: str, ranges: list[str]) -> str:
     if is_gemm(kernel):
         return "other matrix products (projections, LM head)"
     return "other (norms, RoPE, conv, SiLU, casts, embedding)"
+
+
+def ranged(name: str, fn):
+    """``fn`` run under a ``record_function`` range named ``name``."""
+    import torch
+
+    def run(*args, **kw):
+        with torch.profiler.record_function(name):
+            return fn(*args, **kw)
+    return run
+
+
+def frontend_group(kernel: str, ranges: list[str]) -> str:
+    """The group of a kernel of phase 6c's prefills, from its name and the
+    ``record_function`` ranges it ran under (``encode``,
+    ``cross_attention``, ``lm_head``)."""
+    if "flash_sm90_kernel" in kernel or "flash_kernel" in kernel:
+        return "attention (flash_attention kernels)"
+    gemm = is_gemm(kernel)
+    if "lm_head" in ranges:
+        return ("LM head product (d x V)" if gemm
+                else "LM head glue (final norm, casts)")
+    if "encode" in ranges:
+        return ("encoder products (projections, FFN)" if gemm
+                else "encoder glue (sinusoid, norms, GELU, casts)")
+    if "cross_attention" in ranges:
+        return ("cross-attention products (x_wq, x_wk, x_wv, x_wo)" if gemm
+                else "cross-attention glue (norm, casts)")
+    return ("decoder products (projections, FFN)" if gemm
+            else "decoder glue (embedding, splice, norms, RoPE, activations, "
+                 "casts)")
 
 
 def profile(fn, grouper=None) -> dict:
@@ -638,6 +731,35 @@ def max_abs_err(got, want) -> int:
     """Largest |got - want| over tensors paired in order (0 if all empty)."""
     return max((int((g.long() - w.long()).abs().max()) if g.numel() else 0
                 for g, w in zip(got, want)), default=0)
+
+
+def draw_whisper(lm, meta: dict):
+    """(frames (B, frames, d) float32, tokens (B, tokens) int32), numpy, of
+    a src/repro_torch/assets/whisper_expected.npz recipe, with ``lm``'s
+    parameters redrawn in place: the exporter's draw
+    (scripts/export_torch_fixture.py::draw_whisper_case) in the port's
+    layout, from ``RandomState(seed)`` in its order (the frames, the tokens,
+    the top-level leaves by name, each encoder layer's, each decoder
+    layer's)."""
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(meta["seed"])
+    cfg = lm.cfg
+    frames = rng.randn(meta["B"], meta["frames"], cfg.d_model).astype(
+        np.float32)
+    tokens = rng.randint(0, cfg.vocab, (meta["B"], meta["tokens"])).astype(
+        np.int32)
+    groups = [lm.top] + [blk["0:attn"] for blk in lm.encoder] + \
+        [blk["0:attn"] for blk in lm.layers]
+    with torch.no_grad():
+        for params in groups:
+            for name in sorted(params):
+                w = params[name]
+                x = rng.randn(*w.shape)
+                x = (1.0 + meta["norm_scale"] * x if name in meta["norms"]
+                     else meta["scale"] * x)
+                w.copy_(torch.from_numpy(x.astype(np.float32)))
+    return frames, tokens
 
 
 def main() -> int:
@@ -2552,7 +2674,10 @@ def main() -> int:
         for H, S in ((Hq, Sq), (Hkv, Skv), (Hkv, Skv)):
             def draw(*shape):
                 return torch.randn(shape, generator=g, device=dev).to(dtype)
-            if layout == "contiguous":
+            if layout == "decode cross":
+                t = draw(B, S, H, D).movedim(1, 2) if not out else \
+                    draw(B, H, S, D)
+            elif layout == "contiguous":
                 t = draw(B, H, S, D)
             elif layout == "movedim view":
                 t = draw(B, S, H, D).movedim(1, 2)
@@ -2738,9 +2863,9 @@ def main() -> int:
     def sdpa_attention(q, k, v, *, causal=True, window=None, q_offset=0,
                        kv_len=None):
         """The library's attention, a yardstick (never the port's)."""
-        check(causal and window is None and q_offset == 0 and kv_len is None,
-              "SDPA was asked for more than causal attention")
-        return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+        check(window is None and q_offset == 0 and kv_len is None,
+              "SDPA was asked for more than causal or full attention")
+        return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
                                               enable_gqa=True)
 
     def wall_ms(fn, runs=3) -> float:
@@ -2802,22 +2927,39 @@ def main() -> int:
         check(derr < DECODE_TOL, f"{cfg.name}: decode differs from the "
               f"forward by {derr}")
 
-    def serve_and_time(lm, served_cfg, check_cfg, tag="[families]"):
+    def serve_and_time(lm, served_cfg, check_cfg, tag="[families]",
+                       per_step=None, forward_kw=None):
         """ServeEngine on 8 prompts in float32 at the served config; each
         served token the greedy choice of the forward at ``check_cfg``
         (the same weights) within DECODE_TOL; then the decode step
-        alone, median of 16."""
+        alone, median of 16. Decode launches nothing, or, with
+        ``per_step`` (kernel, n), that kernel n times a decode step;
+        ``forward_kw(rows)`` gives the checking forward its frontend."""
         lm.cfg = served_cfg
         eng = ServeEngine(lm, max_batch=4, s_max=256, device=dev)
         rng_p = np.random.RandomState(0)
         prompts = [rng_p.randint(1, served_cfg.vocab, rng_p.randint(4, 17))
                    .astype(np.int32) for _ in range(8)]
+        steps, real_step = [0], lm.decode_step
+
+        def counted_step(cache, toks):
+            steps[0] += 1
+            return real_step(cache, toks)
+
+        lm.decode_step = counted_step
         reset_launches()
-        outs = eng.generate(prompts, max_new=16)
+        try:
+            outs = eng.generate(prompts, max_new=16)
+        finally:
+            del lm.decode_step
         counts = launch_counts()
         st = eng.stats()
-        check(all(n == 0 for n in counts.values()), f"decode launched a "
-              f"kernel: {counts}")
+        want = {n: 0 for n in KERNELS}
+        if per_step is not None:
+            want[per_step[0]] = per_step[1] * steps[0]
+            launches[per_step[0]] += counts[per_step[0]]
+        check(counts == want, f"{steps[0]} decode steps launched {counts}, "
+              f"expected {want}")
         check(len(outs) == 8 and all(len(o) == 16 for o in outs)
               and all(0 <= t < served_cfg.vocab for o in outs for t in o),
               "ServeEngine did not serve 16 tokens to each of 8 prompts")
@@ -2830,7 +2972,9 @@ def main() -> int:
             for b, (p, o) in enumerate(zip(chunk, served)):
                 seq[b, S - len(p):S] = p
                 seq[b, S:] = o
-            lg, _ = lm.forward(torch.from_numpy(seq[:, :-1]).to(dev))
+            lg, _ = lm.forward(torch.from_numpy(seq[:, :-1]).to(dev),
+                               **(forward_kw(len(chunk)) if forward_kw
+                                  else {}))
             lg = lg[:, S - 1:].float()
             got = lg.gather(-1, torch.from_numpy(seq[:, S:]).to(dev)[
                 ..., None])
@@ -2845,8 +2989,8 @@ def main() -> int:
               f"system {st['system_s']:.3f} s, tokens_out "
               f"{st['tokens_out']}; every served token within {gap:.3g} "
               f"of the greedy logit of the forward at capacity factor "
-              f"{check_cfg.capacity_factor}; launches {counts} — card: "
-              f"{card}")
+              f"{check_cfg.capacity_factor}; launches {counts} over "
+              f"{steps[0]} decode steps — card: {card}")
         print(f"{tag} ServeEngine stats: {json.dumps(st, sort_keys=True)}")
         state = {"cache": lm.init_cache(4, 256)}
         one = torch.ones((4, 1), dtype=torch.int32, device=dev)
@@ -2933,12 +3077,6 @@ def main() -> int:
 
         def n_attn(cfg):
             return cfg.n_periods * cfg.period.count("attn")
-
-        def ranged(name, fn):
-            def run(*args, **kw):
-                with torch.profiler.record_function(name):
-                    return fn(*args, **kw)
-            return run
 
         def timed_profile(what, fn, tokens_n):
             """Wall time of ``fn`` (median of 3 warm runs) and one run under
@@ -3230,6 +3368,299 @@ def main() -> int:
 
     families()
 
+    # ------------------------------------- 6c audio and vision frontends
+    # Whisper-tiny and InternVL2-26B whole: the bf16 prefill counted, each
+    # attention held on its own views, the splice, float32 forward against
+    # decode and ServeEngine, the card's float32 Whisper against JAX's (a
+    # function of its own, as 6b)
+    def frontends() -> None:
+        t_phase = time.perf_counter()
+        tag = "[frontends]"
+        g = torch.Generator(dev).manual_seed(19)
+
+        def counted_prefill(cfg, prefill, toks, n_attn, **frontend):
+            """The bf16 prefill with every launch counted
+            (flash_attention_sm90 ``n_attn`` times, nothing else) and each
+            attention's q, k, v, options and output recorded."""
+            seen = []
+
+            def rec(q, k, v, **kw):
+                out = fa.flash_attention(q, k, v, **kw)
+                seen.append((q, k, v, kw, out))
+                return out
+
+            layers.flash_attention = rec
+            reset_launches()
+            try:
+                t0 = time.perf_counter()
+                logits = prefill(toks, **frontend)
+                torch.cuda.synchronize()
+                first_s = time.perf_counter() - t0
+                counts = launch_counts()
+            finally:
+                layers.flash_attention = fa.flash_attention
+            want = {**{n: 0 for n in KERNELS}, "flash_attention_sm90": n_attn}
+            check(counts == want, f"{cfg.name} prefill launched {counts}, "
+                  f"expected {want}")
+            launches["flash_attention_sm90"] += n_attn
+            B, S = toks.shape
+            check(logits.shape == (B, S, cfg.vocab)
+                  and bool(torch.isfinite(logits).all()),
+                  f"{cfg.name} prefill logits are not finite or not (B, S, "
+                  f"V)")
+            check(len(seen) == n_attn, f"{cfg.name}: {len(seen)} attention "
+                  f"calls, expected {n_attn}")
+            stubs = ", ".join(f"{k} {tuple(v.shape)}"
+                              for k, v in frontend.items())
+            print(f"{tag} {cfg.name} make_prefill_step on {B} x {S} tokens "
+                  f"({stubs}): {first_s:.3f} s (first call); launches "
+                  f"{counts} — card: {card}")
+            return logits, seen
+
+        def hold_all(cfg, names, seen):
+            """Each recorded attention against the plain version on its own
+            views, as in phase 6."""
+            rel = [0.0, float("inf")]
+            for name, (q, k, v, kw, got) in zip(names, seen):
+                readings = hold_attention("flash_attention_sm90",
+                                          f"{cfg.name} {name}", "bfloat16",
+                                          q, k, v, kw, got, rel)
+                print(f"{tag} {cfg.name} {name} attention (q "
+                      f"{tuple(q.shape)} strides {q.stride()}, k "
+                      f"{tuple(k.shape)} strides {k.stride()}, causal "
+                      f"{kw['causal']}) against the plain version on its "
+                      f"own inputs: {readings}")
+            print(f"{tag} {cfg.name}: all {len(seen)} attentions: largest q "
+                  f"tile relative error norm {rel[0]:.3g}, smallest planted "
+                  f"fault {rel[1]:.3g}, limit {ATTN_REL_TOL['bfloat16']}")
+
+        def timed(cfg, lm, prefill, toks, **frontend):
+            """The bf16 prefill's wall time (median of 3 warm runs), one run
+            under torch.profiler by group (encode, the cross-attention and
+            the LM head in ranges of their own), and the head's d x V
+            product alone (CUDA events, median of 10)."""
+            B, S = toks.shape
+            what = (f"{cfg.name} bf16 prefill ({cfg.n_layers} layers, {B} x "
+                    f"{S} tokens)")
+            ms = wall_ms(lambda: prefill(toks, **frontend))
+            print(f"{tag} {what}: {ms:.1f} ms (median of 3 warm runs; "
+                  f"{B * S * 1e3 / ms:.0f} tokens/s) — card: {card}")
+            lm.encode = ranged("encode", lm.encode)
+            lm._cross_attn = ranged("cross_attention", lm._cross_attn)
+            lm._head = ranged("lm_head", lm._head)
+            # the kernel's ctypes launch runs under no op: a range of its
+            # own ties it to one
+            layers.flash_attention = ranged("flash_attention",
+                                            fa.flash_attention)
+            try:
+                prof = profile(lambda: prefill(toks, **frontend),
+                               frontend_group)
+            finally:
+                del lm.encode, lm._cross_attn, lm._head
+                layers.flash_attention = fa.flash_attention
+            show_profile(what, prof, card)
+            print(f"[profile] {what}: {prof['covered']:.3f} of the device "
+                  f"time is tied to the op that launched it")
+            x = torch.randn((B, S, cfg.d_model), generator=g,
+                            device=dev).to(lm.dtype)
+            head = lm.top["lm_head"]
+            samples = []
+            for _ in range(11):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                x @ head
+                end.record()
+                end.synchronize()
+                samples.append(start.elapsed_time(end))
+            head_ms = statistics.median(samples[1:])
+            n_bytes = x.element_size() * (B * S * cfg.d_model + cfg.d_model
+                                          * cfg.vocab + B * S * cfg.vocab)
+            n_ops = 2 * B * S * cfg.d_model * cfg.vocab
+            bound = 1e3 * max(n_bytes / HBM_BYTES_PER_S, n_ops / BF16_FLOPS)
+            print(f"{tag} {cfg.name} LM head: ({B * S}, {cfg.d_model}) x "
+                  f"({cfg.d_model}, {cfg.vocab}) {lm.dtype}, head strides "
+                  f"{head.stride()}: {head_ms:.4f} ms alone (CUDA events, "
+                  f"median of 10), bound {bound:.4f} ms ({n_ops} FLOP at "
+                  f"989 TFLOP/s, {n_bytes} B) — card: {card}")
+            del x
+
+        def peak(what):
+            print(f"{tag} {what}: peak "
+                  f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+                  f"allocated on the card — card: {card}")
+            torch.cuda.reset_peak_memory_stats()
+
+        # 1. Whisper-tiny, whole: bf16 prefill with enc_frames, counted
+        torch.cuda.reset_peak_memory_stats()
+        cfg = get_config(WHISPER_ARCH)
+        B, S = WHISPER_PREFILL
+        lm = drawn(cfg, torch.bfloat16, seed=0, tag=tag)
+        frames = torch.randn((B, cfg.cross_len, cfg.d_model), generator=g,
+                             device=dev).to(torch.bfloat16)
+        toks = tokens(cfg.vocab, B, S)
+        prefill = make_prefill_step(lm)
+        n_attn = cfg.enc_layers + 2 * cfg.n_layers
+        logits, seen = counted_prefill(cfg, prefill, toks, n_attn,
+                                       enc_frames=frames)
+        del logits
+        names = [f"encoder layer {i}" for i in range(cfg.enc_layers)] + [
+            f"decoder layer {i} {part}" for i in range(cfg.n_layers)
+            for part in ("self", "cross")]
+        check([rec[3]["causal"] for rec in seen]
+              == [False] * cfg.enc_layers + [True, False] * cfg.n_layers,
+              f"{cfg.name}: the attentions are not the encoder's non-causal "
+              f"ones, then causal self- and non-causal cross-attention")
+        timed(cfg, lm, prefill, toks, enc_frames=frames)
+        del lm, prefill, frames
+        torch.cuda.empty_cache()
+        hold_all(cfg, names, seen)
+        del seen
+        torch.cuda.empty_cache()
+
+        # 2. float32: the forward against decode with the cross cache
+        # filled from encode (LM._cross_kv, as the forward projects it)
+        lm32 = drawn(cfg, torch.float32, seed=1, tag=tag)
+        toks = tokens(cfg.vocab, 2, F32_TOKENS, seed=18)
+        frames = torch.randn((2, cfg.cross_len, cfg.d_model), generator=g,
+                             device=dev)
+        reset_launches()
+        full, _ = lm32.forward(toks, enc_frames=frames)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        check(counts == {**{n: 0 for n in KERNELS},
+                         "flash_attention": n_attn},
+              f"{cfg.name} float32 forward launched {counts}")
+        launches["flash_attention"] += n_attn
+        cache = lm32.init_cache(2, F32_TOKENS)
+        enc = lm32.encode(frames)
+        for n, i, kind, p in lm32.sublayers():
+            k, v = lm32._cross_kv(enc, p)
+            cache["blocks"][f"{i}:{kind}"]["xk"][n] = k
+            cache["blocks"][f"{i}:{kind}"]["xv"][n] = v
+        xk = cache["blocks"]["0:attn"]["xk"].clone()
+        reset_launches()
+        t0 = time.perf_counter()
+        for t in range(F32_TOKENS):
+            last, cache = lm32.decode_step(cache, toks[:, t:t + 1])
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        counts = launch_counts()
+        want = {**{n: 0 for n in KERNELS},
+                "flash_attention": cfg.n_layers * F32_TOKENS}
+        check(counts == want, f"{cfg.name}: {F32_TOKENS} decode steps "
+              f"launched {counts}, expected {want}")
+        launches["flash_attention"] += counts["flash_attention"]
+        check(torch.equal(cache["blocks"]["0:attn"]["xk"], xk),
+              "decode changed the cross cache")
+        derr = float((full[:, -1] - last[:, 0]).abs().max())
+        print(f"{tag} {cfg.name} float32, 2 x {F32_TOKENS} tokens over "
+              f"{cfg.cross_len} frames: forward (flash_attention {n_attn} "
+              f"times) vs {F32_TOKENS} decode steps with the cross cache "
+              f"filled from encode (launches {counts}, {decode_s:.2f} s) "
+              f"last logits max |err| {derr:.3g} (tolerance {DECODE_TOL})")
+        check(derr < DECODE_TOL, f"{cfg.name}: decode differs from the "
+              f"forward by {derr}")
+        del full, last, cache, enc, xk, frames
+
+        # ServeEngine as the launcher serves it: text prompts against the
+        # zero cross cache; the checking forward attends to the same zero
+        # keys and values (a cross-attention over zeros adds nothing)
+        def zero_kv(enc_out, p):
+            z = torch.zeros((enc_out.shape[0], cfg.n_kv_heads, cfg.cross_len,
+                             cfg.d_head), dtype=enc_out.dtype, device=dev)
+            return z, z
+
+        lm32._cross_kv = zero_kv
+        try:
+            serve_and_time(
+                lm32, cfg, cfg, tag=tag,
+                per_step=("flash_attention", cfg.n_layers),
+                forward_kw=lambda rows: {"enc_frames": torch.zeros(
+                    (rows, cfg.cross_len, cfg.d_model), device=dev)})
+        finally:
+            del lm32._cross_kv
+        del lm32
+        torch.cuda.empty_cache()
+
+        # 3. the card's float32 whisper-tiny against JAX's
+        with np.load(os.path.join(ASSETS, "whisper_expected.npz")) as z:
+            expected = {name: z[name] for name in z.files}
+        meta = json.loads(str(expected["meta"]))
+        lm_a = LM(get_config(meta["arch"]), dtype=torch.float32, device=dev)
+        frames_np, toks_np = draw_whisper(lm_a, meta)
+        frames = torch.from_numpy(frames_np).to(dev)
+        enc = lm_a.encode(frames)[:, meta["enc_rows"]].cpu().numpy()
+        logits, _ = lm_a.forward(torch.from_numpy(toks_np).to(dev),
+                                 enc_frames=frames)
+        logits = logits[:, meta["logit_positions"]].cpu().numpy()
+        e_err = float(np.abs(enc - expected["enc_out"]).max())
+        l_err = float(np.abs(logits - expected["logits"]).max())
+        print(f"{tag} {meta['arch']} float32 on the card against JAX's "
+              f"(whisper_expected.npz: B {meta['B']}, {meta['frames']} "
+              f"frames, {meta['tokens']} tokens): encoder rows "
+              f"{meta['enc_rows']} max |err| {e_err:.3g}, logits at "
+              f"{meta['logit_positions']} max |err| {l_err:.3g} (tolerance "
+              f"{WHISPER_ASSET_TOL}; max |logit| "
+              f"{float(np.abs(logits).max()):.3g})")
+        check(e_err <= WHISPER_ASSET_TOL and l_err <= WHISPER_ASSET_TOL,
+              f"{meta['arch']}: the card's float32 differs from JAX's "
+              f"(encoder {e_err:.3g}, logits {l_err:.3g})")
+        del lm_a, frames, enc, logits
+        torch.cuda.empty_cache()
+        peak(f"{cfg.name} (bf16 prefill, float32 models)")
+
+        # 4. InternVL2-26B, whole: bf16 prefill with patch_embeds, counted;
+        # the splice exact
+        cfg = get_config(VLM_ARCH)
+        B, S = VLM_PREFILL
+        P = cfg.n_patches
+        lm = drawn(cfg, torch.bfloat16, seed=0, tag=tag)
+        patches = torch.randn((B, P, cfg.d_model), generator=g,
+                              device=dev).to(torch.bfloat16)
+        toks = tokens(cfg.vocab, B, S)
+        prefill = make_prefill_step(lm)
+        logits, seen = counted_prefill(cfg, prefill, toks, cfg.n_layers,
+                                       patch_embeds=patches)
+        x = lm._embed(toks, patches)
+        check(x.shape == (B, S, cfg.d_model)
+              and torch.equal(x[:, :P], patches.to(lm.dtype))
+              and torch.equal(x[:, P:], lm.top["embed"][toks[:, P:].long()]),
+              f"{cfg.name}: the embedded sequence is not the patches over "
+              f"the first {P} positions, then the tokens' embeddings")
+        del x
+        other = toks.clone()
+        other[:, :P] = (other[:, :P] + 7) % cfg.vocab
+        again = prefill(other, patch_embeds=patches)
+        same_logits = torch.equal(again, logits)
+        print(f"{tag} {cfg.name} splice: the first {P} embedded positions "
+              f"equal the patches in bf16; other tokens under the patches "
+              f"give bit-identical logits: {same_logits}")
+        check(same_logits, f"{cfg.name}: the tokens under the patches "
+              f"changed the logits")
+        del again, logits, other
+        timed(cfg, lm, prefill, toks, patch_embeds=patches)
+        del lm, prefill, patches
+        torch.cuda.empty_cache()
+        hold_all(cfg, [f"layer {i}" for i in range(cfg.n_layers)], seen)
+        del seen
+        torch.cuda.empty_cache()
+        peak(f"{cfg.name} (bf16 prefill)")
+
+        # 5. float32 at VLM_F32_LAYERS layers of full width, on the tokens
+        # (decode has no patch input): forward against decode, ServeEngine
+        cfg = dataclasses.replace(cfg, n_layers=VLM_F32_LAYERS)
+        lm32 = drawn(cfg, torch.float32, seed=1, tag=tag)
+        forward_vs_decode(lm32, "flash_attention", cfg.n_layers, tag=tag)
+        serve_and_time(lm32, cfg, cfg, tag=tag)
+        del lm32
+        torch.cuda.empty_cache()
+        peak(f"{cfg.name} at {cfg.n_layers} layers (float32)")
+        print(f"{tag} phase wall {time.perf_counter() - t_phase:.3f} s — "
+              f"card: {card}")
+
+    frontends()
+
     # --------------------------------------------------------------- 7 times
     images = xte[:SERVE_BATCH]
     times = host_times(prog, images)
@@ -3422,15 +3853,17 @@ def main() -> int:
     work["spike_matmul"] = (M * K + K * N + 4 * M * N, 2 * M * K * N,
                             INT8_OPS_PER_S)
 
-    def attn_work(q, k):
-        """(bytes, operations) of causal attention: q, k, v read once and
-        the output written once; 2 FLOPs a multiply-add in QK^T and in PV
-        over the S(S+1)/2 visible pairs of each head."""
-        B_, Hq, S_, D_ = q.shape
-        Hkv = k.shape[1]
+    def attn_work(q, k, causal=True):
+        """(bytes, operations) of attention: q, k, v read once and the
+        output written once; 2 FLOPs a multiply-add in QK^T and in PV over
+        the visible pairs of each head, S(S+1)/2 causal (Sq = Skv), all
+        Sq * Skv without the mask."""
+        B_, Hq, Sq, D_ = q.shape
+        Hkv, Skv = k.shape[1], k.shape[2]
         size = q.element_size()
-        return (size * B_ * S_ * D_ * (2 * Hq + 2 * Hkv),
-                4 * B_ * Hq * (S_ * (S_ + 1) // 2) * D_)
+        pairs = Sq * (Sq + 1) // 2 if causal else Sq * Skv
+        return (size * B_ * D_ * (2 * Hq * Sq + 2 * Hkv * Skv),
+                4 * B_ * Hq * pairs * D_)
 
     work["flash_attention_sm90"] = (*attn_work(*aq[S0][:2]), BF16_FLOPS)
     work["flash_attention"] = (*attn_work(*aq32[:2]), SPLIT_TF32_FLOPS)
@@ -3574,6 +4007,49 @@ def main() -> int:
           f"H, D) views: kernel alone {ms:.4f} ms, library {library_ms:.4f} "
           f"ms (scaled_dot_product_attention, alone), bound "
           f"{1e3 * n_ops / BF16_FLOPS:.6f} ms (operations) — card: {card}")
+    # phase 6c's shapes: Whisper's encoder and cross-attention and
+    # InternVL's prefill on the tensor-core kernel, Whisper's decode
+    # cross-attention in float32 on the split-TF32 kernel, each held once to
+    # its plain version and to SDPA, then timed beside both and its bound
+    for case, dname in (("whisper encoder", "bfloat16"),
+                        ("whisper cross", "bfloat16"),
+                        ("whisper decode cross", "float32"),
+                        ("internvl heads", "bfloat16")):
+        (B_, Hq, Hkv, Sq, Skv, D_, causal, _, _, _,
+         layout) = ATTN_CASES[case]
+        qkv = attn_inputs(B_, Hq, Hkv, Sq, Skv, D_, dtypes[dname], layout,
+                          Sq + Skv + 3)
+        kname = ATTN_ROUTE[dname]
+        check(fa.route(*qkv) == kname, f"timed {case} {dname} does not take "
+              f"{kname}")
+        got = fa.flash_attention(*qkv, causal=causal)
+        hold_attention(kname, f"timed {case}", dname, *qkv,
+                       {"causal": causal}, got, [0.0, float("inf")])
+        lib = sdpa_attention(*qkv, causal=causal)
+        tol = ATTN_TOL[dname]
+        check(torch.allclose(got.float(), lib.float(), rtol=tol, atol=tol),
+              f"SDPA, the yardstick, differs from {kname} on {case} by "
+              f"{float((got.float() - lib.float()).abs().max())}")
+        del got, lib
+        n_bytes, n_ops = attn_work(*qkv[:2], causal=causal)
+        rate = BF16_FLOPS if dname == "bfloat16" else SPLIT_TF32_FLOPS
+        t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / rate
+        ms, host_ms = kernel_ms(
+            lambda: fa.flash_attention(*qkv, causal=causal), *FEW_SAMPLES)
+        plain_ms = call_ms(
+            lambda: fa_ref.flash_attention_ref(*qkv, causal=causal),
+            FEW_SAMPLES[0])
+        library_ms = kernel_ms(lambda: sdpa_attention(*qkv, causal=causal),
+                               *FEW_SAMPLES)[0]
+        print(f"[times] {kname}: {case} B={B_} Hq={Hq} Hkv={Hkv} Sq={Sq} "
+              f"Skv={Skv} D={D_} causal={causal} {dname}, layout {layout}: "
+              f"kernel alone {ms:.4f} ms, wrapper host {host_ms:.4f} ms per "
+              f"call, plain {plain_ms:.4f} ms, library {library_ms:.4f} ms "
+              f"(scaled_dot_product_attention, alone), bound "
+              f"{1e3 * max(t_bytes, t_ops):.6f} ms "
+              f"({'bytes' if t_bytes >= t_ops else 'operations'}: "
+              f"{n_bytes} B, {n_ops} ops) — card: {card}")
+        del qkv
     # the split-TF32 kernel on bf16 inputs no TMA map describes (a d stride
     # of 2: its element loads) at Qwen3-8B's head shape, S 4096
     qs2 = attn_inputs(1, cfg.n_heads, cfg.n_kv_heads, S0, S0, cfg.d_head,

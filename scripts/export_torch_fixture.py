@@ -67,7 +67,16 @@ so the JAX side's artifact and outputs are exported once, here, into
     its ``numpy.random.RandomState`` seed; the inputs are not stored),
     ``{case}_out`` (float32), ``{case}_aux``, ``{case}_top_i`` and
     ``{case}_keep`` (the routing ``jax_routing`` reads off JAX's own
-    functions). ``--only-moe`` writes this file alone.
+    functions). ``--only-moe`` writes this file alone;
+  * ``whisper_expected.npz`` — the JAX package's float32 whisper-tiny at
+    full width, on the CPU, with every weight, the frames and the tokens
+    drawn by ``draw_whisper_case`` from the JSON recipe ``WHISPER_CASE``
+    (``meta``; its ``numpy.random.RandomState`` seed, nothing of JAX's
+    initialiser): ``enc_out`` (the encoder's output at the frames
+    ``meta["enc_rows"]``) and ``logits`` (``forward(tokens,
+    enc_frames=frames)`` at the positions ``meta["logit_positions"]``), both
+    float32. ``chip_smoke.py`` redraws the same model and inputs without
+    JAX. ``--only-whisper`` writes this file alone.
 
 Run from the repo root (the CPU is enough):
 
@@ -80,6 +89,8 @@ Run from the repo root (the CPU is enough):
         --only-faults
     PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/export_torch_fixture.py \
         --only-moe
+    PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/export_torch_fixture.py \
+        --only-whisper
 """
 
 from __future__ import annotations
@@ -106,6 +117,7 @@ from repro.core.program_io import serialize_program
 from repro.core.reference import SNNReference
 from repro.data import mnist
 from repro.faults import Canary, FaultPlan, corrupt_artifact, integrity_errors
+from repro.configs.registry import get_config
 from repro.models import moe as jmoe
 from repro.serving.snn_engine import SNNServeEngine
 from repro.training.ttfs_trainer import train_dense_proxy
@@ -481,6 +493,86 @@ def export_moe(out_dir: str) -> None:
           f"arrays, {os.path.getsize(path)} bytes")
 
 
+#: whisper_expected.npz's recipe: the model, the RandomState seed, the batch,
+#: the encoder's frames and the decoder's tokens, the weights' scale (a leaf
+#: named in ``norms`` is 1 + norm_scale * N(0, 1), every other leaf, biases
+#: included, scale * N(0, 1)), and the encoder rows and logit positions kept
+WHISPER_CASE = dict(arch="whisper-tiny", seed=25, B=1, frames=1500,
+                    tokens=32, scale=0.02, norm_scale=0.1,
+                    norms=["enc_final_norm", "final_norm", "ln", "ln2",
+                           "x_ln"],
+                    enc_rows=[0, 1, 750, 1499], logit_positions=[0, 8, 16, 31])
+
+
+def draw_whisper_case(meta: dict, shapes: dict):
+    """(frames (B, frames, d) float32, tokens (B, tokens) int32, params) of
+    a ``WHISPER_CASE`` recipe, in JAX's tree layout (``shapes``: the tree
+    of leaf shapes, the stacked ones with their layer axis first), drawn
+    from ``RandomState(seed)`` in this order: the frames, the tokens, the
+    top-level leaves by name, each encoder layer's leaves by name (layer 0
+    first), each decoder layer's leaves by name (``chip_smoke.py`` draws
+    them the same way into the port's model)."""
+    rng = np.random.RandomState(meta["seed"])
+    d, vocab = shapes["embed"][1], shapes["embed"][0]
+    frames = rng.randn(meta["B"], meta["frames"], d).astype(np.float32)
+    tokens = rng.randint(0, vocab, (meta["B"], meta["tokens"])).astype(
+        np.int32)
+
+    def draw(name, shape):
+        w = rng.randn(*shape)
+        if name in meta["norms"]:
+            return (1.0 + meta["norm_scale"] * w).astype(np.float32)
+        return (meta["scale"] * w).astype(np.float32)
+
+    stacked = ("enc_blocks", "blocks")
+    params = {name: draw(name, shapes[name])
+              for name in sorted(shapes) if name not in stacked}
+    for tree in stacked:
+        leaves = shapes[tree]["0:attn"]
+        out = {name: np.empty(shape, np.float32)
+               for name, shape in leaves.items()}
+        for n in range(next(iter(leaves.values()))[0]):
+            for name in sorted(leaves):
+                out[name][n] = draw(name, leaves[name][1:])
+        params[tree] = {"0:attn": out}
+    return frames, tokens, params
+
+
+def whisper_shapes(cfg) -> dict:
+    """The shapes of JAX's float32 parameter tree of ``cfg``."""
+    import jax
+    import jax.numpy as jnp
+    from repro.models.model import LM as JLM
+    specs = JLM(cfg).param_specs(jnp.float32)
+    return jax.tree.map(lambda s: tuple(s.shape), specs)
+
+
+def whisper_expected() -> dict:
+    import jax.numpy as jnp
+    from repro.models.model import LM as JLM
+    meta = WHISPER_CASE
+    cfg = get_config(meta["arch"])
+    frames, tokens, params = draw_whisper_case(meta, whisper_shapes(cfg))
+    jlm = JLM(cfg)
+    enc = np.asarray(jlm.encode(params, jnp.asarray(frames)))
+    logits, _ = jlm.forward(params, jnp.asarray(tokens),
+                            enc_frames=jnp.asarray(frames))
+    logits = np.asarray(logits)
+    assert np.isfinite(logits).all()
+    return {"meta": np.array(json.dumps(meta, sort_keys=True)),
+            "enc_out": enc[:, meta["enc_rows"]].astype(np.float32),
+            "logits": logits[:, meta["logit_positions"]].astype(np.float32)}
+
+
+def export_whisper(out_dir: str) -> None:
+    t0 = time.perf_counter()
+    out = whisper_expected()
+    path = os.path.join(out_dir, "whisper_expected.npz")
+    np.savez_compressed(path, **out)
+    print(f"wrote {path} in {time.perf_counter() - t0:.1f}s: {len(out)} "
+          f"arrays, {os.path.getsize(path)} bytes")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=ASSETS)
@@ -497,6 +589,8 @@ def main(argv=None) -> int:
                          "committed artifacts")
     ap.add_argument("--only-moe", action="store_true",
                     help="only write moe_expected.npz")
+    ap.add_argument("--only-whisper", action="store_true",
+                    help="only write whisper_expected.npz")
     a = ap.parse_args(argv)
     os.makedirs(a.out, exist_ok=True)
     if a.only_board:
@@ -511,6 +605,9 @@ def main(argv=None) -> int:
     if a.only_moe:
         export_moe(a.out)
         return 0
+    if a.only_whisper:
+        export_whisper(a.out)
+        return 0
     export_fuzz(a.out)
     if not a.skip_mnist:
         export_mnist(a.out)
@@ -518,6 +615,7 @@ def main(argv=None) -> int:
     export_transport(a.out)
     export_faults(a.out)
     export_moe(a.out)
+    export_whisper(a.out)
     return 0
 
 

@@ -6,10 +6,14 @@ SNN classifier, with its leader/follower program distribution).
         --requests 16 --max-new 12 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \\
         --reduced --device cpu      # also mamba2-780m, jamba-1.5-large-398b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-tiny \\
+        --reduced --device cpu      # also internvl2-26b
 
 LM parameters are drawn in float32 from a seeded generator, as the JAX
 launcher draws them (``repro.launch.serve``); the prompts are JAX's, from
-``numpy.random.RandomState(0)``.
+``numpy.random.RandomState(0)``, text only: Whisper decodes against its
+zero cross cache and InternVL without patches, as JAX's launcher serves
+them.
 
 SNN multi-host mode (lower once per process group): point every process at
 the same exported artifact and a transport — the leader lowers and

@@ -4,8 +4,7 @@ same in both packages (the CPU tests compare them with ``dataclasses.asdict``).
 
 Families: dense / moe / ssm / hybrid / audio (enc-dec) / vlm. Heterogeneous
 stacks (Jamba) are a repeating *period* of sublayers, ``n_layers /
-len(period)`` times. The port runs the dense, MoE, SSM and hybrid families
-(``models/model.py``; audio and vlm wait for ROADMAP §1 items 8 and 9); the
+len(period)`` times. The port runs every family (``models/model.py``); the
 fields that only steer sharding, rematerialisation or the GQA layout under
 JAX (``attn_gqa_mode``, ``remat*``, ``fsdp_weight_gather``,
 ``activation_constraints``, ``moe_buf_mode``) are kept so configurations

@@ -1,10 +1,13 @@
 """Carry a JAX ``LM``'s parameters across into the port's ``LM``.
 
 JAX keeps a parameter tree: ``embed``, ``final_norm`` (``final_norm_b``),
-``lm_head`` at the top, and the sublayers of one period stacked over
-``n_periods`` under ``blocks["{i}:{kind}"][name]``, each leaf of shape
+``lm_head`` (and an encoder-decoder's ``enc_final_norm``,
+``enc_final_norm_b``) at the top, and the sublayers of one period stacked
+over ``n_periods`` under ``blocks["{i}:{kind}"][name]``, each leaf of shape
 (n_periods, ...). Slice p of each stacked leaf becomes
-``lm.layers[p]["{i}:{kind}"][name]``. Matrices keep JAX's ``x @ w``
+``lm.layers[p]["{i}:{kind}"][name]``, the cross-attention leaves ``x_*``
+among them; an encoder's layers, stacked over ``enc_layers`` under
+``enc_blocks["0:attn"][name]``, become ``lm.encoder[n]["0:attn"][name]``. Matrices keep JAX's ``x @ w``
 orientation, (in, out), which is the port's too, so nothing is transposed.
 Each leaf keeps its own dtype: a bf16 tree's router, ``A_log``, ``D`` and
 ``dt_bias`` are float32 in both packages, and a leaf whose dtype differs
@@ -30,17 +33,23 @@ def lm_from_jax(cfg: ArchConfig, params: dict, *,
     parameter."""
     lm = LM(cfg, dtype=_torch_dtype(np.asarray(params["embed"]).dtype),
             device=device)
-    blocks = params["blocks"]
-    keys = {f"{i}:{kind}" for i, kind in enumerate(cfg.period)}
-    if set(blocks) != keys:
-        raise ValueError(f"expected the period {sorted(keys)}; got "
-                         f"{sorted(blocks)}")
-    top = {k: v for k, v in params.items() if k != "blocks"}
-    _load(lm.top, top, "params")
-    for n, i, kind, sub in lm.sublayers():
-        key = f"{i}:{kind}"
-        _load(sub, {k: np.asarray(v)[n] for k, v in blocks[key].items()},
-              f"blocks[{key!r}][{n}]")
+    stacked = {"blocks": ({f"{i}:{kind}" for i, kind in enumerate(cfg.period)},
+                          [(n, f"{i}:{kind}", sub)
+                           for n, i, kind, sub in lm.sublayers()])}
+    if cfg.enc_layers:
+        stacked["enc_blocks"] = ({"0:attn"},
+                                 [(n, "0:attn", blk["0:attn"])
+                                  for n, blk in enumerate(lm.encoder)])
+    for tree, (keys, subs) in stacked.items():
+        if tree not in params or set(params[tree]) != keys:
+            raise ValueError(f"expected {tree} of the period {sorted(keys)}; "
+                             f"got {sorted(params.get(tree, ()))}")
+        for n, key, sub in subs:
+            _load(sub, {k: np.asarray(v)[n]
+                        for k, v in params[tree][key].items()},
+                  f"{tree}[{key!r}][{n}]")
+    _load(lm.top, {k: v for k, v in params.items() if k not in stacked},
+          "params")
     return lm
 
 

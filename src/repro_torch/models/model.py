@@ -2,14 +2,17 @@
 port runs.
 
 The port of ``repro.models.model.LM``. A model is ``cfg.n_periods`` periods
-of the sublayers of ``cfg.period`` (dense and MoE: one ``"attn"``; Mamba2:
-one ``"mamba"``; Jamba: one attention and seven mamba sublayers). Each
-sublayer holds attention or mamba parameters, plus a MoE FFN where
-``cfg.is_moe_layer(i)``, else the dense FFN where ``d_ff`` is set. ``LM``
-is an ``nn.Module`` holding them under JAX's names: ``layers[p]`` is period
-p, an ``nn.ModuleDict`` of one ``nn.ParameterDict`` per sublayer, keyed
-``"{i}:{kind}"`` as JAX's ``blocks`` are (JAX stacks them over
-``n_periods``). Weight matrices keep JAX's ``x @ w`` orientation, (in, out),
+of the sublayers of ``cfg.period`` (dense, MoE, Whisper's decoder and
+InternVL: one ``"attn"``; Mamba2: one ``"mamba"``; Jamba: one attention and
+seven mamba sublayers). Each sublayer holds attention or mamba parameters,
+plus a MoE FFN where ``cfg.is_moe_layer(i)``, else the dense FFN where
+``d_ff`` is set. ``LM`` is an ``nn.Module`` holding them under JAX's names:
+``layers[p]`` is period p, an ``nn.ModuleDict`` of one ``nn.ParameterDict``
+per sublayer, keyed ``"{i}:{kind}"`` as JAX's ``blocks`` are (JAX stacks
+them over ``n_periods``). An encoder-decoder (Whisper, ``cfg.enc_layers``)
+also holds the cross-attention leaves ``x_*`` in each decoder sublayer and
+``encoder[n]["0:attn"]`` for each of its encoder layers (JAX's
+``enc_blocks``). Weight matrices keep JAX's ``x @ w`` orientation, (in, out),
 so a JAX parameter tree loads without a transpose (``models/convert.py``).
 The router, ``A_log``, ``D`` and ``dt_bias`` are float32 whatever the
 model's dtype, as JAX draws them. What JAX's ``constrain`` callbacks,
@@ -20,9 +23,14 @@ Full-sequence attention (``forward``) runs the flash-attention kernel once
 per attention sublayer on the card. Decode (``decode_step``) attends with
 plain PyTorch against a KV cache that it updates in place, as JAX computes
 it with jnp; the MoE FFN and the SSD mixer are plain PyTorch products
-(``models/moe.py``, ``models/mamba2.py``), as JAX leaves them to XLA. The
-audio and vision families raise ``NotImplementedError`` naming their
-ROADMAP item.
+(``models/moe.py``, ``models/mamba2.py``), as JAX leaves them to XLA.
+Cross-attention calls the flash kernel in the forward and in every decode
+step, as JAX calls its ``chunked_attention`` there.
+
+Both frontends are JAX's stubs: Whisper's encoder takes precomputed frame
+embeddings (B, S_enc, d) in the model's dtype (``enc_frames``), InternVL's
+forward precomputed patch embeddings (B, P, d) that replace the first P
+token embeddings (``patch_embeds``).
 
     lm = LM(get_config("qwen3-8b"))                # bf16 on the card
     lm.init_params(torch.Generator("cuda").manual_seed(0))
@@ -31,8 +39,11 @@ ROADMAP item.
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 from typing import NamedTuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -40,23 +51,6 @@ from repro_torch.core.lowering import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2, moe
 from repro_torch.models.config import ArchConfig
-
-#: the ROADMAP §1 item that ports each family the port does not run yet
-_WAITING = {
-    "audio": "item 8 (Whisper)",
-    "vlm": "item 9 (InternVL)",
-}
-
-
-def check_supported(cfg: ArchConfig) -> None:
-    """Raise unless the port runs ``cfg``: every family but the audio
-    encoder-decoder and the vision frontend."""
-    if cfg.enc_layers or cfg.frontend or cfg.family in _WAITING:
-        item = _WAITING.get(cfg.family, "§1")
-        raise NotImplementedError(
-            f"{cfg.name}: the port does not run the {cfg.family} LM family "
-            f"yet; it waits for ROADMAP §1 {item}")
-
 
 class Leaf(NamedTuple):
     """A parameter's shape, how JAX initialises it (``"normal"`` times
@@ -68,7 +62,7 @@ class Leaf(NamedTuple):
     float32: bool = False
 
 
-def _attn_shapes(cfg: ArchConfig) -> dict[str, Leaf]:
+def _attn_shapes(cfg: ArchConfig, cross: bool = False) -> dict[str, Leaf]:
     d, hq, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     p = {"ln": Leaf((d,), "ones"),
          "wq": Leaf((d, hq * dh), "normal"),
@@ -84,6 +78,14 @@ def _attn_shapes(cfg: ArchConfig) -> dict[str, Leaf]:
     if cfg.qk_norm:
         p["q_norm"] = Leaf((dh,), "ones")
         p["k_norm"] = Leaf((dh,), "ones")
+    if cross:
+        p["x_ln"] = Leaf((d,), "ones")
+        if cfg.norm == "layernorm":
+            p["x_ln_b"] = Leaf((d,), "zeros")
+        p["x_wq"] = Leaf((d, hq * dh), "normal")
+        p["x_wk"] = Leaf((d, hkv * dh), "normal")
+        p["x_wv"] = Leaf((d, hkv * dh), "normal")
+        p["x_wo"] = Leaf((hq * dh, d), "normal")
     return p
 
 
@@ -129,11 +131,13 @@ def _ffn_shapes(cfg: ArchConfig, idx_in_period: int) -> dict[str, Leaf]:
             "w_down": Leaf((cfg.d_ff, d), "normal")}
 
 
-def _sublayer_shapes(cfg: ArchConfig, i: int, kind: str) -> dict[str, Leaf]:
+def _sublayer_shapes(cfg: ArchConfig, i: int, kind: str,
+                     cross: bool = False) -> dict[str, Leaf]:
     """Sublayer ``i`` of the period, of ``kind``, as JAX's
-    ``_period_params`` builds it."""
+    ``_period_params`` builds it (with the cross-attention leaves where
+    ``cross``)."""
     if kind == "attn":
-        p = _attn_shapes(cfg)
+        p = _attn_shapes(cfg, cross)
     elif kind == "mamba":
         p = _mamba_shapes(cfg)
     else:
@@ -149,7 +153,33 @@ def _top_shapes(cfg: ArchConfig) -> dict[str, Leaf]:
         p["final_norm_b"] = Leaf((cfg.d_model,), "zeros")
     if not cfg.tie_embeddings:
         p["lm_head"] = Leaf((cfg.d_model, cfg.vocab), "normal")
+    if cfg.enc_layers:
+        p["enc_final_norm"] = Leaf((cfg.d_model,), "ones")
+        p["enc_final_norm_b"] = Leaf((cfg.d_model,), "zeros")
     return p
+
+
+def _encoder_cfg(cfg: ArchConfig) -> ArchConfig:
+    """The config JAX draws the encoder's layers under: every head its own
+    K and V."""
+    return dataclasses.replace(cfg, n_kv_heads=cfg.n_heads)
+
+
+@functools.lru_cache(maxsize=8)
+def _sinusoid_np(S: int, d: int) -> np.ndarray:
+    """JAX's sinusoid table (1, S, d) in float64: sin then cos of
+    pos / 10000 ** (2i / d). Computed in float32 the table moves by up to
+    1.07e-4 at S 1500, d 384, and 1,353 of its bf16 values."""
+    pos = np.arange(S)[:, None]
+    i = np.arange(d // 2)[None, :]
+    ang = pos / (10000 ** (2 * i / d))
+    return np.concatenate([np.sin(ang), np.cos(ang)], axis=-1)[None]
+
+
+def _sinusoid(S: int, d: int, dtype: torch.dtype,
+              device: torch.device) -> torch.Tensor:
+    """The float64 table cast to ``dtype`` on the host, as JAX casts it."""
+    return torch.from_numpy(_sinusoid_np(S, d)).to(dtype).to(device)
 
 
 class LM(nn.Module):
@@ -159,7 +189,6 @@ class LM(nn.Module):
         ``dtype`` (the float32 leaves in float32); ``init_params`` draws
         them, ``convert`` loads JAX's."""
         super().__init__()
-        check_supported(cfg)
         dev = resolve_device(device)
         self.cfg = cfg
 
@@ -171,11 +200,17 @@ class LM(nn.Module):
                     requires_grad=False)
                 for name, leaf in shapes.items()})
 
+        cross = bool(cfg.enc_layers)
         self.top = alloc(_top_shapes(cfg))
         self.layers = nn.ModuleList(
-            nn.ModuleDict({f"{i}:{kind}": alloc(_sublayer_shapes(cfg, i, kind))
+            nn.ModuleDict({f"{i}:{kind}":
+                           alloc(_sublayer_shapes(cfg, i, kind, cross))
                            for i, kind in enumerate(cfg.period)})
             for _ in range(cfg.n_periods))
+        self.encoder = nn.ModuleList(
+            nn.ModuleDict({"0:attn": alloc(_sublayer_shapes(
+                _encoder_cfg(cfg), 0, "attn"))})
+            for _ in range(cfg.enc_layers))
 
     @property
     def device(self) -> torch.device:
@@ -201,9 +236,12 @@ class LM(nn.Module):
         log(linspace(1, 16, H)). ``generator`` lies on the parameters'
         device; the same seed gives the same parameters, but not JAX's
         numbers (``convert`` carries those across)."""
-        groups = [(self.top, _top_shapes(self.cfg))] + [
-            (sub, _sublayer_shapes(self.cfg, i, kind))
-            for _, i, kind, sub in self.sublayers()]
+        cfg, cross = self.cfg, bool(self.cfg.enc_layers)
+        groups = [(self.top, _top_shapes(cfg))] + [
+            (sub, _sublayer_shapes(cfg, i, kind, cross))
+            for _, i, kind, sub in self.sublayers()] + [
+            (blk["0:attn"], _sublayer_shapes(_encoder_cfg(cfg), 0, "attn"))
+            for blk in self.encoder]
         for params, shapes in groups:
             for name, leaf in shapes.items():
                 w = params[name]
@@ -246,17 +284,40 @@ class LM(nn.Module):
             k = L.apply_rope(k, positions, theta)
         return q, k
 
-    def _attn_full(self, x, p, positions):
+    def _attn_full(self, x, p, positions, causal=True):
         """Prefill attention over the whole sequence: the flash kernel reads
         the (B, S, H, D) projections through (B, H, S, D) views."""
         h = self._norm(x, p)
         q, k, v = self._qkv(h, p)
         q, k = self._rope(q, k, positions)
         out = L.chunked_attention(q.movedim(1, 2), k.movedim(1, 2),
-                                  v.movedim(1, 2), causal=True,
+                                  v.movedim(1, 2), causal=causal,
                                   window=self.cfg.attn_window)
         out = out.movedim(1, 2).reshape(x.shape[0], x.shape[1], -1)
         return x + out @ p["wo"]
+
+    def _cross_kv(self, enc_out, p):
+        """The keys and values sublayer ``p`` attends to over the encoder's
+        output: (B, Hkv, S_enc, D) views of its (B, S_enc, Hkv, D)
+        projections, the forward's cross-attention inputs and what a filled
+        decode cache holds as ``xk``, ``xv``."""
+        c = self.cfg
+        B = enc_out.shape[0]
+        k = (enc_out @ p["x_wk"]).reshape(B, -1, c.n_kv_heads, c.d_head)
+        v = (enc_out @ p["x_wv"]).reshape(B, -1, c.n_kv_heads, c.d_head)
+        return k.movedim(1, 2), v.movedim(1, 2)
+
+    def _cross_attn(self, x, p, k, v):
+        """Non-causal attention of x's queries over ``k``, ``v`` (B, Hkv,
+        S_enc, D) with the sublayer's ``x_*`` leaves; no qkv bias and no
+        qk-norm, as JAX's ``_cross_attn`` has none."""
+        c = self.cfg
+        h = self._norm(x, p, "x_ln")
+        B, S = h.shape[:2]
+        q = (h @ p["x_wq"]).reshape(B, S, c.n_heads, c.d_head)
+        out = L.chunked_attention(q.movedim(1, 2), k, v, causal=False)
+        out = out.movedim(1, 2).reshape(B, S, -1)
+        return x + out @ p["x_wo"]
 
     def _ffn(self, x, p, idx_in_period):
         """-> (x + the FFN's output, its aux loss, float32)."""
@@ -284,32 +345,77 @@ class LM(nn.Module):
         return x @ head
 
     # ================================================================ forward
+    def _embed(self, tokens, patch_embeds=None):
+        """Token embeddings, the first P positions replaced by the patch
+        embeddings (B, P, d) cast to the model's dtype: a splice, the
+        sequence keeps its length S."""
+        x = self.top["embed"][tokens.long()]
+        if patch_embeds is not None:
+            P = patch_embeds.shape[1]
+            x = torch.cat([patch_embeds.to(x.dtype), x[:, P:]], dim=1)
+        return x
+
     @torch.no_grad()
-    def forward(self, tokens: torch.Tensor):
+    def forward(self, tokens: torch.Tensor, *, patch_embeds=None,
+                enc_frames=None):
         """Prefill forward: tokens (B, S) on the model's device ->
         (logits (B, S, V), aux loss), aux the float32 sum of the MoE
-        sublayers' load-balance losses (zero without experts)."""
-        x = self.top["embed"][tokens.long()]
+        sublayers' load-balance losses (zero without experts). An
+        encoder-decoder encodes ``enc_frames`` once and each decoder
+        sublayer runs self-attention, cross-attention over the encoder's
+        output, then its FFN."""
+        x = self._embed(tokens, patch_embeds)
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        enc_out = self.encode(enc_frames) if self.cfg.enc_layers else None
         for _, i, kind, p in self.sublayers():
             if kind == "attn":
                 x = self._attn_full(x, p, positions)
+                if enc_out is not None:
+                    x = self._cross_attn(x, p, *self._cross_kv(enc_out, p))
             else:
                 x = x + mamba2.mamba2_mixer(self._norm(x, p), p, self.cfg)
             x, a = self._ffn(x, p, i)
             aux = aux + a
         return self._head(x), aux
 
+    @torch.no_grad()
+    def encode(self, frames: torch.Tensor) -> torch.Tensor:
+        """Whisper's encoder: frames (B, S, d) in the model's dtype ->
+        (B, S, d). The frames plus JAX's sinusoid table, then each layer's
+        non-causal self-attention and GELU FFN, then the layernorm
+        ``enc_final_norm``. JAX runs the encoder's attention under the
+        decoder's config; Whisper's ``n_kv_heads`` equals ``n_heads``, so
+        that reads the encoder's own K and V heads. Frames of another
+        dtype are refused, never cast (JAX would promote them)."""
+        if frames.dtype != self.dtype:
+            raise ValueError(f"enc_frames are {frames.dtype}, the model "
+                             f"{self.dtype}: pass frames in the model's dtype")
+        B, S, _ = frames.shape
+        x = frames + _sinusoid(S, self.cfg.d_model, frames.dtype,
+                               frames.device)
+        pos = torch.arange(S, device=x.device)[None, :]
+        for blk in self.encoder:
+            p = blk["0:attn"]
+            x = self._attn_full(x, p, pos, causal=False)
+            x, _ = self._ffn(x, p, 0)
+        return L.layernorm(x, self.top["enc_final_norm"],
+                           self.top["enc_final_norm_b"])
+
     # ================================================================= cache
-    def init_cache(self, B: int, s_max: int) -> dict:
+    def init_cache(self, B: int, s_max: int,
+                   enc_len: int | None = None) -> dict:
         """An empty decode cache, JAX's layout: for each sublayer
         ``blocks["{i}:{kind}"]`` holds, over the n_periods periods, an
         attention sublayer's ``"k"`` and ``"v"`` (n_periods, B, Hkv, s_kv,
         D) in the parameters' dtype, s_kv = min(s_max, window) under a
         sliding window, and a mamba sublayer's ``"state"`` (n_periods, B, H,
         N, P) in float32 and ``"conv"`` (n_periods, B, K-1, conv_ch) in the
-        parameters' dtype; ``len`` is the tokens seen (a host int)."""
+        parameters' dtype; ``len`` is the tokens seen (a host int). An
+        encoder-decoder's attention sublayers also hold the cross keys and
+        values ``"xk"``, ``"xv"`` (n_periods, B, Hkv, enc_len or
+        cross_len, D), zeros as JAX's are: nothing here or in JAX fills
+        them from an encoder."""
         c = self.cfg
         s_kv = min(s_max, c.attn_window) if c.attn_window else s_max
 
@@ -322,6 +428,10 @@ class LM(nn.Module):
             if kind == "attn":
                 entry = {"k": zeros(c.n_kv_heads, s_kv, c.d_head),
                          "v": zeros(c.n_kv_heads, s_kv, c.d_head)}
+                if c.enc_layers:
+                    el = enc_len or c.cross_len
+                    entry["xk"] = zeros(c.n_kv_heads, el, c.d_head)
+                    entry["xv"] = zeros(c.n_kv_heads, el, c.d_head)
             else:
                 conv_ch = c.d_inner + 2 * c.ssm_n_groups * c.ssm_d_state
                 entry = {"state": zeros(c.ssm_heads, c.ssm_d_state,
@@ -336,7 +446,9 @@ class LM(nn.Module):
         position ``cache["len"]`` for every row; its K and V, and each mamba
         sublayer's new state and conv window, are written into the cache in
         place (JAX returns a new cache), and the returned cache is the same
-        tensors with ``len`` one higher."""
+        tensors with ``len`` one higher. An encoder-decoder's sublayers
+        attend to the cache's ``xk``, ``xv`` after self-attention, through
+        the flash kernel, and leave them as they are."""
         c = self.cfg
         B = tokens.shape[0]
         pos = int(cache["len"])
@@ -361,6 +473,8 @@ class LM(nn.Module):
                                          window=c.attn_window,
                                          window_rotated=rotated)
                 x = x + out.movedim(1, 2).reshape(B, 1, -1) @ p["wo"]
+                if c.enc_layers:
+                    x = self._cross_attn(x, p, pc["xk"][n], pc["xv"][n])
             else:
                 st = mamba2.SSMState(state=pc["state"][n], conv=pc["conv"][n])
                 y, st = mamba2.mamba2_decode_step(h, p, c, st)
@@ -370,10 +484,11 @@ class LM(nn.Module):
             x, _ = self._ffn(x, p, i)
         return self._head(x), {"blocks": blocks, "len": pos + 1}
 
-    def prefill(self, tokens: torch.Tensor, s_max: int):
+    def prefill(self, tokens: torch.Tensor, s_max: int,
+                enc_len: int | None = None):
         """The decode cache built token by token through ``decode_step``
         (JAX's test-scale path) -> (last logits (B, 1, V), cache)."""
-        cache = self.init_cache(tokens.shape[0], s_max)
+        cache = self.init_cache(tokens.shape[0], s_max, enc_len=enc_len)
         logits = None
         for t in range(tokens.shape[1]):
             logits, cache = self.decode_step(cache, tokens[:, t:t + 1])

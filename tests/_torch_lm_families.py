@@ -1,6 +1,7 @@
-"""Checks shared by the port's MoE and SSM test files: one LM family of the
-port against the JAX package's at reduced size on the CPU, parameters
-carried across by ``lm_from_jax``.
+"""Checks shared by the port's MoE, SSM and frontend test files: one LM
+family of the port against the JAX package's at reduced size on the CPU,
+parameters carried across by ``lm_from_jax``; an audio or vision model
+takes its frontend stub (``frontend``) in the forward.
 
 Tolerances: float32 logits and aux within ``LOGIT_TOL`` of JAX's (the two
 frameworks sum in different orders), cache entries within 1e-5, the port's
@@ -53,11 +54,26 @@ def tokens(vocab, B=2, S=24, seed=2):
         np.int32)
 
 
-def jax_prefill(jlm, params, toks, s_max):
+def frontend(cfg, B=2, seed=6) -> dict:
+    """The forward's frontend stub for ``cfg``, numpy float32 from a seed:
+    Whisper's ``enc_frames`` (B, cross_len, d), InternVL's ``patch_embeds``
+    (B, n_patches, d); nothing for the other families."""
+    rng = np.random.RandomState(seed)
+    if cfg.enc_layers:
+        return {"enc_frames": rng.randn(B, cfg.cross_len, cfg.d_model)
+                .astype(np.float32)}
+    if cfg.frontend == "vision":
+        return {"patch_embeds": rng.randn(B, cfg.n_patches, cfg.d_model)
+                .astype(np.float32)}
+    return {}
+
+
+def jax_prefill(jlm, params, toks, s_max, **cache_kw):
     """JAX's ``LM.prefill`` (token by token through ``decode_step``), with
     the step jitted once so the loop runs at test speed."""
     step = jax.jit(jlm.decode_step)
-    cache = jlm.init_cache(toks.shape[0], s_max, dtype=params["embed"].dtype)
+    cache = jlm.init_cache(toks.shape[0], s_max, dtype=params["embed"].dtype,
+                           **cache_kw)
     logits = None
     for t in range(toks.shape[1]):
         logits, cache = step(params, cache, jnp.asarray(toks[:, t:t + 1]))
@@ -65,12 +81,15 @@ def jax_prefill(jlm, params, toks, s_max):
 
 
 def check_forward(jlm, params, lm):
-    """Logits and the summed aux loss within LOGIT_TOL of JAX's; the CPU
-    launches no kernel."""
+    """Logits and the summed aux loss within LOGIT_TOL of JAX's, with the
+    model's frontend stub; the CPU launches no kernel."""
     toks = tokens(lm.cfg.vocab)
-    want, aux_j = jlm.forward(params, jnp.asarray(toks))
+    stub = frontend(lm.cfg)
+    want, aux_j = jlm.forward(params, jnp.asarray(toks),
+                              **{k: jnp.asarray(v) for k, v in stub.items()})
     fa_ops.reset_launches()
-    got, aux = lm.forward(torch.from_numpy(toks))
+    got, aux = lm.forward(torch.from_numpy(toks),
+                          **{k: torch.from_numpy(v) for k, v in stub.items()})
     assert got.shape == (2, 24, lm.cfg.vocab)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=LOGIT_TOL,
                                atol=LOGIT_TOL)
@@ -81,13 +100,13 @@ def check_forward(jlm, params, lm):
     assert fa_ops.LAUNCHES == {"flash_attention": 0, "flash_attention_sm90": 0}
 
 
-def check_prefill(jlm, params, lm, s_max=32):
+def check_prefill(jlm, params, lm, s_max=32, **cache_kw):
     """Token-by-token prefill: the last logits and every cache entry (K, V,
-    SSM state and conv window) against JAX's, then one more step through
-    the serve-step factories."""
+    cross K and V, SSM state and conv window) against JAX's, then one more
+    step through the serve-step factories."""
     toks = tokens(lm.cfg.vocab)
-    want, jcache = jax_prefill(jlm, params, toks, s_max)
-    got, cache = lm.prefill(torch.from_numpy(toks), s_max=s_max)
+    want, jcache = jax_prefill(jlm, params, toks, s_max, **cache_kw)
+    got, cache = lm.prefill(torch.from_numpy(toks), s_max=s_max, **cache_kw)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=LOGIT_TOL,
                                atol=LOGIT_TOL)
     assert cache["len"] == int(jcache["len"]) == toks.shape[1]
