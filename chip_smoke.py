@@ -228,6 +228,19 @@ Phases (any failure exits non-zero; nothing is caught):
                and the same check must catch a planted fault (the last q
                tile's first visible key tile skipped) in every case that has
                a key tile to skip;
+  5b. backward — the backward kernel (flash_attention_bwd,
+               csrc/flash_attention_bwd.cu) against flash_attention_bwd_ref
+               on the card, one launch each, counted, in float32 (2e-5) and
+               bf16 (2e-2), on the forward kernel's output: phase 5's sweep,
+               GQA 8 with kv_len < Skv, a window over several tiles, queries
+               that see no key, Whisper's training cross-attention (B 4,
+               Sq 448 over 1,500 keys, D 64, non-causal) and Yi-6B's
+               training shape (B 4, 32/4 heads, S 2048, D 128, causal), the
+               last two as the model's views. dq, dk and dv are held
+               element by element and by the relative error norm of each
+               128-row tile (ATTN_BWD_REL_TOL); two launches on the same
+               inputs must be bitwise equal, and the tile check must catch
+               a planted fault (pass 2 skipping the first key tile);
   6. LM path — Qwen3-8B at full width and depth (36 layers, 8.19 B
                parameters drawn in bf16 on the card from a seeded generator):
                make_prefill_step on 2 x 4096 tokens of the TokenPipeline,
@@ -309,6 +322,30 @@ Phases (any failure exits non-zero; nothing is caught):
                (encode, the cross-attention and the LM head in ranges of
                their own) and the LM head's product alone; the float32
                decode step (median of 16); the peak memory of each model;
+  6d. training — LM training (a function of its own, training()), float32.
+               Yi-6B at full width, 8 of its 32 layers (1.91 B parameters),
+               AdamW and remat as configured, 5 steps of 4 x 2048 tokens
+               through the launcher's Trainer, each counted (flash_attention
+               16 times: 8 forward, 8 recomputed by remat; the backward
+               kernel 8 times; no other kernel, and no call of the plain
+               attention, forward or backward); loss and grad norm finite;
+               the step's wall time (median of 3 warm steps), tokens/s and
+               peak memory; the gradients of one batch with attention's
+               backward on the kernel against those with it on the plain
+               version, leaf by leaf (TRAIN_GRAD_REL_TOL); one step under
+               torch.profiler (forward and backward products, attention
+               forward and backward, optimiser, other; busy share).
+               Whisper-tiny whole, 4 x 448 tokens over 4 x 1,500 frames, 3
+               counted steps (flash_attention 20 a step: 4 encoder, 4 self-
+               and 4 cross-attentions twice under remat; the backward 12), a
+               checkpoint at step 2 restored into a fresh model and
+               optimiser whose step 3 equals the uninterrupted run's bit for
+               bit (deterministic algorithms on around both). The reduced
+               Yi-6B redrawn from src/repro_torch/assets/
+               lm_train_expected.npz's recipe (draw_lm_train), two steps
+               each of AdamW, Adafactor and SGD with two micro-batches and
+               int8 compression, against JAX's losses and grad norms (1e-5
+               relative) and parameters (1e-4);
   7. times   — per kernel at the serving shape: its device time alone (CUDA
                events around 20 back-to-back launches queued behind a spin
                kernel, so no host dispatch falls between them; median of 50
@@ -339,7 +376,12 @@ Phases (any failure exits non-zero; nothing is caught):
                on the tensor-core kernel, Whisper's decode cross-attention
                in float32 on the split-TF32 one, each beside the plain
                version, SDPA (non-causal where the model's is) and its
-               bound (all Sq x Skv pairs where nothing is masked).
+               bound (all Sq x Skv pairs where nothing is masked). The
+               backward kernel at Yi-6B's training shape in float32 beside
+               its plain version, autograd through SDPA's backward (the
+               library call) and its bound (five products over the causal
+               pairs at kernel 8b's float32 rate; q, k, v, out and dout
+               read once, dq, dk and dv written once).
 
 The last lines are a ``kernels`` summary, one JSON object with every
 kernel's numbers, the card's name and power limit, and the result line
@@ -352,15 +394,18 @@ import copy
 import hashlib
 import io
 import json
+import math
 import os
 import queue
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import types
+import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
@@ -368,20 +413,26 @@ ASSETS = os.path.join(SRC, "repro_torch", "assets")
 GOLDEN = os.path.join(ROOT, "tests", "golden")
 CSRC = "src/repro_torch/csrc"
 PALLAS = "src/repro/kernels"
-#: kernel -> (its CUDA source, the Pallas kernel it replaces)
+#: kernel -> (its CUDA source, the Pallas kernel it replaces; the backward
+#: replaces none: it stands where JAX differentiates its jnp chunked_attention)
 KERNELS = {
     "fused_event_lif_decode": ("fused_event_lif.cu",
-                               "fused_event_lif/kernel.py:158"),
+                               f"{PALLAS}/fused_event_lif/kernel.py:158"),
     "fused_event_lif_early_exit": ("fused_event_lif.cu",
-                                   "fused_event_lif/kernel.py:227"),
-    "fused_event_lif": ("fused_event_lif.cu", "fused_event_lif/kernel.py:85"),
-    "spike_matmul": ("spike_matmul.cu", "spike_matmul/kernel.py:37"),
-    "lif_fused": ("lif.cu", "lif/kernel.py:45"),
-    "ttfs_decode": ("ttfs_decode.cu", "ttfs_decode/kernel.py:42"),
-    "event_accum": ("event_accum.cu", "event_accum/kernel.py:42"),
+                                   f"{PALLAS}/fused_event_lif/kernel.py:227"),
+    "fused_event_lif": ("fused_event_lif.cu",
+                        f"{PALLAS}/fused_event_lif/kernel.py:85"),
+    "spike_matmul": ("spike_matmul.cu",
+                     f"{PALLAS}/spike_matmul/kernel.py:37"),
+    "lif_fused": ("lif.cu", f"{PALLAS}/lif/kernel.py:45"),
+    "ttfs_decode": ("ttfs_decode.cu", f"{PALLAS}/ttfs_decode/kernel.py:42"),
+    "event_accum": ("event_accum.cu", f"{PALLAS}/event_accum/kernel.py:42"),
     "flash_attention_sm90": ("flash_attention_sm90.cu",
-                             "flash_attention/kernel.py:86"),
-    "flash_attention": ("flash_attention.cu", "flash_attention/kernel.py:86"),
+                             f"{PALLAS}/flash_attention/kernel.py:86"),
+    "flash_attention": ("flash_attention.cu",
+                        f"{PALLAS}/flash_attention/kernel.py:86"),
+    "flash_attention_bwd": ("flash_attention_bwd.cu",
+                            "src/repro/models/layers.py:57"),
 }
 #: NVIDIA H100 SXM peaks (data sheet): HBM bytes/s; the 67 T/s float32 rate
 #: outside the tensor cores, against which the kernels' integer ALU
@@ -488,6 +539,29 @@ ATTN_ROUTE = {"float32": "flash_attention",
 #: plain version with the last q tile's first visible key tile (128 keys)
 #: skipped, and fails if the limit would not catch it.
 ATTN_REL_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+#: phase 5b, the backward kernel against flash_attention_bwd_ref: phase 5's
+#: sweep, GQA 8 with kv_len < Skv, a window over several tiles, queries that
+#: see no key, Whisper's training cross-attention (Sq 448 over 1,500 keys,
+#: non-causal, D 64) and Yi-6B's training shape (B 4, 32/4 heads, S 2048,
+#: D 128, causal), both as the model's (B, S, H, D) views; in both types
+ATTN_BWD_CASES = {
+    **{case: ATTN_CASES[case] for case in ATTN_CASES
+       if case.startswith("sweep") or case in ("group8 kv_len",
+                                               "window 3 tiles",
+                                               "no visible key")},
+    "whisper train cross": (4, 6, 6, 448, 1500, 64, False, None, 0, None,
+                            "movedim view"),
+    "yi-6b train": (4, 32, 4, 2048, 2048, 128, True, None, 0, None,
+                    "movedim view"),
+}
+#: its tolerances, element by element (atol = rtol), and the limit of the
+#: relative error norm of each 128-row tile of dq, dk and dv. The kernel sums
+#: in float32 on the CUDA cores, as the plain version's cuBLAS products do,
+#: in another order: float32 at kernel 8's 2e-5 (an H100 read at most
+#: 5.72e-6, dv at the training shape); bf16 at kernel 8's 2e-2 (both round
+#: their float32 sums to bf16 once: at most one step, 7.81e-3 at |x| ~ 2)
+ATTN_BWD_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+ATTN_BWD_REL_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 LM_ARCH = "qwen3-8b"
 PREFILL_B, PREFILL_S = 2, 4096
 #: the bf16 model on the kernel against the same model on the plain
@@ -541,6 +615,25 @@ VLM_F32_LAYERS = 2
 #: the card's float32 whisper-tiny against JAX's
 #: (src/repro_torch/assets/whisper_expected.npz): encoder rows and logits
 WHISPER_ASSET_TOL = 1e-4
+#: phase 6d, training on the card: Yi-6B at full width in float32 (AdamW,
+#: remat as configured), TRAIN_LAYERS of its 32 layers (1.91 B parameters,
+#: 30.5 GB with AdamW's moments and the gradients; all 32 would take about
+#: 97 GB), TRAIN_STEPS steps of TRAIN_B x TRAIN_S tokens through the
+#: launcher's Trainer; Whisper-tiny whole, WHISPER_TRAIN (batch rows,
+#: decoder tokens, steps) over 1,500 frames a row, resumed from a
+#: checkpoint after step 2
+TRAIN_ARCH, TRAIN_LAYERS, TRAIN_STEPS = "yi-6b", 8, 5
+TRAIN_B, TRAIN_S = 4, 2048
+WHISPER_TRAIN = (4, 448, 3)
+#: the largest relative error norm ||g - g_plain|| / ||g_plain|| of any of
+#: JAX's leaves between Yi-6B's gradients with attention's backward on the
+#: kernel and on its plain version (same parameters, same batch; an H100
+#: read 1.31e-6)
+TRAIN_GRAD_REL_TOL = 1e-5
+#: the card's training of the reduced Yi-6B against JAX's
+#: (src/repro_torch/assets/lm_train_expected.npz): losses and gradient norms
+#: relative, parameters element by element (atol = rtol)
+TRAIN_ASSET_TOL, TRAIN_PARAM_TOL = 1e-5, 1e-4
 ATTN_TIME_S = (4096, 32768)
 #: samples and back-to-back launches of attention's times at S = 4096, whose
 #: launches take up to milliseconds, not microseconds
@@ -570,10 +663,16 @@ def is_gemm(kernel: str) -> bool:
                for s in ("gemm", "gemv", "nvjet", "xmma", "cutlass"))
 
 
+def is_flash_forward(kernel: str) -> bool:
+    """A launch of a forward flash kernel: ``flash_sm90_kernel`` (8a) or
+    ``flash_tf32_kernel`` (8b)."""
+    return "flash_sm90_kernel" in kernel or "flash_tf32_kernel" in kernel
+
+
 def group_of(kernel: str) -> str:
     if "flash_sm90_kernel" in kernel:
         return "flash_attention_sm90 (csrc/flash_attention_sm90.cu)"
-    if "flash_kernel" in kernel:
+    if "flash_tf32_kernel" in kernel:
         return "flash_attention (csrc/flash_attention.cu)"
     if is_gemm(kernel):
         return "matrix products (cuBLAS)"
@@ -584,14 +683,14 @@ def group_of(kernel: str) -> str:
 #: under; the profiler also shows each as a device-side span, which is not a
 #: kernel
 PROFILE_RANGES = ("moe_ffn", "ssd_chunked", "flash_attention", "encode",
-                  "cross_attention", "lm_head")
+                  "cross_attention", "lm_head", "optimizer")
 
 
 def family_group(kernel: str, ranges: list[str]) -> str:
     """The group of a kernel of phase 6b's prefills, from its name and the
     names of the ops and ``record_function`` ranges it ran under
     (``moe_ffn``, ``ssd_chunked``)."""
-    if "flash_sm90_kernel" in kernel or "flash_kernel" in kernel:
+    if is_flash_forward(kernel):
         return "attention (flash_attention kernels)"
     if "ssd_chunked" in ranges:
         return "SSD (ssd_chunked: products, masks, exps, the recurrence)"
@@ -618,7 +717,7 @@ def frontend_group(kernel: str, ranges: list[str]) -> str:
     """The group of a kernel of phase 6c's prefills, from its name and the
     ``record_function`` ranges it ran under (``encode``,
     ``cross_attention``, ``lm_head``)."""
-    if "flash_sm90_kernel" in kernel or "flash_kernel" in kernel:
+    if is_flash_forward(kernel):
         return "attention (flash_attention kernels)"
     gemm = is_gemm(kernel)
     if "lm_head" in ranges:
@@ -633,6 +732,26 @@ def frontend_group(kernel: str, ranges: list[str]) -> str:
     return ("decoder products (projections, FFN)" if gemm
             else "decoder glue (embedding, splice, norms, RoPE, activations, "
                  "casts)")
+
+
+def train_group(kernel: str, ranges: list[str]) -> str:
+    """The group of a kernel of phase 6d's training step, from its name and
+    the ranges it ran under: the autograd engine's (the backward, and the
+    forward remat recomputes inside it) or ``optimizer``."""
+    if "bwd_dq_kernel" in kernel or "bwd_dkdv_kernel" in kernel:
+        return "attention backward (flash_attention_bwd)"
+    if is_flash_forward(kernel):
+        return "attention forward (flash_attention; remat runs it twice)"
+    if "optimizer" in ranges:
+        return "optimiser (AdamW in place, a period at a time)"
+    backward = any(r.startswith("autograd::engine::evaluate_function")
+                   for r in ranges)
+    if is_gemm(kernel):
+        return ("backward products (and remat's recomputed forward "
+                "products)" if backward else "forward products")
+    return ("other, backward (elementwise, reductions, remat's recomputed "
+            "glue)" if backward else "other, forward (embedding, norms, "
+            "RoPE, SiLU, loss, casts)")
 
 
 def profile(fn, grouper=None) -> dict:
@@ -762,6 +881,25 @@ def draw_whisper(lm, meta: dict):
     return frames, tokens
 
 
+def draw_lm_train(lm, meta: dict) -> None:
+    """``lm``'s parameters redrawn in place from a src/repro_torch/assets/
+    lm_train_expected.npz recipe: the exporter's draw
+    (scripts/export_torch_fixture.py::draw_lm_train_case), each of JAX's
+    leaves drawn whole from ``RandomState(seed)`` in JAX's flatten order
+    (``leaf_groups``) and written into the leaf, which holds the port's
+    per-period tensors."""
+    import numpy as np
+    import torch
+    from repro_torch.models.convert import leaf_groups
+    rng = np.random.RandomState(meta["seed"])
+    for g in leaf_groups(lm):
+        w = rng.randn(*g.leaf.shape)
+        w = (1.0 + meta["norm_scale"] * w
+             if g.path.split("/")[-1] in meta["norms"] else meta["scale"] * w)
+        with torch.no_grad():
+            g.leaf.copy_(torch.from_numpy(w.astype(np.float32)))
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -776,7 +914,7 @@ def main() -> int:
     import torch.nn.functional as F
 
     from repro_torch.board.energy import BoardTrace
-    from repro_torch.configs.registry import get_config
+    from repro_torch.configs.registry import get_config, reduced
     from repro_torch.core.accelerator import SNNAccelerator
     from repro_torch.core.agreement import full_agreement, repeatability
     from repro_torch.core.artifact import Artifact
@@ -799,7 +937,6 @@ def main() -> int:
     from repro_torch.kernels.lif import ops as lif, ref as lif_ref
     from repro_torch.kernels.spike_matmul import ops as smm, ref as smm_ref
     from repro_torch.kernels.ttfs_decode import ops as dec, ref as dec_ref
-    from repro_torch.models import layers
     from repro_torch.models.model import LM
     from repro_torch.serving.engine import ServeEngine
     from repro_torch.serving.scheduler import ServingScheduler
@@ -808,6 +945,11 @@ def main() -> int:
     from repro_torch.training.lm_step import make_prefill_step
 
     wrappers = (ops, ea, lif, smm, dec, fa)
+    # the model's attention reaches the kernels through fa.flash_attention,
+    # directly when serving and inside fa.FlashAttention when training: the
+    # phases below stand a recorder, a range or another attention in for
+    # it, and put this one back
+    attention_kernel = fa.flash_attention
 
     def reset_launches() -> None:
         for w in wrappers:
@@ -2794,6 +2936,89 @@ def main() -> int:
               f"{worst:.3g}, smallest planted fault {least_fault:.3g}, limit "
               f"{ATTN_REL_TOL[dname]}")
 
+    # ------------------------------------ 5b attention's backward vs plain
+    def bwd_inputs(B, Hq, Hkv, Sq, Skv, D, dtype, layout, seed):
+        """q, k, v as ``attn_inputs`` lays them out, and dout drawn in q's
+        layout (the gradient autograd hands the kernel comes back through
+        the model's views the same way)."""
+        q, k, v = attn_inputs(B, Hq, Hkv, Sq, Skv, D, dtype, layout, seed)
+        dout = attn_inputs(B, Hq, Hq, Sq, 1, D, dtype, layout, seed + 1)[0]
+        return q, k, v, dout
+
+    def hold_backward(what, dname, q, k, v, out, dout, kw, got, seen) -> str:
+        """The kernel's (dq, dk, dv) against the plain version on the same
+        inputs, element by element and by the relative error norm of each
+        128-row tile (q rows for dq, keys for dk and dv), with a planted
+        fault (pass 2 skipping the first key tile: its dk and dv never
+        written) read by the same check; keeps the largest relative error
+        and the smallest fault in ``seen``."""
+        tol, rel_tol = ATTN_BWD_TOL[dname], ATTN_BWD_REL_TOL[dname]
+        want = fa_ref.flash_attention_bwd_ref(q, k, v, out, dout, **kw)
+        torch.cuda.synchronize()
+        errs, rels = [], []
+        for name, g, w, x in zip(("dq", "dk", "dv"), got, want, (q, k, v)):
+            check(g.shape == x.shape and g.dtype == x.dtype,
+                  f"flash_attention_bwd {what} {dname}: {name} shape or dtype")
+            err = float((g.float() - w.float()).abs().max())
+            check(torch.allclose(g.float(), w.float(), rtol=tol, atol=tol),
+                  f"flash_attention_bwd differs from its plain version on "
+                  f"{what} {dname}: {name} max |err| {err:.3g}, tolerance "
+                  f"{tol}")
+            rel = tile_rel_err(g, w) if w.float().norm() > 0 else 0.0
+            check(rel <= rel_tol, f"flash_attention_bwd differs from its "
+                  f"plain version on {what} {dname}: {name} tile relative "
+                  f"error norm {rel:.3g}, limit {rel_tol}")
+            errs.append(err)
+            rels.append(rel)
+        max_err["flash_attention_bwd"] = max(max_err["flash_attention_bwd"],
+                                             *errs)
+        seen[0] = max(seen[0], *rels)
+        fault = [w.clone() for w in want[1:]]
+        for f in fault:
+            f[:, :, :32] = 0
+        fault_rel = max(tile_rel_err(f, w) for f, w in zip(fault, want[1:])
+                        if w.float().norm() > 0)
+        seen[1] = min(seen[1], fault_rel)
+        check(fault_rel > rel_tol, f"{what} {dname}: a skipped key tile in "
+              f"pass 2 reads {fault_rel:.3g}, within the limit {rel_tol}")
+        return (f"max |err| dq {errs[0]:.3g} dk {errs[1]:.3g} dv "
+                f"{errs[2]:.3g} (tolerance {tol}), tile relative error norm "
+                f"{max(rels):.3g} (limit {rel_tol}; a skipped key tile in "
+                f"pass 2 reads {fault_rel:.3g})")
+
+    bwd_seen = {dname: [0.0, float("inf")] for dname in ATTN_BWD_TOL}
+    for case, shape in ATTN_BWD_CASES.items():
+        (B, Hq, Hkv, Sq, Skv, D, causal, window, qoff, kv_len,
+         layout) = shape
+        kw = dict(causal=causal, window=window, q_offset=qoff, kv_len=kv_len)
+        for dname in ATTN_BWD_TOL:
+            q, k, v, dout = bwd_inputs(B, Hq, Hkv, Sq, Skv, D, dtypes[dname],
+                                       layout, Sq + Skv + 5)
+            out = fa.flash_attention(q, k, v, **kw)
+            reset_launches()
+            got = fa.flash_attention_bwd(q, k, v, out, dout, **kw)
+            counts = launch_counts()
+            check(counts == {**{n: 0 for n in KERNELS},
+                             "flash_attention_bwd": 1},
+                  f"flash_attention_bwd {case} {dname} launched {counts}, "
+                  f"expected the backward once")
+            again = fa.flash_attention_bwd(q, k, v, out, dout, **kw)
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"flash_attention_bwd {case} {dname}: two launches on the "
+                  f"same inputs differ")
+            readings = hold_backward(case, dname, q, k, v, out, dout, kw,
+                                     got, bwd_seen[dname])
+            print(f"[attention bwd] {case} {dname}: B={B} Hq={Hq} Hkv={Hkv} "
+                  f"Sq={Sq} Skv={Skv} D={D} causal={causal} window={window} "
+                  f"q_offset={qoff} kv_len={kv_len} layout={layout}: "
+                  f"{readings}; two launches bitwise equal")
+            del q, k, v, dout, out, got, again
+        torch.cuda.empty_cache()
+    for dname, (worst, least_fault) in bwd_seen.items():
+        print(f"[attention bwd] {dname}: largest tile relative error norm "
+              f"{worst:.3g}, smallest planted fault {least_fault:.3g}, limit "
+              f"{ATTN_BWD_REL_TOL[dname]}")
+
     # ------------------------------------------------------- 6 LM main path
     cfg = get_config(LM_ARCH)
     t0 = time.perf_counter()
@@ -2816,11 +3041,11 @@ def main() -> int:
     seen = []                  # every layer's q, k, v views and output
 
     def recorded(q, k, v, **kw):
-        out = fa.flash_attention(q, k, v, **kw)
+        out = attention_kernel(q, k, v, **kw)
         seen.append((q, k, v, kw, out))
         return out
 
-    layers.flash_attention = recorded
+    fa.flash_attention = recorded
     reset_launches()
     try:
         t0 = time.perf_counter()
@@ -2829,7 +3054,7 @@ def main() -> int:
         first_s = time.perf_counter() - t0
         counts = launch_counts()
     finally:
-        layers.flash_attention = fa.flash_attention
+        fa.flash_attention = attention_kernel
     check(counts["flash_attention_sm90"] == cfg.n_layers,
           f"prefill launched flash_attention_sm90 "
           f"{counts['flash_attention_sm90']} times, expected one per layer "
@@ -3011,16 +3236,16 @@ def main() -> int:
                      profile(lambda: decode(4)), card)
 
     other, walls = {}, {}
-    for name, attention in (("kernel", fa.flash_attention),
+    for name, attention in (("kernel", attention_kernel),
                             ("plain", fa_ref.flash_attention_ref),
                             ("sdpa", sdpa_attention)):
-        layers.flash_attention = attention
+        fa.flash_attention = attention
         try:                   # the same model on another attention
             if name != "kernel":
                 other[name] = prefill(toks)
             walls[name] = wall_ms(lambda: prefill(toks))
         finally:
-            layers.flash_attention = fa.flash_attention
+            fa.flash_attention = attention_kernel
         rate = PREFILL_B * PREFILL_S * 1e3 / walls[name]
         print(f"[lm] prefill with attention on {name}: {walls[name]:.1f} ms "
               f"(median of 3 warm runs; {rate:.0f} tokens/s) — card: {card}")
@@ -3090,13 +3315,13 @@ def main() -> int:
             mamba2.ssd_chunked = ranged("ssd_chunked", real_ssd)
             # the kernel's ctypes launch runs under no op: a range of its
             # own ties it to one
-            layers.flash_attention = ranged("flash_attention",
-                                            fa.flash_attention)
+            fa.flash_attention = ranged("flash_attention",
+                                        attention_kernel)
             try:
                 prof = profile(fn, family_group)
             finally:
                 moe.moe_ffn, mamba2.ssd_chunked = real_moe, real_ssd
-                layers.flash_attention = fa.flash_attention
+                fa.flash_attention = attention_kernel
             show_profile(what, prof, card)
             print(f"[profile] {what}: {prof['covered']:.3f} of the device "
                   f"time is tied to the op that launched it (the rest, the "
@@ -3173,7 +3398,7 @@ def main() -> int:
             seen_attn, seen_moe = [], []
 
             def rec_attn(q, k, v, **kw):
-                out = fa.flash_attention(q, k, v, **kw)
+                out = attention_kernel(q, k, v, **kw)
                 seen_attn.append((q, k, v, kw, out))
                 return out
 
@@ -3184,7 +3409,7 @@ def main() -> int:
                 seen_moe.append((x, p, out))
                 return out, aux
 
-            layers.flash_attention, moe.moe_ffn = rec_attn, rec_moe
+            fa.flash_attention, moe.moe_ffn = rec_attn, rec_moe
             reset_launches()
             try:
                 t0 = time.perf_counter()
@@ -3193,7 +3418,7 @@ def main() -> int:
                 first_s = time.perf_counter() - t0
                 counts = launch_counts()
             finally:
-                layers.flash_attention, moe.moe_ffn = fa.flash_attention, \
+                fa.flash_attention, moe.moe_ffn = attention_kernel, \
                     real_moe
             want = {**{n: 0 for n in KERNELS},
                     "flash_attention_sm90": n_attn(cfg)}
@@ -3385,11 +3610,11 @@ def main() -> int:
             seen = []
 
             def rec(q, k, v, **kw):
-                out = fa.flash_attention(q, k, v, **kw)
+                out = attention_kernel(q, k, v, **kw)
                 seen.append((q, k, v, kw, out))
                 return out
 
-            layers.flash_attention = rec
+            fa.flash_attention = rec
             reset_launches()
             try:
                 t0 = time.perf_counter()
@@ -3398,7 +3623,7 @@ def main() -> int:
                 first_s = time.perf_counter() - t0
                 counts = launch_counts()
             finally:
-                layers.flash_attention = fa.flash_attention
+                fa.flash_attention = attention_kernel
             want = {**{n: 0 for n in KERNELS}, "flash_attention_sm90": n_attn}
             check(counts == want, f"{cfg.name} prefill launched {counts}, "
                   f"expected {want}")
@@ -3450,14 +3675,14 @@ def main() -> int:
             lm._head = ranged("lm_head", lm._head)
             # the kernel's ctypes launch runs under no op: a range of its
             # own ties it to one
-            layers.flash_attention = ranged("flash_attention",
-                                            fa.flash_attention)
+            fa.flash_attention = ranged("flash_attention",
+                                        attention_kernel)
             try:
                 prof = profile(lambda: prefill(toks, **frontend),
                                frontend_group)
             finally:
                 del lm.encode, lm._cross_attn, lm._head
-                layers.flash_attention = fa.flash_attention
+                fa.flash_attention = attention_kernel
             show_profile(what, prof, card)
             print(f"[profile] {what}: {prof['covered']:.3f} of the device "
                   f"time is tied to the op that launched it")
@@ -3484,6 +3709,36 @@ def main() -> int:
                   f"median of 10), bound {bound:.4f} ms ({n_ops} FLOP at "
                   f"989 TFLOP/s, {n_bytes} B) — card: {card}")
             del x
+
+        def attention_ab(cfg, prefill, toks, **frontend):
+            """The prefill as served (``chunked_attention`` calls the
+            kernel's wrapper under ``no_grad``) against the same prefill with
+            each attention through ``fa.FlashAttention.apply``, as a forward
+            that records gradients calls it: interleaved, 9 runs each. Remat
+            is configured either way and skipped under ``no_grad``."""
+            from repro_torch.models import layers as L
+            direct = L.chunked_attention
+
+            def through(q, k, v, *, causal=True, window=None, q_offset=0,
+                        kv_len=None, **_):
+                return fa.FlashAttention.apply(q, k, v, causal, window,
+                                               q_offset, kv_len)
+            runs = {"direct": [], "Function": []}
+            try:
+                for _ in range(9):
+                    for name, fn in (("direct", direct),
+                                     ("Function", through)):
+                        L.chunked_attention = fn
+                        runs[name].append(wall_ms(
+                            lambda: prefill(toks, **frontend), runs=1))
+            finally:
+                L.chunked_attention = direct
+            d, f = (statistics.median(runs[k]) for k in runs)
+            print(f"{tag} {cfg.name} bf16 prefill, attention called directly "
+                  f"(as served) {d:.3f} ms against through "
+                  f"FlashAttention.apply {f:.3f} ms (interleaved, median of "
+                  f"9 each; remat {cfg.remat}, skipped under no_grad) — "
+                  f"card: {card}")
 
         def peak(what):
             print(f"{tag} {what}: peak "
@@ -3512,6 +3767,7 @@ def main() -> int:
               f"{cfg.name}: the attentions are not the encoder's non-causal "
               f"ones, then causal self- and non-causal cross-attention")
         timed(cfg, lm, prefill, toks, enc_frames=frames)
+        attention_ab(cfg, prefill, toks, enc_frames=frames)
         del lm, prefill, frames
         torch.cuda.empty_cache()
         hold_all(cfg, names, seen)
@@ -3661,6 +3917,237 @@ def main() -> int:
 
     frontends()
 
+    # ------------------------------------------------------- 6d LM training
+    # (in a function of its own: its names stay out of phase 7)
+    def training() -> None:
+        from repro_torch.launch.train import Trainer
+        from repro_torch.models.convert import leaf_groups
+        from repro_torch.training import lm_step, optim as O
+        t_phase = time.perf_counter()
+        tag = "[train]"
+        real_refs = (fa_ref.flash_attention_ref,
+                     fa_ref.flash_attention_bwd_ref)
+        plain_calls = []
+
+        def recording(name, real):
+            def run(*args, **kw):
+                plain_calls.append(name)
+                return real(*args, **kw)
+            return run
+
+        def counted(what, step, want):
+            """``step()`` with every launch counter at 0 just before and
+            read just after: exactly the launches ``want`` names, and no
+            call of the plain attention, forward or backward."""
+            plain_calls.clear()
+            fa_ref.flash_attention_ref = recording("flash_attention_ref",
+                                                   real_refs[0])
+            fa_ref.flash_attention_bwd_ref = recording(
+                "flash_attention_bwd_ref", real_refs[1])
+            reset_launches()
+            try:
+                t0 = time.perf_counter()
+                m = step()
+                torch.cuda.synchronize()
+                wall = 1e3 * (time.perf_counter() - t0)
+                counts = launch_counts()
+            finally:
+                fa_ref.flash_attention_ref, \
+                    fa_ref.flash_attention_bwd_ref = real_refs
+            check(not plain_calls, f"{what} called the plain attention: "
+                  f"{sorted(set(plain_calls))}")
+            check(counts == {**{n: 0 for n in KERNELS}, **want},
+                  f"{what} launched {counts}, expected {want}")
+            for kname, n in want.items():
+                launches[kname] += n
+            loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+            check(math.isfinite(loss) and math.isfinite(gnorm),
+                  f"{what}: loss {loss} or grad_norm {gnorm} not finite")
+            print(f"{tag} {what}: loss {loss:.6f}, grad_norm {gnorm:.6f}, "
+                  f"wall {wall:.1f} ms; launches {want}")
+            return m, wall
+
+        def grads(lm, batch):
+            """Every parameter's gradient of ``lm.loss`` on ``batch``."""
+            params = list(lm.parameters())
+            for t in params:
+                t.requires_grad_(True)
+            try:
+                loss, _ = lm.loss(batch)
+                loss.backward()
+                return [t.grad for t in params]
+            finally:
+                for t in params:
+                    t.requires_grad_(False)
+                    t.grad = None
+
+        # 1. Yi-6B at full width, TRAIN_LAYERS layers, float32, AdamW
+        cfg = dataclasses.replace(get_config(TRAIN_ARCH),
+                                  n_layers=TRAIN_LAYERS)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tr = Trainer(cfg, batch=TRAIN_B, seq=TRAIN_S, device=dev)
+        torch.cuda.synchronize()
+        n = sum(p.numel() for p in tr.lm.parameters())
+        n_blocks = sum(p.numel() for blk in tr.lm.layers
+                       for p in blk.parameters())
+        print(f"{tag} {cfg.name}: {cfg.n_layers} of 32 layers, d_model "
+              f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+              f"{cfg.d_head}, d_ff {cfg.d_ff}, vocab {cfg.vocab}: {n} "
+              f"parameters ({n_blocks} in blocks) in float32, "
+              f"{cfg.optimizer}, remat {cfg.remat} ({cfg.remat_policy}); "
+              f"model and optimiser state built in "
+              f"{time.perf_counter() - t0:.2f} s, "
+              f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+        remat = 2 if cfg.remat else 1     # remat runs each forward twice
+        want = {"flash_attention": remat * cfg.n_layers,
+                "flash_attention_bwd": cfg.n_layers}
+        walls = []
+        for i in range(TRAIN_STEPS):
+            _, wall = counted(f"{cfg.name} step {i + 1}",
+                              lambda: tr.step(i), want)
+            walls.append(wall)
+        step_ms = statistics.median(walls[-3:])
+        print(f"{tag} {cfg.name} train step on {TRAIN_B} x {TRAIN_S} "
+              f"tokens: {step_ms:.1f} ms (median of 3 warm steps; "
+              f"{TRAIN_B * TRAIN_S * 1e3 / step_ms:.0f} tokens/s); peak "
+              f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB — "
+              f"card: {card}")
+        # the same gradients with attention's backward on the plain version
+        batch = tr.batch_at(TRAIN_STEPS)
+        g_kernel = grads(tr.lm, batch)
+        fa.flash_attention_bwd = lambda *args, **kw: \
+            fa_ref.flash_attention_bwd_ref(*args, **kw)
+        try:
+            g_plain = grads(tr.lm, batch)
+        finally:
+            fa.flash_attention_bwd = kernel_bwd
+        by_param = dict(zip((id(t) for t in tr.lm.parameters()),
+                            zip(g_kernel, g_plain)))
+        worst, worst_leaf = 0.0, None
+        for g in leaf_groups(tr.lm):
+            pairs = [by_param[id(t)] for t in g.tensors]
+            diff = math.sqrt(sum(float((a - b).float().pow(2).sum())
+                                 for a, b in pairs))
+            ref = math.sqrt(sum(float(b.float().pow(2).sum())
+                                for _, b in pairs))
+            rel = diff / ref if ref else diff
+            if rel >= worst:
+                worst, worst_leaf = rel, g.path
+        check(worst <= TRAIN_GRAD_REL_TOL, f"{cfg.name}: the gradients with "
+              f"the backward kernel differ from those with its plain version "
+              f"by {worst:.3g} (relative norm, {worst_leaf}), limit "
+              f"{TRAIN_GRAD_REL_TOL}")
+        print(f"{tag} {cfg.name} gradients, backward kernel against its "
+              f"plain version on the same parameters and batch: largest "
+              f"relative error norm of a leaf {worst:.3g} ({worst_leaf}), "
+              f"limit {TRAIN_GRAD_REL_TOL}")
+        del g_kernel, g_plain, by_param, pairs
+        # one step under the profiler, the optimiser in a range of its own
+        ranged_opt = tr.optimizer._replace(
+            update_leaf=ranged("optimizer", tr.optimizer.update_leaf))
+        step_fn = lm_step.make_train_step(tr.lm, ranged_opt)
+        batch = tr.batch_at(TRAIN_STEPS + 1)
+        prof = profile(lambda: step_fn(tr.opt_state, batch), train_group)
+        show_profile(f"{cfg.name} train step", prof, card)
+        print(f"[profile] {cfg.name} train step: {prof['covered']:.3f} of "
+              f"the device time tied to the op that launched it")
+        del tr, step_fn, batch, ranged_opt
+        torch.cuda.empty_cache()
+
+        # 2. Whisper-tiny whole, float32: counted steps, then a checkpoint
+        # at step 2 restored into a fresh model and optimiser, whose step 3
+        # must equal the uninterrupted run's bit for bit
+        wcfg = get_config(WHISPER_ARCH)
+        B, S, steps = WHISPER_TRAIN
+        remat = 2 if wcfg.remat else 1    # not the encoder's, as in JAX
+        want = {"flash_attention": wcfg.enc_layers
+                + remat * 2 * wcfg.n_layers,
+                "flash_attention_bwd": wcfg.enc_layers + 2 * wcfg.n_layers}
+        with tempfile.TemporaryDirectory() as ckdir, \
+                warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                whole = Trainer(wcfg, batch=B, seq=S, ckpt=ckdir,
+                                ckpt_every=2, device=dev)
+                for i in range(steps):
+                    counted(f"{wcfg.name} step {i + 1}",
+                            lambda: whole.step(i), want)
+                check(whole.mgr.all_steps() == [2],
+                      f"checkpoints {whole.mgr.all_steps()}, expected [2]")
+                resumed = Trainer(wcfg, batch=B, seq=S, ckpt=ckdir,
+                                  ckpt_every=2, device=dev)
+                check(resumed.start == 2, f"resumed at {resumed.start}")
+                counted(f"{wcfg.name} step 3, resumed",
+                        lambda: resumed.step(2), want)
+            finally:
+                torch.use_deterministic_algorithms(False)
+        same = [torch.equal(a, b) for a, b in
+                zip(whole.lm.parameters(), resumed.lm.parameters())]
+        for slot in ("m", "v"):
+            same += [torch.equal(a, resumed.opt_state[slot][k])
+                     for k, a in whole.opt_state[slot].items()]
+        check(all(same) and whole.opt_state["step"]
+              == resumed.opt_state["step"] == 3,
+              f"{wcfg.name}: step 3 after a restore differs from the "
+              f"uninterrupted run in {same.count(False)} tensors")
+        print(f"{tag} {wcfg.name}: {B} x {S} tokens over {B} x "
+              f"{wcfg.cross_len} frames, {steps} steps; checkpoint at step 2 "
+              f"restored into a fresh model and optimiser on the card: step "
+              f"3's parameters and AdamW moments equal the uninterrupted "
+              f"run's bit for bit ({len(same)} tensors)")
+        del whole, resumed
+
+        # 3. the reduced Yi-6B against JAX's training (the asset)
+        with np.load(os.path.join(ASSETS, "lm_train_expected.npz")) as z:
+            exp = {name: z[name] for name in z.files}
+        meta = json.loads(str(exp["meta"]))
+        rcfg = reduced(get_config(meta["arch"]))
+        pipe = TokenPipeline(TokenPipelineConfig(
+            vocab=rcfg.vocab, seq_len=meta["seq"],
+            global_batch=meta["batch"]))
+        for run, (name, grad_accum, compress) in meta["runs"].items():
+            lm = LM(rcfg, dtype=torch.float32, device=dev)
+            draw_lm_train(lm, meta)
+            opt = O.get(name, meta["lr"])
+            step_fn = lm_step.make_train_step(lm, opt, grad_accum=grad_accum,
+                                              compress_grads=compress)
+            state = lm_step.make_opt_state(lm, opt, compress)
+            remat = 2 if rcfg.remat else 1
+            want = {"flash_attention": remat * rcfg.n_layers * grad_accum,
+                    "flash_attention_bwd": rcfg.n_layers * grad_accum}
+            errs = []
+            for i in range(meta["steps"]):
+                batch = {k: torch.from_numpy(v).to(dev) for k, v in
+                         pipe.global_batch_at(i).items()}
+                m, _ = counted(f"{rcfg.name} {run} step {i + 1}",
+                               lambda: step_fn(state, batch)[1], want)
+                for key in ("loss", "grad_norm"):
+                    got, ref = float(m[key]), float(exp[f"{run}_{key}"][i])
+                    errs.append(abs(got - ref) / abs(ref))
+                    check(errs[-1] <= TRAIN_ASSET_TOL, f"{rcfg.name} {run} "
+                          f"step {i + 1}: {key} {got} against JAX's {ref}")
+            perr = 0.0
+            for g in leaf_groups(lm):
+                a = g.leaf.cpu().numpy()
+                b = exp[f"{run}/{g.path}"]
+                perr = max(perr, float(np.abs(a - b).max()))
+                check(np.allclose(a, b, rtol=TRAIN_PARAM_TOL,
+                                  atol=TRAIN_PARAM_TOL),
+                      f"{rcfg.name} {run}: {g.path} differs from JAX's")
+            print(f"{tag} {rcfg.name} {run} against JAX's asset: losses and "
+                  f"grad norms within {max(errs):.3g} (limit "
+                  f"{TRAIN_ASSET_TOL}, relative), parameters within "
+                  f"{perr:.3g} (limit {TRAIN_PARAM_TOL})")
+            del lm, state, step_fn
+        print(f"{tag} phase wall {time.perf_counter() - t_phase:.3f} s — "
+              f"card: {card}")
+
+    kernel_bwd = fa.flash_attention_bwd
+    training()
+
     # --------------------------------------------------------------- 7 times
     images = xte[:SERVE_BATCH]
     times = host_times(prog, images)
@@ -3720,7 +4207,9 @@ def main() -> int:
     LIBRARY = {"spike_matmul": "torch._int_mm",
                "event_accum": "F.embedding_bag",
                "flash_attention_sm90": "scaled_dot_product_attention",
-               "flash_attention": "scaled_dot_product_attention"}
+               "flash_attention": "scaled_dot_product_attention",
+               "flash_attention_bwd": "autograd.grad through "
+                                      "scaled_dot_product_attention"}
     # attention at Qwen3-8B's head shape, causal, S = 4096 (and 32,768
     # below): each kernel, its plain version, and SDPA as the library call;
     # bf16 on the tensor-core kernel, float32 on the split-TF32 kernel
@@ -3742,6 +4231,28 @@ def main() -> int:
         lambda: fa.flash_attention(*aq32),
         lambda: fa_ref.flash_attention_ref(*aq32),
         lambda: sdpa_attention(*aq32))
+    # the backward at Yi-6B's training shape (phase 6d's), float32, the
+    # model's views; the library call is autograd through SDPA's backward
+    # (its forward run once, outside the timing)
+    bq = bwd_inputs(*ATTN_BWD_CASES["yi-6b train"][:6], torch.float32,
+                    "movedim view", 7)
+    bout = fa.flash_attention(*bq[:3])
+    lib_in = [t.detach().clone().requires_grad_() for t in bq[:3]]
+    lib_out = F.scaled_dot_product_attention(*lib_in, is_causal=True,
+                                             enable_gqa=True)
+    fns["flash_attention_bwd"] = (
+        lambda: fa.flash_attention_bwd(*bq[:3], bout, bq[3]),
+        lambda: fa_ref.flash_attention_bwd_ref(*bq[:3], bout, bq[3]),
+        lambda: torch.autograd.grad(lib_out, lib_in, bq[3],
+                                    retain_graph=True))
+    got = fa.flash_attention_bwd(*bq[:3], bout, bq[3])
+    lib = torch.autograd.grad(lib_out, lib_in, bq[3], retain_graph=True)
+    print(f"[times] autograd through SDPA against flash_attention_bwd at "
+          f"the training shape, float32: max |difference| dq "
+          f"{float((got[0] - lib[0]).abs().max()):.3g}, dk "
+          f"{float((got[1] - lib[1]).abs().max()):.3g}, dv "
+          f"{float((got[2] - lib[2]).abs().max()):.3g}")
+    del got, lib
     check(set(fns) == set(KERNELS), "a kernel has no timing entry")
     tol = ATTN_TOL["bfloat16"]
     for S, (q, k, v) in aq.items():
@@ -3868,6 +4379,17 @@ def main() -> int:
     work["flash_attention_sm90"] = (*attn_work(*aq[S0][:2]), BF16_FLOPS)
     work["flash_attention"] = (*attn_work(*aq32[:2]), SPLIT_TF32_FLOPS)
 
+    def attn_bwd_work(q, k, causal=True):
+        """(bytes, operations) of attention's backward: q, k, v, out and
+        dout read once, dq, dk and dv written once; the five products a
+        backward needs at least (Q K^T recomputed, dO V^T, P^T dO, dS K,
+        dS^T Q), 2 FLOPs a multiply-add over the visible pairs, at the
+        float32 rate kernel 8b's bound uses."""
+        fwd_bytes, fwd_ops = attn_work(q, k, causal)
+        return 2 * fwd_bytes, 5 * fwd_ops // 2
+
+    work["flash_attention_bwd"] = (*attn_bwd_work(*bq[:2]), SPLIT_TF32_FLOPS)
+
     # the practical floor of one launch: a trivial kernel (zero_ on 64
     # int32) timed the same way
     zeros64 = torch.zeros(64, dtype=torch.int32, device=dev)
@@ -3889,7 +4411,7 @@ def main() -> int:
         source, replaces = KERNELS[kname]
         rows.append({"name": kname, "route": "cuda",
                      "source": f"{CSRC}/{source}",
-                     "replaces": f"{PALLAS}/{replaces}",
+                     "replaces": replaces,
                      "launches": int(launches[kname]),
                      "max_abs_err": max_err[kname], "ms": ms,
                      "plain_ms": plain_ms,
@@ -3898,7 +4420,11 @@ def main() -> int:
                      "library_ms": library_ms})
         lib_txt = ("none" if library_ms is None
                    else f"{library_ms:.4f} ms ({LIBRARY[kname]}, alone)")
-        shape_txt = (f"B=1 Hq={cfg.n_heads} Hkv={cfg.n_kv_heads} S={S0} "
+        B_, Hq_, Hkv_, S_, _, D_ = ATTN_BWD_CASES["yi-6b train"][:6]
+        shape_txt = (f"B={B_} Hq={Hq_} Hkv={Hkv_} S={S_} D={D_} causal "
+                     f"float32, (B, S, H, D) views (Yi-6B's training shape)"
+                     if kname == "flash_attention_bwd" else
+                     f"B=1 Hq={cfg.n_heads} Hkv={cfg.n_kv_heads} S={S0} "
                      f"D={cfg.d_head} causal "
                      f"{'float32' if kname == 'flash_attention' else 'bf16'}"
                      if attention else

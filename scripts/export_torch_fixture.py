@@ -76,7 +76,18 @@ so the JAX side's artifact and outputs are exported once, here, into
     ``meta["enc_rows"]``) and ``logits`` (``forward(tokens,
     enc_frames=frames)`` at the positions ``meta["logit_positions"]``), both
     float32. ``chip_smoke.py`` redraws the same model and inputs without
-    JAX. ``--only-whisper`` writes this file alone.
+    JAX. ``--only-whisper`` writes this file alone;
+  * ``lm_train_expected.npz`` — the JAX package's jitted train step
+    (``repro.training.lm_step.make_train_step``) on the reduced Yi-6B, its
+    float32 parameters drawn by ``draw_lm_train_case`` from the JSON recipe
+    ``LM_TRAIN_CASE`` (``meta``: the ``RandomState`` seed, the batch and
+    the runs), for ``meta["steps"]`` steps of ``TokenPipeline`` batches in
+    each run (AdamW; Adafactor; SGD with two micro-batches and int8
+    compression): ``{run}_loss`` and ``{run}_grad_norm`` (float32, a value a
+    step) and ``{run}/{path}``, each parameter leaf after the last step
+    (float32, JAX's stacked layout). ``chip_smoke.py`` redraws the model
+    without JAX and trains it on the card. ``--only-lm-train`` writes this
+    file alone.
 
 Run from the repo root (the CPU is enough):
 
@@ -91,6 +102,8 @@ Run from the repo root (the CPU is enough):
         --only-moe
     PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/export_torch_fixture.py \
         --only-whisper
+    PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/export_torch_fixture.py \
+        --only-lm-train
 """
 
 from __future__ import annotations
@@ -573,6 +586,83 @@ def export_whisper(out_dir: str) -> None:
           f"arrays, {os.path.getsize(path)} bytes")
 
 
+#: lm_train_expected.npz's recipe: the reduced model, the RandomState seed
+#: and scales of its float32 weights (a leaf named in ``norms`` is 1 +
+#: norm_scale * N(0, 1), every other leaf scale * N(0, 1)), the token
+#: stream's batch and sequence length, the steps and learning rate, and the
+#: runs (optimiser, micro-batches, compression)
+LM_TRAIN_CASE = dict(arch="yi-6b", reduced=True, seed=31, scale=0.02,
+                     norm_scale=0.1, norms=["final_norm", "ln", "ln2"],
+                     batch=4, seq=32, steps=2, lr=3e-4,
+                     runs={"adamw": ["adamw", 1, False],
+                           "adafactor": ["adafactor", 1, False],
+                           "sgd_accum2_compress": ["sgd", 2, True]})
+
+
+def draw_lm_train_case(meta: dict, shapes: dict) -> dict:
+    """The float32 parameter tree of an ``LM_TRAIN_CASE`` recipe, in JAX's
+    layout (``shapes``: the tree of leaf shapes), each leaf drawn whole from
+    ``RandomState(seed)`` in JAX's flatten order (keys sorted at each
+    level), as ``chip_smoke.py::draw_lm_train`` draws the port's leaf
+    groups."""
+    import jax
+    rng = np.random.RandomState(meta["seed"])
+    paths, tdef = jax.tree_util.tree_flatten_with_path(
+        shapes, is_leaf=lambda x: isinstance(x, tuple))
+    leaves = []
+    for path, shape in paths:
+        w = rng.randn(*shape)
+        name = path[-1].key
+        leaves.append(((1.0 + meta["norm_scale"] * w) if name in meta["norms"]
+                       else meta["scale"] * w).astype(np.float32))
+    return jax.tree_util.tree_unflatten(tdef, leaves)
+
+
+def lm_train_expected() -> dict:
+    import jax
+    import jax.numpy as jnp
+    from repro.configs.registry import reduced
+    from repro.data.tokens import TokenPipeline, TokenPipelineConfig
+    from repro.models.model import LM as JLM
+    from repro.training import lm_step as jstep, optim as jO
+    meta = LM_TRAIN_CASE
+    cfg = get_config(meta["arch"])
+    if meta["reduced"]:
+        cfg = reduced(cfg)
+    jlm = JLM(cfg)
+    params0 = draw_lm_train_case(meta, whisper_shapes(cfg))
+    pipe = TokenPipeline(TokenPipelineConfig(
+        vocab=cfg.vocab, seq_len=meta["seq"], global_batch=meta["batch"]))
+    out = {"meta": np.array(json.dumps(meta, sort_keys=True))}
+    for run, (name, grad_accum, compress) in meta["runs"].items():
+        opt = jO.get(name, meta["lr"])
+        step = jax.jit(jstep.make_train_step(
+            jlm, opt, grad_accum=grad_accum, compress_grads=compress))
+        params = jax.tree.map(jnp.asarray, params0)
+        state = jstep.make_opt_state(params, opt, compress)
+        losses, norms = [], []
+        for i in range(meta["steps"]):
+            batch = jax.tree.map(jnp.asarray, pipe.global_batch_at(i))
+            params, state, metrics = step(params, state, batch)
+            losses.append(float(metrics["loss"]))
+            norms.append(float(metrics["grad_norm"]))
+        out[f"{run}_loss"] = np.array(losses, np.float32)
+        out[f"{run}_grad_norm"] = np.array(norms, np.float32)
+        for path, leaf in jax.tree_util.tree_flatten_with_path(params)[0]:
+            key = "/".join(str(k.key) for k in path)
+            out[f"{run}/{key}"] = np.asarray(leaf, np.float32)
+    return out
+
+
+def export_lm_train(out_dir: str) -> None:
+    t0 = time.perf_counter()
+    out = lm_train_expected()
+    path = os.path.join(out_dir, "lm_train_expected.npz")
+    np.savez_compressed(path, **out)
+    print(f"wrote {path} in {time.perf_counter() - t0:.1f}s: {len(out)} "
+          f"arrays, {os.path.getsize(path)} bytes")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=ASSETS)
@@ -591,6 +681,8 @@ def main(argv=None) -> int:
                     help="only write moe_expected.npz")
     ap.add_argument("--only-whisper", action="store_true",
                     help="only write whisper_expected.npz")
+    ap.add_argument("--only-lm-train", action="store_true",
+                    help="only write lm_train_expected.npz")
     a = ap.parse_args(argv)
     os.makedirs(a.out, exist_ok=True)
     if a.only_board:
@@ -608,6 +700,9 @@ def main(argv=None) -> int:
     if a.only_whisper:
         export_whisper(a.out)
         return 0
+    if a.only_lm_train:
+        export_lm_train(a.out)
+        return 0
     export_fuzz(a.out)
     if not a.skip_mnist:
         export_mnist(a.out)
@@ -616,6 +711,7 @@ def main(argv=None) -> int:
     export_faults(a.out)
     export_moe(a.out)
     export_whisper(a.out)
+    export_lm_train(a.out)
     return 0
 
 

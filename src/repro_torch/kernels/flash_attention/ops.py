@@ -23,6 +23,16 @@ read q, k and v through their strides and write an output with q's strides
 (B, H, S, D) by ``movedim`` are read in place and the output comes back in
 the same layout: no copy either way. ``LAUNCHES`` counts each kernel's
 launches under its own name.
+
+Training goes through ``FlashAttention``, an autograd Function: its forward
+is ``flash_attention``, its backward ``flash_attention_bwd``, which on CUDA
+tensors launches the hand-written ``csrc/flash_attention_bwd.cu`` (float32
+and bf16, D a multiple of 8 up to 256, the forward's strides and masks) or
+raises, and on CPU tensors runs ``ref.flash_attention_bwd_ref``. The TPU
+package has no Pallas backward: JAX differentiates the jnp
+``chunked_attention`` (``src/repro/models/layers.py:57``), so this kernel
+replaces no TPU kernel; it is what lets the port train on the card without
+a plain version on the path.
 """
 
 from __future__ import annotations
@@ -39,8 +49,10 @@ from repro_torch.kernels.flash_attention import ref as _ref
 
 SM90 = "flash_attention_sm90"
 SPLIT_TF32 = "flash_attention"
-#: kernel name -> launches since the last ``reset_launches()``
-LAUNCHES = {SPLIT_TF32: 0, SM90: 0}
+BWD = "flash_attention_bwd"
+#: kernel name -> launches since the last ``reset_launches()`` (the
+#: backward's two passes are one launch of its C entry)
+LAUNCHES = {SPLIT_TF32: 0, SM90: 0, BWD: 0}
 #: the input types the split-TF32 kernel takes, and the code its C entry reads
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: the head sizes the tensor-core kernel is built for
@@ -97,6 +109,15 @@ def _lib_sm90() -> ctypes.CDLL:
     return lib
 
 
+@functools.cache
+def _lib_bwd() -> ctypes.CDLL:
+    lib = build.load(BWD)
+    lib.flash_attention_bwd.argtypes = ([P] + [L] * 4) * 8 + [P, P] + \
+        [I] * 11 + [P]
+    lib.flash_attention_bwd.restype = I
+    return lib
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int | None = None,
                     q_offset: int = 0,
@@ -148,3 +169,76 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     raise_on(code, name)
     count_launch(LAUNCHES, name)
     return out
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, dout: torch.Tensor, *,
+                        causal: bool = True, window: int | None = None,
+                        q_offset: int = 0, kv_len: int | None = None
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradients (dq, dk, dv) of ``flash_attention(q, k, v, ...)``,
+    whose output was ``out``, against ``dout``: each in its input's dtype
+    and strides. Every tensor is read through its strides (the model's
+    ``movedim`` views in place)."""
+    if out.shape != q.shape or dout.shape != q.shape:
+        raise ValueError(f"out and dout must be q's shape {tuple(q.shape)}; "
+                         f"got {tuple(out.shape)} and {tuple(dout.shape)}")
+    if any(t.dtype != q.dtype or t.device != q.device
+           for t in (k, v, out, dout)):
+        raise TypeError("q, k, v, out and dout must share one dtype and "
+                        "device")
+    if q.dtype not in DTYPES:
+        raise TypeError(f"the backward takes float32 or bfloat16; got "
+                        f"{q.dtype}")
+    if window is not None and window < 1:
+        raise ValueError(f"window={window} must be None or at least 1")
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    if not q.is_cuda:
+        return _ref.flash_attention_bwd_ref(
+            q, k, v, out, dout, causal=causal, window=window,
+            q_offset=q_offset, kv_len=kv_len)
+    if D % 8 or not 8 <= D <= 256:
+        raise ValueError(f"the backward kernel takes a head size D that is a "
+                         f"multiple of 8 up to 256; got {D}")
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if not q.numel():
+        return dq, dk.zero_(), dv.zero_()
+    # the row statistics pass 1 leaves for pass 2: log-sum-exp, rowsum(dO O)
+    stats = torch.empty((2, B, Hq, Sq), dtype=torch.float32, device=q.device)
+    mask = (int(causal), 0 if window is None else int(window), int(q_offset),
+            Skv if kv_len is None else int(kv_len))
+    with on_device(q):
+        code = _lib_bwd().flash_attention_bwd(
+            *(x for t in (q, k, v, out, dout, dq, dk, dv)
+              for x in (t.data_ptr(), *t.stride())),
+            stats[0].data_ptr(), stats[1].data_ptr(),
+            B, Hq, Hkv, Sq, Skv, D, *mask, DTYPES[q.dtype], stream(q))
+    raise_on(code, BWD)
+    count_launch(LAUNCHES, BWD)
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """``flash_attention`` with a gradient: the forward is the wrapper above
+    (a kernel on the card, the plain version on the CPU), the backward
+    ``flash_attention_bwd`` on the saved q, k, v and output. The forward is
+    looked up in this module when it runs, so a caller may stand another
+    attention in for it (``chip_smoke.py`` does, to record or compare)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal=True, window=None, q_offset=0,
+                kv_len=None):
+        out = flash_attention(q, k, v, causal=causal, window=window,
+                              q_offset=q_offset, kv_len=kv_len)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.mask = dict(causal=causal, window=window, q_offset=q_offset,
+                        kv_len=kv_len)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, **ctx.mask)
+        return dq, dk, dv, None, None, None, None
+

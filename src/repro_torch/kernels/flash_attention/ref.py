@@ -11,6 +11,11 @@ comment says zero, which it is not). The Pallas kernel's mean over its
 zero-padded 128-row block is not copied. GQA groups query heads onto a KV
 head as ``h // (Hq // Hkv)`` without repeating K or V in memory.
 
+``flash_attention_bwd_ref`` is the plain version of the backward kernel
+``csrc/flash_attention_bwd.cu``: the gradients of ``flash_attention_ref``,
+written out in float32 rather than taken by autograd, which the forward's
+in-place softmax refuses (it overwrites the scores it would need).
+
 ``tf32_round`` and ``split_tf32`` state the rounding rule of the CUDA kernel
 ``csrc/flash_attention.cu``, which multiplies on the tensor cores in split
 TF32; no path calls them, and the tests build a model of that arithmetic
@@ -70,3 +75,57 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     p.div_(torch.where(lsum == 0.0, torch.ones_like(lsum), lsum))
     out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
     return out.reshape(B, Hq, Sq, D).to(q.dtype)
+
+
+def _visible(Sq: int, Skv: int, causal: bool, window: int | None,
+             q_offset: int, kv_len: int, device) -> torch.Tensor:
+    """(Sq, Skv) bool: key k is visible to query i (position q_offset + i)."""
+    qpos = q_offset + torch.arange(Sq, device=device)
+    kpos = torch.arange(Skv, device=device)
+    mask = (kpos[None, :] < kv_len).expand(Sq, Skv)
+    if causal:
+        mask = mask & (kpos[None, :] <= qpos[:, None])
+    if window is not None:
+        mask = mask & (kpos[None, :] > qpos[:, None] - window)
+    return mask
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, out: torch.Tensor,
+                            dout: torch.Tensor, *, causal: bool = True,
+                            window: int | None = None, q_offset: int = 0,
+                            kv_len: int | None = None
+                            ) -> tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """The gradients (dq, dk, dv) of ``flash_attention_ref``'s output
+    ``out`` against ``dout`` (both (B, Hq, Sq, D)), each in its input's
+    dtype. In float32: P recomputed with the forward's mask and its -1e30
+    fill, ``delta = rowsum(dO * O)``, ``dS = P * (dO V^T - delta)`` on the
+    visible pairs and 0 elsewhere, ``dQ = scale dS K``, ``dK = scale dS^T Q``
+    and ``dV = P^T dO``, dK and dV summed over each GQA group (scale =
+    1/sqrt(D)). A row that sees no key has a uniform softmax over all Skv
+    keys: its dO/Skv reaches every key's dV, and nothing reaches dQ or dK,
+    since the fill is a constant."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    group = Hq // Hkv
+    kv_len = Skv if kv_len is None else kv_len
+    scale = 1.0 / D ** 0.5
+    qg = q.reshape(B, Hkv, group, Sq, D).float()
+    kf, vf = k.float(), v.float()
+    do = dout.reshape(B, Hkv, group, Sq, D).float()
+    mask = _visible(Sq, Skv, causal, window, q_offset, kv_len, q.device)
+    p = torch.einsum("bhgqd,bhkd->bhgqk", qg, kf).div_(D ** 0.5)
+    p.masked_fill_(~mask, NEG_INF)
+    p = torch.softmax(p, dim=-1)
+    dv = torch.einsum("bhgqk,bhgqd->bhkd", p, do)
+    delta = (do * out.reshape(B, Hkv, group, Sq, D).float()).sum(
+        dim=-1, keepdim=True)
+    ds = torch.einsum("bhgqd,bhkd->bhgqk", do, vf).sub_(delta).mul_(p)
+    del p
+    ds.masked_fill_(~mask, 0.0)
+    dq = torch.einsum("bhgqk,bhkd->bhgqd", ds, kf).mul_(scale)
+    dk = torch.einsum("bhgqk,bhgqd->bhkd", ds, qg).mul_(scale)
+    return (dq.reshape(B, Hq, Sq, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+

@@ -1,12 +1,16 @@
 """Shared neural layers of the LM zoo: norms, RoPE, attention, MLPs.
 
 The port of ``repro.models.layers``, with its arithmetic and cast order.
-Full-sequence attention (``chunked_attention``) goes through the flash
-kernel's wrapper: on a CUDA tensor it launches ``csrc/flash_attention.cu``,
-on a CPU tensor it runs the plain version. Single-token decode attention
-(``decode_attention``) stays plain PyTorch, as JAX computes it with jnp
-outside any Pallas kernel. The projections and MLPs are ``torch.matmul``,
-as JAX leaves them to XLA.
+Full-sequence attention (``chunked_attention``) calls the flash kernel's
+wrapper (``ops.flash_attention``): on a CUDA tensor it launches a flash
+kernel, on a CPU tensor it runs the plain version. Where gradients are
+recorded it goes through the kernel's autograd Function
+(``ops.FlashAttention``) instead, whose backward launches
+``csrc/flash_attention_bwd.cu`` (its plain version on the CPU); serving,
+under ``no_grad``, calls the wrapper directly. Single-token decode
+attention (``decode_attention``) stays plain PyTorch, as JAX computes it
+with jnp outside any Pallas kernel. The projections and MLPs are
+``torch.matmul``, as JAX leaves them to XLA.
 """
 
 from __future__ import annotations
@@ -14,7 +18,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention import ops as fa
 
 NEG_INF = -1e30
 
@@ -65,13 +69,17 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       gqa: str = "grouped") -> torch.Tensor:
     """q (B, Hq, Sq, D); k, v (B, Hkv, Skv, D) -> (B, Hq, Sq, D).
 
-    The flash kernel on a CUDA tensor, its plain version on a CPU tensor.
-    ``bq``, ``bk`` and ``gqa`` pick JAX's blocking and its layout under
-    tensor parallelism; they change no result and are accepted for the
-    signature's sake."""
+    The flash kernels on a CUDA tensor, their plain versions on a CPU
+    tensor, differentiable. ``bq``, ``bk`` and ``gqa`` pick JAX's blocking
+    and its layout under tensor parallelism; they change no result and are
+    accepted for the signature's sake."""
     del bq, bk, gqa
-    return flash_attention(q, k, v, causal=causal, window=window,
-                           q_offset=q_offset, kv_len=kv_len)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return fa.FlashAttention.apply(q, k, v, causal, window, q_offset,
+                                       kv_len)
+    return fa.flash_attention(q, k, v, causal=causal, window=window,
+                              q_offset=q_offset, kv_len=kv_len)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

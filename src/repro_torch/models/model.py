@@ -12,12 +12,30 @@ per sublayer, keyed ``"{i}:{kind}"`` as JAX's ``blocks`` are (JAX stacks
 them over ``n_periods``). An encoder-decoder (Whisper, ``cfg.enc_layers``)
 also holds the cross-attention leaves ``x_*`` in each decoder sublayer and
 ``encoder[n]["0:attn"]`` for each of its encoder layers (JAX's
-``enc_blocks``). Weight matrices keep JAX's ``x @ w`` orientation, (in, out),
+``enc_blocks``). Each sublayer's parameters are slices of one tensor per
+JAX leaf, stacked over the periods (or encoder layers) as JAX stacks it:
+``lm.stacked["blocks/{i}:{kind}/{name}"]`` (``"enc_blocks/0:attn/..."``)
+is that leaf in JAX's shape, sharing storage with its slices, so training
+updates a whole leaf in place and nothing restacks it. The model is
+never moved or cast after it is built (``.to`` would part the slices from
+their leaf). Weight matrices keep JAX's ``x @ w`` orientation, (in, out),
 so a JAX parameter tree loads without a transpose (``models/convert.py``).
 The router, ``A_log``, ``D`` and ``dt_bias`` are float32 whatever the
 model's dtype, as JAX draws them. What JAX's ``constrain`` callbacks,
-``remat``, ``attn_gqa_mode`` and ``moe_buf_mode`` steer (sharding and memory
-under XLA) has no counterpart here and changes no result.
+``attn_gqa_mode`` and ``moe_buf_mode`` steer (sharding and memory under XLA)
+has no counterpart here and changes no result. ``cfg.remat`` and
+``cfg.remat_policy`` are placed where JAX places its ``jax.checkpoint``: one
+``torch.utils.checkpoint`` around each period's body when the forward
+carries gradients (``"full"``: everything recomputed in the backward;
+``"dots"``: the unbatched matrix products' outputs saved, the rest
+recomputed; ``"none"``: plain), never around Whisper's encoder, whose JAX
+scan has none.
+
+``forward`` and ``encode`` carry gradients; the parameters are allocated
+with ``requires_grad=False`` and ``training.lm_step`` turns gradients on for
+what it trains. ``loss`` is JAX's cross-entropy plus 0.01 times the MoE aux
+loss. Serving (``decode_step``, ``prefill``, ``make_prefill_step``,
+``ServeEngine``) runs under ``torch.no_grad()`` and builds no graph.
 
 Full-sequence attention (``forward``) runs the flash-attention kernel once
 per attention sublayer on the card. Decode (``decode_step``) attends with
@@ -45,7 +63,10 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.core.lowering import resolve_device
 from repro_torch.models import layers as L
@@ -165,6 +186,17 @@ def _encoder_cfg(cfg: ArchConfig) -> ArchConfig:
     return dataclasses.replace(cfg, n_kv_heads=cfg.n_heads)
 
 
+def _save_products(ctx, op, *args, **kwargs):
+    """The ``"dots"`` policy, JAX's ``dots_with_no_batch_dims_saveable``:
+    keep the outputs of the matrix products without batch dimensions
+    (``aten.mm``: the projections, FFNs and head) for the backward and
+    recompute everything else, batched products (attention's scores, the
+    experts over E, the SSD) among it."""
+    if op == torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
 @functools.lru_cache(maxsize=8)
 def _sinusoid_np(S: int, d: int) -> np.ndarray:
     """JAX's sinusoid table (1, S, d) in float64: sin then cos of
@@ -192,25 +224,39 @@ class LM(nn.Module):
         dev = resolve_device(device)
         self.cfg = cfg
 
-        def alloc(shapes):
-            return nn.ParameterDict({
-                name: nn.Parameter(torch.empty(
-                    leaf.shape, device=dev,
-                    dtype=torch.float32 if leaf.float32 else dtype),
-                    requires_grad=False)
-                for name, leaf in shapes.items()})
+        def empty(leaf, lead=()):
+            return torch.empty(lead + leaf.shape, device=dev,
+                               dtype=torch.float32 if leaf.float32 else dtype)
+
+        def stack(tree, key, shapes, n):
+            """n ParameterDicts, entry p of each the slice p of one tensor
+            per leaf, stacked over the n layers as JAX stacks it."""
+            whole = {name: empty(leaf, (n,)) for name, leaf in shapes.items()}
+            self.stacked.update({f"{tree}/{key}/{name}": t
+                                 for name, t in whole.items()})
+            return [nn.ParameterDict({
+                name: nn.Parameter(t[p], requires_grad=False)
+                for name, t in whole.items()}) for p in range(n)]
 
         cross = bool(cfg.enc_layers)
-        self.top = alloc(_top_shapes(cfg))
+        #: JAX's stacked leaves by ``"/"``-joined path, each the storage of
+        #: its slices in ``layers`` / ``encoder`` (``models/convert.py``)
+        self.stacked: dict[str, torch.Tensor] = {}
+        self.top = nn.ParameterDict({
+            name: nn.Parameter(empty(leaf), requires_grad=False)
+            for name, leaf in _top_shapes(cfg).items()})
+        subs = {f"{i}:{kind}": stack("blocks", f"{i}:{kind}",
+                                     _sublayer_shapes(cfg, i, kind, cross),
+                                     cfg.n_periods)
+                for i, kind in enumerate(cfg.period)}
         self.layers = nn.ModuleList(
-            nn.ModuleDict({f"{i}:{kind}":
-                           alloc(_sublayer_shapes(cfg, i, kind, cross))
-                           for i, kind in enumerate(cfg.period)})
-            for _ in range(cfg.n_periods))
-        self.encoder = nn.ModuleList(
-            nn.ModuleDict({"0:attn": alloc(_sublayer_shapes(
-                _encoder_cfg(cfg), 0, "attn"))})
-            for _ in range(cfg.enc_layers))
+            nn.ModuleDict({key: s[p] for key, s in subs.items()})
+            for p in range(cfg.n_periods))
+        enc = stack("enc_blocks", "0:attn", _sublayer_shapes(
+            _encoder_cfg(cfg), 0, "attn"), cfg.enc_layers) \
+            if cfg.enc_layers else []
+        self.encoder = nn.ModuleList(nn.ModuleDict({"0:attn": s})
+                                     for s in enc)
 
     @property
     def device(self) -> torch.device:
@@ -348,27 +394,20 @@ class LM(nn.Module):
     def _embed(self, tokens, patch_embeds=None):
         """Token embeddings, the first P positions replaced by the patch
         embeddings (B, P, d) cast to the model's dtype: a splice, the
-        sequence keeps its length S."""
-        x = self.top["embed"][tokens.long()]
+        sequence keeps its length S. ``F.embedding``, not indexing: its
+        backward sums repeated tokens' gradients in a fixed order (indexing's
+        accumulating scatter does not, on the CPU), which a resumed run
+        needs to repeat an uninterrupted one bit for bit."""
+        x = F.embedding(tokens.long(), self.top["embed"])
         if patch_embeds is not None:
             P = patch_embeds.shape[1]
             x = torch.cat([patch_embeds.to(x.dtype), x[:, P:]], dim=1)
         return x
 
-    @torch.no_grad()
-    def forward(self, tokens: torch.Tensor, *, patch_embeds=None,
-                enc_frames=None):
-        """Prefill forward: tokens (B, S) on the model's device ->
-        (logits (B, S, V), aux loss), aux the float32 sum of the MoE
-        sublayers' load-balance losses (zero without experts). An
-        encoder-decoder encodes ``enc_frames`` once and each decoder
-        sublayer runs self-attention, cross-attention over the encoder's
-        output, then its FFN."""
-        x = self._embed(tokens, patch_embeds)
-        positions = torch.arange(x.shape[1], device=x.device)[None, :]
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        enc_out = self.encode(enc_frames) if self.cfg.enc_layers else None
-        for _, i, kind, p in self.sublayers():
+    def _period(self, block, x, aux, positions, enc_out):
+        """One period's sublayers on x -> (x, aux + their aux losses)."""
+        for i, kind in enumerate(self.cfg.period):
+            p = block[f"{i}:{kind}"]
             if kind == "attn":
                 x = self._attn_full(x, p, positions)
                 if enc_out is not None:
@@ -377,9 +416,59 @@ class LM(nn.Module):
                 x = x + mamba2.mamba2_mixer(self._norm(x, p), p, self.cfg)
             x, a = self._ffn(x, p, i)
             aux = aux + a
+        return x, aux
+
+    def _remat(self, body):
+        """``body`` under the config's rematerialisation, as JAX wraps its
+        scan body: only where the forward carries gradients."""
+        c = self.cfg
+        if not torch.is_grad_enabled() or not c.remat or \
+                c.remat_policy == "none":
+            return body
+        if c.remat_policy == "dots":
+            return functools.partial(
+                checkpoint, body, use_reentrant=False,
+                context_fn=functools.partial(
+                    create_selective_checkpoint_contexts, _save_products))
+        return functools.partial(checkpoint, body, use_reentrant=False)
+
+    def forward(self, tokens: torch.Tensor, *, patch_embeds=None,
+                enc_frames=None):
+        """Training and prefill forward: tokens (B, S) on the model's device
+        -> (logits (B, S, V), aux loss), aux the float32 sum of the MoE
+        sublayers' load-balance losses (zero without experts). An
+        encoder-decoder encodes ``enc_frames`` once and each decoder
+        sublayer runs self-attention, cross-attention over the encoder's
+        output, then its FFN."""
+        x = self._embed(tokens, patch_embeds)
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        enc_out = self.encode(enc_frames) if self.cfg.enc_layers else None
+        period = self._remat(self._period)
+        for block in self.layers:
+            x, aux = period(block, x, aux, positions, enc_out)
         return self._head(x), aux
 
-    @torch.no_grad()
+    def loss(self, batch: dict) -> tuple[torch.Tensor, dict]:
+        """batch: ``tokens`` (B, S), ``labels`` (B, S) (-100 is masked),
+        optional ``patch_embeds`` / ``enc_frames`` -> (total, metrics), JAX's
+        arithmetic: the log-sum-exp of float32 logits less the gold logit
+        gathered in the logits' dtype, averaged over the unmasked labels
+        (at least 1), plus 0.01 times the aux loss; metrics ``ce``, ``aux``
+        and ``tokens`` (float32)."""
+        logits, aux = self.forward(batch["tokens"],
+                                   patch_embeds=batch.get("patch_embeds"),
+                                   enc_frames=batch.get("enc_frames"))
+        labels = batch["labels"].long()
+        mask = labels >= 0
+        lse = torch.logsumexp(logits.float(), dim=-1)
+        gold = torch.gather(logits, -1, labels.clamp_min(0)[..., None])[..., 0]
+        nll = lse - gold.float()
+        denom = mask.sum().clamp_min(1)
+        ce = torch.where(mask, nll, 0.0).sum() / denom
+        total = ce + 0.01 * aux
+        return total, {"ce": ce, "aux": aux, "tokens": denom.float()}
+
     def encode(self, frames: torch.Tensor) -> torch.Tensor:
         """Whisper's encoder: frames (B, S, d) in the model's dtype ->
         (B, S, d). The frames plus JAX's sinusoid table, then each layer's
@@ -484,6 +573,7 @@ class LM(nn.Module):
             x, _ = self._ffn(x, p, i)
         return self._head(x), {"blocks": blocks, "len": pos + 1}
 
+    @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, s_max: int,
                 enc_len: int | None = None):
         """The decode cache built token by token through ``decode_step``

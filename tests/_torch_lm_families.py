@@ -97,7 +97,9 @@ def check_forward(jlm, params, lm):
     np.testing.assert_allclose(float(aux), float(aux_j), rtol=LOGIT_TOL,
                                atol=LOGIT_TOL)
     assert (float(aux) > 0) == bool(lm.cfg.n_experts)
-    assert fa_ops.LAUNCHES == {"flash_attention": 0, "flash_attention_sm90": 0}
+    assert fa_ops.LAUNCHES == {"flash_attention": 0,
+                               "flash_attention_sm90": 0,
+                               "flash_attention_bwd": 0}
 
 
 def check_prefill(jlm, params, lm, s_max=32, **cache_kw):

@@ -124,7 +124,9 @@ def test_wrapper_on_cpu_is_the_plain_version_and_launches_nothing(dtype, D):
         assert torch.equal(got, ref.flash_attention_ref(q, k, v, **kw))
         assert torch.equal(layers.chunked_attention(q, k, v, bq=8, bk=16,
                                                     gqa="repeat", **kw), got)
-    assert ops.LAUNCHES == {"flash_attention": 0, "flash_attention_sm90": 0}
+    assert ops.LAUNCHES == {"flash_attention": 0,
+                            "flash_attention_sm90": 0,
+                            "flash_attention_bwd": 0}
 
 
 def test_wrapper_reads_movedim_views():

@@ -173,7 +173,9 @@ def test_encode_matches_jax(models):
     got = lm.encode(torch.from_numpy(frames))
     assert got.shape == frames.shape and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want, rtol=ENC_TOL, atol=ENC_TOL)
-    assert fa_ops.LAUNCHES == {"flash_attention": 0, "flash_attention_sm90": 0}
+    assert fa_ops.LAUNCHES == {"flash_attention": 0,
+                               "flash_attention_sm90": 0,
+                               "flash_attention_bwd": 0}
 
 
 def test_frames_of_another_dtype_are_refused(models):
