@@ -10,8 +10,12 @@ Phases (any failure exits non-zero; nothing is caught):
                report; count the int8 warpgroup MMAs (IGMMA ... S8.S8) in
                the built spike_matmul library's SASS (cuobjdump -sass: must
                be non-zero) and the TF32 ones (HGMMA ... TF32) in
-               flash_attention's, and check that event_accum's kernels hold no
-               shared memory (no ids staged, nothing that grows with
+               flash_attention's and flash_attention_bwd's (non-zero), and
+               the atomics (ATOM, ATOMS, ATOMG, RED) in flash_attention_bwd's
+               (zero: one writer an output element); compile the backward
+               it replaced (scripts/baselines/flash_attention_bwd_two_walks.cu)
+               beside them for phase 7; check that event_accum's kernels
+               hold no shared memory (no ids staged, nothing that grows with
                E_max), that the lif and ttfs_decode kernels spill nothing,
                and that ttfs_decode's warp-per-row kernel holds no shared
                memory and no block barrier;
@@ -227,20 +231,31 @@ Phases (any failure exits non-zero; nothing is caught):
                norm (ATTN_REL_TOL),
                and the same check must catch a planted fault (the last q
                tile's first visible key tile skipped) in every case that has
-               a key tile to skip;
+               a key tile to skip. Each case runs once more with the row
+               statistic asked for (return_lse=True): the output bitwise
+               equal to the run without it, the statistic within
+               ATTN_LSE_TOL of the plain version's on the rows that see a
+               key and +inf exactly on those that see none;
   5b. backward — the backward kernel (flash_attention_bwd,
                csrc/flash_attention_bwd.cu) against flash_attention_bwd_ref
                on the card, one launch each, counted, in float32 (2e-5) and
-               bf16 (2e-2), on the forward kernel's output: phase 5's sweep,
-               GQA 8 with kv_len < Skv, a window over several tiles, queries
-               that see no key, Whisper's training cross-attention (B 4,
-               Sq 448 over 1,500 keys, D 64, non-causal) and Yi-6B's
-               training shape (B 4, 32/4 heads, S 2048, D 128, causal), the
-               last two as the model's views. dq, dk and dv are held
-               element by element and by the relative error norm of each
-               128-row tile (ATTN_BWD_REL_TOL); two launches on the same
-               inputs must be bitwise equal, and the tile check must catch
-               a planted fault (pass 2 skipping the first key tile);
+               bf16 (2e-2), on the forward kernel's output and row statistic:
+               phase 5's sweep, GQA 8 with kv_len < Skv, a window over
+               several tiles, queries that see no key, Whisper's training
+               cross-attention (B 4, Sq 448 over 1,500 keys, D 64,
+               non-causal) and Yi-6B's training shape (B 4, 32/4 heads, S
+               2048, D 128, causal), the last two as the model's views, the
+               sweep at D 16 and D 256 (the CUDA-core route) and D 128 with
+               a misaligned start or a d stride of 2 (element loads); each
+               case's route (tensor cores or CUDA cores) asserted by
+               BWD_ROUTES. dq, dk and dv are held element by element and by
+               the relative error norm of each 128-row tile
+               (ATTN_BWD_REL_TOL) against the plain version, which builds its
+               own softmax; two launches on the same inputs must be bitwise
+               equal, and the tile check must catch two planted faults:
+               pass B skipping the first key tile, and the kernel run on the
+               statistic with the last q tile's rows shifted by
+               ATTN_LSE_FAULT;
   6. LM path — Qwen3-8B at full width and depth (36 layers, 8.19 B
                parameters drawn in bf16 on the card from a seeded generator):
                make_prefill_step on 2 x 4096 tokens of the TokenPipeline,
@@ -334,7 +349,9 @@ Phases (any failure exits non-zero; nothing is caught):
                backward on the kernel against those with it on the plain
                version, leaf by leaf (TRAIN_GRAD_REL_TOL); one step under
                torch.profiler (forward and backward products, attention
-               forward and backward, optimiser, other; busy share).
+               forward and backward, optimiser, other; busy share), the
+               backward's group (kernels named flash_bwd_*) non-zero and
+               its time by pass.
                Whisper-tiny whole, 4 x 448 tokens over 4 x 1,500 frames, 3
                counted steps (flash_attention 20 a step: 4 encoder, 4 self-
                and 4 cross-attentions twice under remat; the backward 12), a
@@ -377,11 +394,14 @@ Phases (any failure exits non-zero; nothing is caught):
                in float32 on the split-TF32 one, each beside the plain
                version, SDPA (non-causal where the model's is) and its
                bound (all Sq x Skv pairs where nothing is masked). The
-               backward kernel at Yi-6B's training shape in float32 beside
-               its plain version, autograd through SDPA's backward (the
-               library call) and its bound (five products over the causal
-               pairs at kernel 8b's float32 rate; q, k, v, out and dout
-               read once, dq, dk and dv written once).
+               backward kernel at Yi-6B's training shape in float32, on the
+               forward's statistic computed outside the timing, beside its
+               plain version, autograd through SDPA's backward (the library
+               call) and its bound (five products over the causal pairs at
+               kernel 8b's float32 rate; q, k, v, out, the statistic and
+               dout read once, dq, dk and dv written once); then in turns
+               with the design it replaced (BWD_BASELINE, built in phase 1;
+               new, baseline, baseline, new), which it must beat.
 
 The last lines are a ``kernels`` summary, one JSON object with every
 kernel's numbers, the card's name and power limit, and the result line
@@ -553,6 +573,12 @@ ATTN_BWD_CASES = {
                             "movedim view"),
     "yi-6b train": (4, 32, 4, 2048, 2048, 128, True, None, 0, None,
                     "movedim view"),
+    # the tensor cores' DP-32 tiles, the CUDA-core route (D 256), and the
+    # element loads (no 16-byte row alignment, a d stride of 2)
+    **{case: ATTN_SPLIT_TF32_CASES[case]
+       for case in ("sweep-2 gqa+offset D16", "sweep-3 window D256",
+                    "sweep-4 cross D256", "misaligned D128",
+                    "d stride 2 D128")},
 }
 #: its tolerances, element by element (atol = rtol), and the limit of the
 #: relative error norm of each 128-row tile of dq, dk and dv. The kernel sums
@@ -562,6 +588,22 @@ ATTN_BWD_CASES = {
 #: their float32 sums to bf16 once: at most one step, 7.81e-3 at |x| ~ 2)
 ATTN_BWD_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 ATTN_BWD_REL_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+#: the forward kernels' row statistic (return_lse=True) against the plain
+#: version's, element by element (atol = rtol) on the rows that see a key:
+#: float32 sums in both input types (a few ulps of |lse| <= 20 in log2
+#: units); +inf rows must be +inf on both sides
+ATTN_LSE_TOL = 1e-5
+#: phase 5b's planted fault of the statistic: the last 128-row q tile's
+#: lse shifted by this much (log2 units), read by the backward's own check.
+#: A shift s scales those rows' P by 2^-s: 1e-3 is a 6.9e-4 relative error,
+#: far above float32's limit but under bf16's 1e-2, where 0.1 (6.7 %) is
+#: planted instead
+ATTN_LSE_FAULT = {"float32": 1e-3, "bfloat16": 0.1}
+#: the backward this kernel replaced (two walks of the keys in pass 1, 32 x
+#: 32 tiles on the CUDA cores), kept as its source for phase 7 to build and
+#: time in the same call
+BWD_BASELINE = os.path.join(ROOT, "scripts", "baselines",
+                            "flash_attention_bwd_two_walks.cu")
 LM_ARCH = "qwen3-8b"
 PREFILL_B, PREFILL_S = 2, 4096
 #: the bf16 model on the kernel against the same model on the plain
@@ -734,12 +776,18 @@ def frontend_group(kernel: str, ranges: list[str]) -> str:
                  "casts)")
 
 
+#: phase 6d's profile group of the backward's kernels, whose names all hold
+#: "flash_bwd_" (flash_bwd_dq_tf32_kernel, flash_bwd_dkdv_tf32_kernel and
+#: the CUDA-core route's *_simt_kernel); the phase fails if it reads 0
+BWD_GROUP = "attention backward (flash_attention_bwd)"
+
+
 def train_group(kernel: str, ranges: list[str]) -> str:
     """The group of a kernel of phase 6d's training step, from its name and
     the ranges it ran under: the autograd engine's (the backward, and the
     forward remat recomputes inside it) or ``optimizer``."""
-    if "bwd_dq_kernel" in kernel or "bwd_dkdv_kernel" in kernel:
-        return "attention backward (flash_attention_bwd)"
+    if "flash_bwd_" in kernel:
+        return BWD_GROUP
     if is_flash_forward(kernel):
         return "attention forward (flash_attention; remat runs it twice)"
     if "optimizer" in ranges:
@@ -816,7 +864,7 @@ def profile(fn, grouper=None) -> dict:
     return {"wall_ms": wall_ms, "device_ms": busy,
             "busy_share": busy / wall_ms, "groups_ms": groups,
             "covered": sum(tied.values()) / busy if busy else 0.0,
-            "top_ms": dict(top)}
+            "top_ms": dict(top), "kernels_ms": kernels}
 
 
 def show_profile(what: str, prof: dict, card: str) -> None:
@@ -839,6 +887,14 @@ def ptxas_entries(log: str) -> dict:
         name, _, rest = part.partition("'")
         out[name] = rest
     return out
+
+
+def sass_opcode(line: str) -> str:
+    """The opcode of a line of ``cuobjdump -sass`` ("/*0f80*/  @P0 HGMMA...
+    ;" -> "HGMMA..."), or "" for a line that holds none."""
+    m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                 r"([A-Z][A-Z0-9_.]*)", line)
+    return m.group(1) if m else ""
 
 
 def sha256(a) -> str:
@@ -969,9 +1025,20 @@ def main() -> int:
 
     # ---------------------------------------------------------------- 1 build
     t0 = time.perf_counter()
+    # the replaced backward (phase 7's baseline) compiles beside the sources
+    baseline_lib = os.path.join(build.BUILD_DIR, "baseline",
+                                "libflash_attention_bwd_two_walks.so")
+    os.makedirs(os.path.dirname(baseline_lib), exist_ok=True)
+    baseline_nvcc = subprocess.Popen(
+        [build.nvcc_path(), *build.ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+         "-Xcompiler", "-fPIC", "-o", baseline_lib, BWD_BASELINE],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     build.build(build.sources())
-    print(f"[build] {len(build.sources())} sources, nvcc wall "
-          f"{time.perf_counter() - t0:.2f} s")
+    baseline_log, _ = baseline_nvcc.communicate()
+    check(baseline_nvcc.returncode == 0, f"nvcc failed for the baseline "
+          f"backward {BWD_BASELINE}:\n{baseline_log[-4000:]}")
+    print(f"[build] {len(build.sources())} sources and the baseline "
+          f"backward, nvcc wall {time.perf_counter() - t0:.2f} s")
     for log in build.build_logs.values():
         print(log.rstrip())
     # spike_matmul runs on the int8 tensor cores: its SASS holds int8
@@ -995,6 +1062,21 @@ def main() -> int:
           "MMA")
     print(f"[build] flash_attention SASS: {len(hgmma)} TF32 warpgroup MMA "
           f"instructions, e.g. {hgmma[0].split(';')[0]}")
+    # the backward multiplies on the tensor cores too, and adds nothing
+    # atomically (one writer an output element: two runs give the same bits)
+    sass = subprocess.run([cuobjdump, "-sass",
+                           str(build.library_path("flash_attention_bwd"))],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout.splitlines()
+    hgmma = [ln.strip() for ln in sass if "HGMMA" in ln and "TF32" in ln]
+    check(len(hgmma) > 0, "flash_attention_bwd's SASS holds no TF32 "
+          "warpgroup MMA")
+    atomics = [ln.strip() for ln in sass if sass_opcode(ln).split(".")[0]
+               in ("ATOM", "ATOMS", "ATOMG", "RED", "REDG", "REDS")]
+    check(not atomics, f"flash_attention_bwd's SASS holds {len(atomics)} "
+          f"atomic instructions, e.g. {atomics[:3]}")
+    print(f"[build] flash_attention_bwd SASS: {len(hgmma)} TF32 warpgroup "
+          f"MMA instructions, e.g. {hgmma[0].split(';')[0]}; 0 ATOM/RED")
     check(re.search(r"\d+ bytes smem", build.build_logs["event_accum"])
           is None, "an event_accum kernel holds shared memory")
     print("[build] event_accum's kernels: no shared memory (ptxas; the "
@@ -2904,6 +2986,31 @@ def main() -> int:
     for kname in ATTN_ROUTE.values():
         max_err[kname] = 0.0
     rel_seen = {dname: [0.0, float("inf")] for dname in ATTN_TOL}
+    lse_seen = {kname: 0.0 for kname in ATTN_ROUTE.values()}
+
+    def hold_lse(kname, what, q, k, v, kw, got) -> str:
+        """The forward asked for its row statistic: the same output bit for
+        bit, and the statistic against the plain version's (ATTN_LSE_TOL on
+        the rows that see a key, +inf exactly where none is seen)."""
+        out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+        check(torch.equal(out, got), f"{kname} {what}: the output differs "
+              f"when the row statistic is asked for")
+        _, want = fa_ref.flash_attention_ref(q, k, v, return_lse=True, **kw)
+        seen = torch.isfinite(want)
+        check(lse.shape == q.shape[:3] and lse.dtype == torch.float32,
+              f"{kname} {what}: statistic shape or dtype")
+        check(torch.equal(torch.isposinf(lse), ~seen), f"{kname} {what}: "
+              f"the statistic is not +inf exactly on the rows that see no "
+              f"key")
+        err = float((lse - want)[seen].abs().max()) if seen.any() else 0.0
+        check(torch.allclose(lse[seen], want[seen], rtol=ATTN_LSE_TOL,
+                             atol=ATTN_LSE_TOL),
+              f"{kname} {what}: row statistic differs from the plain "
+              f"version's by {err:.3g} (tolerance {ATTN_LSE_TOL})")
+        lse_seen[kname] = max(lse_seen[kname], err)
+        return (f"statistic max |err| {err:.3g} (tolerance {ATTN_LSE_TOL}), "
+                f"{int((~seen).sum())} +inf rows, output bitwise equal with "
+                f"it asked for")
     for case, dname, kname, (B, Hq, Hkv, Sq, Skv, D, causal, window, qoff,
                              kv_len, layout) in cases:
         q, k, v = attn_inputs(B, Hq, Hkv, Sq, Skv, D, dtypes[dname], layout,
@@ -2919,6 +3026,8 @@ def main() -> int:
               f"{kname} once")
         readings = hold_attention(kname, case, dname, q, k, v, kw, got,
                                   rel_seen[dname])
+        readings += "; " + hold_lse(kname, f"{case} {dname}", q, k, v, kw,
+                                    got)
         if case == "no visible key":
             tol = ATTN_TOL[dname]
             mean = v.float().mean(dim=2, keepdim=True).repeat_interleave(
@@ -2935,6 +3044,11 @@ def main() -> int:
         print(f"[attention] {dname}: largest q tile relative error norm "
               f"{worst:.3g}, smallest planted fault {least_fault:.3g}, limit "
               f"{ATTN_REL_TOL[dname]}")
+    for kname, worst in lse_seen.items():
+        print(f"[attention] {kname} row statistic: largest |err| "
+              f"{worst:.3g} against the plain version's (tolerance "
+              f"{ATTN_LSE_TOL}) on every case; outputs bitwise equal with "
+              f"and without it")
 
     # ------------------------------------ 5b attention's backward vs plain
     def bwd_inputs(B, Hq, Hkv, Sq, Skv, D, dtype, layout, seed):
@@ -2945,13 +3059,16 @@ def main() -> int:
         dout = attn_inputs(B, Hq, Hq, Sq, 1, D, dtype, layout, seed + 1)[0]
         return q, k, v, dout
 
-    def hold_backward(what, dname, q, k, v, out, dout, kw, got, seen) -> str:
+    def hold_backward(what, dname, q, k, v, out, lse, dout, kw, got,
+                      seen) -> str:
         """The kernel's (dq, dk, dv) against the plain version on the same
-        inputs, element by element and by the relative error norm of each
-        128-row tile (q rows for dq, keys for dk and dv), with a planted
-        fault (pass 2 skipping the first key tile: its dk and dv never
-        written) read by the same check; keeps the largest relative error
-        and the smallest fault in ``seen``."""
+        inputs (which builds its own softmax, not reading ``lse``), element
+        by element and by the relative error norm of each 128-row tile (q
+        rows for dq, keys for dk and dv), with two planted faults read by
+        the same check: pass B skipping the first key tile (its dk and dv
+        never written), and the kernel run on the forward's statistic with
+        the last q tile's rows shifted by ATTN_LSE_FAULT; keeps the largest
+        relative error and the smallest fault in ``seen``."""
         tol, rel_tol = ATTN_BWD_TOL[dname], ATTN_BWD_REL_TOL[dname]
         want = fa_ref.flash_attention_bwd_ref(q, k, v, out, dout, **kw)
         torch.cuda.synchronize()
@@ -2980,11 +3097,29 @@ def main() -> int:
                         if w.float().norm() > 0)
         seen[1] = min(seen[1], fault_rel)
         check(fault_rel > rel_tol, f"{what} {dname}: a skipped key tile in "
-              f"pass 2 reads {fault_rel:.3g}, within the limit {rel_tol}")
+              f"pass B reads {fault_rel:.3g}, within the limit {rel_tol}")
+        # the statistic's fault: the last 128-row q tile's rows shifted
+        Sq = q.shape[2]
+        last = slice(Sq - (Sq - (Sq - 1) // 128 * 128), Sq)
+        shifted = lse.clone()
+        shifted[:, :, last] += ATTN_LSE_FAULT[dname]
+        if torch.isfinite(lse[:, :, last]).any():
+            bad = fa.flash_attention_bwd(q, k, v, out, shifted, dout, **kw)
+            lse_rel = max(tile_rel_err(f, w) for f, w in zip(bad, want)
+                          if w.float().norm() > 0)
+            check(lse_rel > rel_tol, f"{what} {dname}: the statistic's last "
+                  f"tile shifted by {ATTN_LSE_FAULT[dname]} reads "
+                  f"{lse_rel:.3g}, within the limit {rel_tol}")
+            seen[1] = min(seen[1], lse_rel)
+            lse_txt = (f"the last tile's statistic shifted by "
+                       f"{ATTN_LSE_FAULT[dname]} reads {lse_rel:.3g}")
+            del bad
+        else:
+            lse_txt = "no statistic fault planted (the last tile sees no key)"
         return (f"max |err| dq {errs[0]:.3g} dk {errs[1]:.3g} dv "
                 f"{errs[2]:.3g} (tolerance {tol}), tile relative error norm "
                 f"{max(rels):.3g} (limit {rel_tol}; a skipped key tile in "
-                f"pass 2 reads {fault_rel:.3g})")
+                f"pass B reads {fault_rel:.3g}; {lse_txt})")
 
     bwd_seen = {dname: [0.0, float("inf")] for dname in ATTN_BWD_TOL}
     for case, shape in ATTN_BWD_CASES.items():
@@ -2994,25 +3129,32 @@ def main() -> int:
         for dname in ATTN_BWD_TOL:
             q, k, v, dout = bwd_inputs(B, Hq, Hkv, Sq, Skv, D, dtypes[dname],
                                        layout, Sq + Skv + 5)
-            out = fa.flash_attention(q, k, v, **kw)
+            # the forward kernel's output and row statistic, as
+            # FlashAttention saves them
+            out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+            how = fa.bwd_route(D)
             reset_launches()
-            got = fa.flash_attention_bwd(q, k, v, out, dout, **kw)
+            got = fa.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
             counts = launch_counts()
             check(counts == {**{n: 0 for n in KERNELS},
                              "flash_attention_bwd": 1},
                   f"flash_attention_bwd {case} {dname} launched {counts}, "
                   f"expected the backward once")
-            again = fa.flash_attention_bwd(q, k, v, out, dout, **kw)
+            check(fa.BWD_ROUTES == {**{r: 0 for r in fa.BWD_ROUTES},
+                                    how: 1},
+                  f"flash_attention_bwd {case} {dname} took the routes "
+                  f"{fa.BWD_ROUTES}, expected {how}")
+            again = fa.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
             check(all(torch.equal(a, b) for a, b in zip(got, again)),
                   f"flash_attention_bwd {case} {dname}: two launches on the "
                   f"same inputs differ")
-            readings = hold_backward(case, dname, q, k, v, out, dout, kw,
-                                     got, bwd_seen[dname])
+            readings = hold_backward(case, dname, q, k, v, out, lse, dout,
+                                     kw, got, bwd_seen[dname])
             print(f"[attention bwd] {case} {dname}: B={B} Hq={Hq} Hkv={Hkv} "
                   f"Sq={Sq} Skv={Skv} D={D} causal={causal} window={window} "
-                  f"q_offset={qoff} kv_len={kv_len} layout={layout}: "
-                  f"{readings}; two launches bitwise equal")
-            del q, k, v, dout, out, got, again
+                  f"q_offset={qoff} kv_len={kv_len} layout={layout}, route "
+                  f"{how}: {readings}; two launches bitwise equal")
+            del q, k, v, dout, out, lse, got, again
         torch.cuda.empty_cache()
     for dname, (worst, least_fault) in bwd_seen.items():
         print(f"[attention bwd] {dname}: largest tile relative error norm "
@@ -4017,8 +4159,8 @@ def main() -> int:
         # the same gradients with attention's backward on the plain version
         batch = tr.batch_at(TRAIN_STEPS)
         g_kernel = grads(tr.lm, batch)
-        fa.flash_attention_bwd = lambda *args, **kw: \
-            fa_ref.flash_attention_bwd_ref(*args, **kw)
+        fa.flash_attention_bwd = lambda q, k, v, out, lse, dout, **kw: \
+            fa_ref.flash_attention_bwd_ref(q, k, v, out, dout, **kw)
         try:
             g_plain = grads(tr.lm, batch)
         finally:
@@ -4051,6 +4193,19 @@ def main() -> int:
         batch = tr.batch_at(TRAIN_STEPS + 1)
         prof = profile(lambda: step_fn(tr.opt_state, batch), train_group)
         show_profile(f"{cfg.name} train step", prof, card)
+        check(prof["groups_ms"].get(BWD_GROUP, 0.0) > 0, f"the profile of "
+              f"{cfg.name}'s step holds no time of the backward kernel "
+              f"(group {BWD_GROUP!r}): {sorted(prof['top_ms'])}")
+        # the backward's time by pass (dq, then dk and dv)
+        passes = {re.search(r"flash_bwd_[a-z0-9_]+", name).group(0): ms
+                  for name, ms in prof["kernels_ms"].items()
+                  if "flash_bwd_" in name}
+        check(len(passes) == 2, f"the profile of {cfg.name}'s step holds "
+              f"the backward's kernels {sorted(passes)}, not its two passes")
+        print(f"[profile] {cfg.name} train step: the backward by pass over "
+              f"its {cfg.n_layers} launches: " + ", ".join(
+                  f"{name} {ms:.2f} ms ({ms / cfg.n_layers:.4f} a launch)"
+                  for name, ms in passes.items()) + f" — card: {card}")
         print(f"[profile] {cfg.name} train step: {prof['covered']:.3f} of "
               f"the device time tied to the op that launched it")
         del tr, step_fn, batch, ranged_opt
@@ -4232,20 +4387,21 @@ def main() -> int:
         lambda: fa_ref.flash_attention_ref(*aq32),
         lambda: sdpa_attention(*aq32))
     # the backward at Yi-6B's training shape (phase 6d's), float32, the
-    # model's views; the library call is autograd through SDPA's backward
-    # (its forward run once, outside the timing)
+    # model's views, on the forward kernel's output and row statistic
+    # (computed once, outside the timing); the library call is autograd
+    # through SDPA's backward (its forward run once, outside the timing)
     bq = bwd_inputs(*ATTN_BWD_CASES["yi-6b train"][:6], torch.float32,
                     "movedim view", 7)
-    bout = fa.flash_attention(*bq[:3])
+    bout, blse = fa.flash_attention(*bq[:3], return_lse=True)
     lib_in = [t.detach().clone().requires_grad_() for t in bq[:3]]
     lib_out = F.scaled_dot_product_attention(*lib_in, is_causal=True,
                                              enable_gqa=True)
     fns["flash_attention_bwd"] = (
-        lambda: fa.flash_attention_bwd(*bq[:3], bout, bq[3]),
+        lambda: fa.flash_attention_bwd(*bq[:3], bout, blse, bq[3]),
         lambda: fa_ref.flash_attention_bwd_ref(*bq[:3], bout, bq[3]),
         lambda: torch.autograd.grad(lib_out, lib_in, bq[3],
                                     retain_graph=True))
-    got = fa.flash_attention_bwd(*bq[:3], bout, bq[3])
+    got = fa.flash_attention_bwd(*bq[:3], bout, blse, bq[3])
     lib = torch.autograd.grad(lib_out, lib_in, bq[3], retain_graph=True)
     print(f"[times] autograd through SDPA against flash_attention_bwd at "
           f"the training shape, float32: max |difference| dq "
@@ -4380,13 +4536,15 @@ def main() -> int:
     work["flash_attention"] = (*attn_work(*aq32[:2]), SPLIT_TF32_FLOPS)
 
     def attn_bwd_work(q, k, causal=True):
-        """(bytes, operations) of attention's backward: q, k, v, out and
-        dout read once, dq, dk and dv written once; the five products a
-        backward needs at least (Q K^T recomputed, dO V^T, P^T dO, dS K,
-        dS^T Q), 2 FLOPs a multiply-add over the visible pairs, at the
-        float32 rate kernel 8b's bound uses."""
+        """(bytes, operations) of attention's backward: q, k, v, out, the
+        forward's row statistic (float32) and dout read once, dq, dk and dv
+        written once; the five products a backward needs at least (Q K^T
+        recomputed, dO V^T, P^T dO, dS K, dS^T Q), 2 FLOPs a multiply-add
+        over the visible pairs, at the float32 rate kernel 8b's bound
+        uses."""
         fwd_bytes, fwd_ops = attn_work(q, k, causal)
-        return 2 * fwd_bytes, 5 * fwd_ops // 2
+        lse_bytes = 4 * q.shape[0] * q.shape[1] * q.shape[2]
+        return 2 * fwd_bytes + lse_bytes, 5 * fwd_ops // 2
 
     work["flash_attention_bwd"] = (*attn_bwd_work(*bq[:2]), SPLIT_TF32_FLOPS)
 
@@ -4439,6 +4597,58 @@ def main() -> int:
               f"{n_bytes} B, {n_ops} ops)"
               f"{'' if attention else f', launch floor {floor_ms:.4f} ms'}, "
               f"main-path launches {launches[kname]} — card: {card}")
+
+    # the backward against the design it replaced (BWD_BASELINE: two walks
+    # of the keys in pass 1, 32 x 32 tiles on the CUDA cores), built in
+    # phase 1 from its source, held once to the plain version and timed in
+    # turns with this one at Yi-6B's training shape (new, baseline,
+    # baseline, new)
+    import ctypes
+    from repro_torch.kernels.common import I, L, P, stream as cur_stream
+    old = ctypes.CDLL(baseline_lib)
+    old.flash_attention_bwd.argtypes = ([P] + [L] * 4) * 8 + [P, P] + \
+        [I] * 11 + [P]
+    old.flash_attention_bwd.restype = I
+    B_, Hq_, Hkv_, S_, _, D_ = ATTN_BWD_CASES["yi-6b train"][:6]
+
+    def baseline_bwd():
+        grads = [torch.empty_like(t) for t in bq[:3]]
+        stats = torch.empty((2, B_, Hq_, S_), dtype=torch.float32,
+                            device=dev)
+        code = old.flash_attention_bwd(
+            *(x for t in (*bq[:3], bout, bq[3], *grads)
+              for x in (t.data_ptr(), *t.stride())),
+            stats[0].data_ptr(), stats[1].data_ptr(), B_, Hq_, Hkv_, S_, S_,
+            D_, 1, 0, 0, S_, 0, cur_stream(bq[0]))
+        check(code == 0, f"the baseline backward failed with CUDA error "
+              f"{code}")
+        return grads
+
+    want = fa_ref.flash_attention_bwd_ref(*bq[:3], bout, bq[3])
+    got = baseline_bwd()
+    torch.cuda.synchronize()
+    tol = ATTN_BWD_TOL["float32"]
+    check(all(torch.allclose(g, w, rtol=tol, atol=tol)
+              for g, w in zip(got, want)),
+          "the baseline backward differs from the plain version")
+    del want, got
+    turns = {"flash_attention_bwd": [], "baseline": []}
+    for name in ("flash_attention_bwd", "baseline", "baseline",
+                 "flash_attention_bwd"):
+        fn = (fns["flash_attention_bwd"][0] if name == "flash_attention_bwd"
+              else baseline_bwd)
+        turns[name].append(kernel_ms(fn, *FEW_SAMPLES)[0])
+    new_ms, old_ms = (statistics.mean(turns[k]) for k in turns)
+    print(f"[times] flash_attention_bwd against the design it replaced "
+          f"({os.path.relpath(BWD_BASELINE, ROOT)}), in turns (new, "
+          f"baseline, baseline, new) at B={B_} Hq={Hq_} Hkv={Hkv_} S={S_} "
+          f"D={D_} causal float32, (B, S, H, D) views: this kernel "
+          f"{turns['flash_attention_bwd'][0]:.4f} / "
+          f"{turns['flash_attention_bwd'][1]:.4f} ms (mean {new_ms:.4f}), "
+          f"baseline {turns['baseline'][0]:.4f} / {turns['baseline'][1]:.4f}"
+          f" ms (mean {old_ms:.4f}): {old_ms / new_ms:.2f}x — card: {card}")
+    check(new_ms < old_ms, f"flash_attention_bwd ({new_ms:.4f} ms) is not "
+          f"faster than the design it replaced ({old_ms:.4f} ms)")
 
     # kernels 1 and 2 at a chunk of T (one gather phase, the launch plan's)
     # and of 8 steps, in turns (T, 8, T, 8)

@@ -84,7 +84,11 @@
 //    wgmma of the kernel).
 //  * Epilogue: O is divided by the row sum once (guarded) and written
 //    through the output's strides in its type; rows that see no key get
-//    the mean of v.
+//    the mean of v. Where the caller asks for it (a non-null lse, as the
+//    training forward does), each row's statistic m + log2(l) in exp2's
+//    domain goes to a float32 (B, Hq, Sq) buffer, +inf for a row that sees
+//    no key: the backward (flash_attention_bwd.cu) recomputes P from it.
+//    Serving passes null and stores nothing; O is the same either way.
 //
 // Tiles by type and DP, the head size the tiles are built for (D rounded up
 // to 32, 64, 128 or 256: Q's columns past D are zero, K's never meet
@@ -111,6 +115,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 #include <atomic>
@@ -195,6 +200,7 @@ struct Params {
   int q_vec;                       // vector loads for q
   int kv_vec;                      // cp.async for k and v
   float scale_log2;                // log2(e) / sqrt(D)
+  float* lse;                      // (B, Hq, Sq) row statistic, or null
 };
 
 // ------------------------------------------------------------ PTX helpers
@@ -1121,11 +1127,11 @@ flash_tf32_kernel(const __grid_constant__ Params p) {
     }
 
     // ------------------------------------------------------------- epilogue
-    float inv[2];
+    float inv[2], lsum[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      const float lsum = quad_sum(l[r]);
-      inv[r] = 1.f / (lsum == 0.f ? 1.f : lsum);
+      lsum[r] = quad_sum(l[r]);
+      inv[r] = 1.f / (lsum[r] == 0.f ? 1.f : lsum[r]);
     }
     // rows that see no key get the mean of v over all Skv keys. The rows
     // that see a key form one interval of positions (each mask term is a
@@ -1135,6 +1141,17 @@ flash_tf32_kernel(const __grid_constant__ Params p) {
 #pragma unroll
     for (int r = 0; r < 2; ++r)
       blind[r] = row0 + 8 * r < t.rows && !sees_a_key(p, qpos0 + 8 * r);
+    // the row statistic the backward reads, where asked for: m + log2(l)
+    // in exp2's domain (the row's log-sum-exp of scale * q k^T, times
+    // log2(e)), +inf for a row that sees no key; one lane of the quad
+    if (p.lse != nullptr && (lane & 3) == 0) {
+      float* lrow = p.lse + ((long long)t.b * p.Hq + t.h) * p.Sq + t.q0;
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        if (row0 + 8 * r < t.rows)
+          lrow[row0 + 8 * r] =
+              blind[r] ? INFINITY : m[r] + log2f(lsum[r]);
+    }
     if (!sees_a_key(p, t.first_q) ||
         !sees_a_key(p, t.first_q + t.rows - 1)) {
       const T* vb = v + t.b * p.vs.b + t.hk * p.vs.h;
@@ -1212,16 +1229,18 @@ extern "C" {
 // q (B, Hq, Sq, D), k and v (B, Hkv, Skv, D), o (B, Hq, Sq, D): element
 // (b, h, s, d) of each at ptr[b*sb + h*sh + s*ss + d*sd] (strides in
 // elements). dtype 0 = float32, 1 = bfloat16 (all four the same). window <= 0
-// means no window; kv_len masks keys at or past it.
+// means no window; kv_len masks keys at or past it. lse: null, or a float32
+// (B, Hq, Sq) contiguous buffer that gets each row's statistic for the
+// backward (flash_attention_bwd.cu).
 int flash_attention(const void* q, long long qsb, long long qsh,
                     long long qss, long long qsd, const void* k,
                     long long ksb, long long ksh, long long kss,
                     long long ksd, const void* v, long long vsb,
                     long long vsh, long long vss, long long vsd, void* o,
                     long long osb, long long osh, long long oss,
-                    long long osd, int B, int Hq, int Hkv, int Sq, int Skv,
-                    int D, int causal, int window, int q_offset, int kv_len,
-                    int dtype, void* stream) {
+                    long long osd, float* lse, int B, int Hq, int Hkv,
+                    int Sq, int Skv, int D, int causal, int window,
+                    int q_offset, int kv_len, int dtype, void* stream) {
   if (B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 ||
       Skv <= 0 || D < 8 || D > 256 || D % 8 != 0 || B > 65535 ||
       Hq > 65535 || (dtype != 0 && dtype != 1) ||
@@ -1248,6 +1267,7 @@ int flash_attention(const void* q, long long qsb, long long qsh,
   p.B = B;
   p.nq = (Sq + BQ - 1) / BQ;
   p.scale_log2 = 1.4426950408889634f / sqrtf((float)D);
+  p.lse = lse;
   // a quad (16 bytes of float32, 8 of bf16) a vector load for q, a
   // cp.async for k and v
   const int elem = dtype == 0 ? 4 : 2;

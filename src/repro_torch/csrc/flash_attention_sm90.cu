@@ -56,7 +56,10 @@
 //    barriers), so one's softmax runs under the other's products.
 //  * Epilogue: O was rescaled by alpha at each tile; it is divided by l once
 //    (guarded) and cast to bf16 once, and written with direct bf16x2 stores
-//    through the output's strides, bounds-checked on Sq.
+//    through the output's strides, bounds-checked on Sq. Where the caller
+//    asks for it (a non-null lse), each row's statistic m + log2(l) in
+//    exp2's domain goes to a float32 (B, Hq, Sq) buffer, +inf for a row that
+//    sees no key, for the backward (flash_attention_bwd.cu).
 //
 // Shared memory at D 128: Q 32 KB + 2 x (K 32 KB + V 32 KB) = 160 KB (one
 // block an SM); at D 64 half of that.
@@ -121,6 +124,7 @@ struct Params {
   int group, Sq, Skv, kv_end, causal, window, q_offset;
   int Hq, B, nq;                   // heads, batch rows, q tiles
   float scale_log2;                // log2(e) / sqrt(D)
+  float* lse;                      // (B, Hq, Sq) row statistic, or null
 };
 
 // ------------------------------------------------------------ PTX helpers
@@ -577,11 +581,11 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     }
 
     // ------------------------------------------------------------- epilogue
-    float inv[2];
+    float inv[2], lsum[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      const float lsum = quad_sum(l[r]);
-      inv[r] = 1.f / (lsum == 0.f ? 1.f : lsum);
+      lsum[r] = quad_sum(l[r]);
+      inv[r] = 1.f / (lsum[r] == 0.f ? 1.f : lsum[r]);
     }
     // rows that see no key get the mean of v over all Skv keys. The rows
     // that see a key form one interval of positions (each mask term is a
@@ -591,6 +595,16 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
     for (int r = 0; r < 2; ++r)
       blind[r] = row0 + 8 * r < rows && !sees_a_key(p, qpos0 + 8 * r);
+    // the row statistic the backward reads, where asked for: m + log2(l)
+    // in exp2's domain, +inf for a row that sees no key; one lane a quad
+    if (p.lse != nullptr && (lane & 3) == 0) {
+      float* lrow = p.lse + ((long long)t.b * p.Hq + t.h) * p.Sq + t.q0;
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        if (row0 + 8 * r < rows)
+          lrow[row0 + 8 * r] =
+              blind[r] ? INFINITY : m[r] + log2f(lsum[r]);
+    }
     if (!sees_a_key(p, t.first_q) || !sees_a_key(p, t.first_q + rows - 1)) {
       const __nv_bfloat16* vb = p.v + t.b * p.vsb + t.hk * p.vsh;
       for (int d = threadIdx.x; d < D; d += CONSUMERS) {
@@ -693,12 +707,13 @@ extern "C" {
 // S, H and B (7 values each; every stride a multiple of 16, every pointer
 // 16-byte aligned). o (B, Hq, Sq, D) bf16 with d stride 1 and element
 // strides osb, osh, oss. window <= 0 means no window; kv_len masks keys at
-// or past it.
+// or past it. lse: null, or a float32 (B, Hq, Sq) contiguous buffer that
+// gets each row's statistic.
 int flash_attention_sm90(const void* q, const void* k, const void* v, void* o,
                          const unsigned long long* geo, long long osb,
-                         long long osh, long long oss, int B, int Hq, int Hkv,
-                         int Sq, int Skv, int D, int causal, int window,
-                         int q_offset, int kv_len, void* stream) {
+                         long long osh, long long oss, float* lse, int B,
+                         int Hq, int Hkv, int Sq, int Skv, int D, int causal,
+                         int window, int q_offset, int kv_len, void* stream) {
   if (B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 ||
       Skv <= 0 || (D != 64 && D != 128) || Hq > 65535 || B > 65535 ||
       (long long)((Sq + BM - 1) / BM) * Hq * B > 2147483647LL)
@@ -730,6 +745,7 @@ int flash_attention_sm90(const void* q, const void* k, const void* v, void* o,
   p.B = B;
   p.nq = (Sq + BM - 1) / BM;
   p.scale_log2 = 1.4426950408889634f / sqrtf((float)D);
+  p.lse = lse;
   const cudaStream_t s = (cudaStream_t)stream;
   if (D == 64) return launch<64>(tq, tk, tv, p, s);
   return launch<128>(tq, tk, tv, p, s);

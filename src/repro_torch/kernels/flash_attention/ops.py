@@ -24,15 +24,28 @@ read q, k and v through their strides and write an output with q's strides
 the same layout: no copy either way. ``LAUNCHES`` counts each kernel's
 launches under its own name.
 
+With ``return_lse=True`` the forward also returns each row's statistic
+``lse`` (B, Hq, Sq), float32: ``m + log2(l)`` in exp2's domain, the row's
+log-sum-exp of ``q k^T / sqrt(D)`` over its visible keys times log2(e)
+(scores scaled by ``scale_log2 = log2(e) / sqrt(D)``), +inf for a row that
+sees no key. Both kernels write it from the running max and sum their
+epilogue already holds; serving never asks for it, and the output is the
+same either way.
+
 Training goes through ``FlashAttention``, an autograd Function: its forward
-is ``flash_attention``, its backward ``flash_attention_bwd``, which on CUDA
-tensors launches the hand-written ``csrc/flash_attention_bwd.cu`` (float32
-and bf16, D a multiple of 8 up to 256, the forward's strides and masks) or
-raises, and on CPU tensors runs ``ref.flash_attention_bwd_ref``. The TPU
-package has no Pallas backward: JAX differentiates the jnp
-``chunked_attention`` (``src/repro/models/layers.py:57``), so this kernel
-replaces no TPU kernel; it is what lets the port train on the card without
-a plain version on the path.
+is ``flash_attention`` asked for the statistic, its backward
+``flash_attention_bwd``, which takes the statistic and on CUDA tensors
+launches the hand-written ``csrc/flash_attention_bwd.cu`` (float32 and bf16,
+D a multiple of 8 up to 256, the forward's strides and masks) or raises, and
+on CPU tensors runs ``ref.flash_attention_bwd_ref``, which builds its own
+softmax and reads no statistic. ``bwd_route`` picks the backward's route
+from D before the launch (both input types take the same tiles):
+split-TF32 wgmma on the tensor cores for D up to 128, the CUDA cores
+above; ``BWD_ROUTES`` counts each launch again by route. The TPU package
+has no Pallas backward: JAX differentiates the jnp ``chunked_attention``
+(``src/repro/models/layers.py:57``), so this kernel replaces no TPU
+kernel; it is what lets the port train on the card without a plain version
+on the path.
 """
 
 from __future__ import annotations
@@ -53,6 +66,11 @@ BWD = "flash_attention_bwd"
 #: kernel name -> launches since the last ``reset_launches()`` (the
 #: backward's two passes are one launch of its C entry)
 LAUNCHES = {SPLIT_TF32: 0, SM90: 0, BWD: 0}
+#: the backward's launches again, by route (``bwd_route``)
+BWD_ROUTES = {"tensor cores": 0, "cuda cores": 0}
+#: the largest head size the backward's tensor-core route holds in shared
+#: memory and registers
+BWD_TENSOR_CORE_MAX_D = 128
 #: the input types the split-TF32 kernel takes, and the code its C entry reads
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: the head sizes the tensor-core kernel is built for
@@ -62,8 +80,9 @@ TMA_ALIGN = 16
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, BWD_ROUTES):
+        for name in counts:
+            counts[name] = 0
 
 
 def tma_legal(t: torch.Tensor) -> bool:
@@ -93,10 +112,19 @@ def tma_geometry(t: torch.Tensor) -> tuple[int, ...]:
     return (D, S, H, B, t.stride(2) * e, t.stride(1) * e, t.stride(0) * e)
 
 
+def bwd_route(D: int) -> str:
+    """The backward's route for head size ``D``, in either input type (both
+    take the same tiles): ``"tensor cores"`` (split-TF32 wgmma) up to
+    ``BWD_TENSOR_CORE_MAX_D``, ``"cuda cores"`` above it. Its C entry
+    refuses any other pick."""
+    return "tensor cores" if D <= BWD_TENSOR_CORE_MAX_D else "cuda cores"
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = build.load(SPLIT_TF32)
-    lib.flash_attention.argtypes = ([P] + [L] * 4) * 4 + [I] * 11 + [P]
+    lib.flash_attention.argtypes = ([P] + [L] * 4) * 4 + [P] + [I] * 11 + \
+        [P]
     lib.flash_attention.restype = I
     return lib
 
@@ -104,7 +132,8 @@ def _lib() -> ctypes.CDLL:
 @functools.cache
 def _lib_sm90() -> ctypes.CDLL:
     lib = build.load(SM90)
-    lib.flash_attention_sm90.argtypes = [P] * 5 + [L] * 3 + [I] * 10 + [P]
+    lib.flash_attention_sm90.argtypes = [P] * 5 + [L] * 3 + [P] + \
+        [I] * 10 + [P]
     lib.flash_attention_sm90.restype = I
     return lib
 
@@ -113,17 +142,20 @@ def _lib_sm90() -> ctypes.CDLL:
 def _lib_bwd() -> ctypes.CDLL:
     lib = build.load(BWD)
     lib.flash_attention_bwd.argtypes = ([P] + [L] * 4) * 8 + [P, P] + \
-        [I] * 11 + [P]
+        [I] * 12 + [P]
     lib.flash_attention_bwd.restype = I
     return lib
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int | None = None,
-                    q_offset: int = 0,
-                    kv_len: int | None = None) -> torch.Tensor:
+                    q_offset: int = 0, kv_len: int | None = None,
+                    return_lse: bool = False
+                    ) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
     """q (B, Hq, Sq, D), k/v (B, Hkv, Skv, D), float32 or bfloat16, any
-    strides -> (B, Hq, Sq, D) in q's dtype and strides."""
+    strides -> (B, Hq, Sq, D) in q's dtype and strides; with ``return_lse``
+    also each row's statistic (B, Hq, Sq), float32, contiguous (the module
+    docstring gives its units)."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape or \
             k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3] or \
             k.shape[1] == 0 or q.shape[1] % k.shape[1] != 0:
@@ -144,14 +176,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("attention over no keys (Skv = 0) is undefined")
     if not q.is_cuda:
         return _ref.flash_attention_ref(q, k, v, causal=causal, window=window,
-                                        q_offset=q_offset, kv_len=kv_len)
+                                        q_offset=q_offset, kv_len=kv_len,
+                                        return_lse=return_lse)
     name = route(q, k, v)
     if name == SPLIT_TF32 and (D % 8 or not 8 <= D <= 256):
         raise ValueError(f"the kernel takes a head size D that is a multiple "
                          f"of 8 up to 256; got {D}")
     out = torch.empty_like(q)
+    lse = (torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     if not out.numel():
-        return out
+        return (out, lse) if return_lse else out
+    lse_ptr = None if lse is None else lse.data_ptr()
     mask = (int(causal), 0 if window is None else int(window), int(q_offset),
             Skv if kv_len is None else int(kv_len))
     with on_device(q):
@@ -160,26 +196,31 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 *(g for t in (q, k, v) for g in tma_geometry(t)))
             code = _lib_sm90().flash_attention_sm90(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), geo,
-                *out.stride()[:3], B, Hq, Hkv, Sq, Skv, D, *mask, stream(q))
+                *out.stride()[:3], lse_ptr, B, Hq, Hkv, Sq, Skv, D, *mask,
+                stream(q))
         else:
             code = _lib().flash_attention(
                 q.data_ptr(), *q.stride(), k.data_ptr(), *k.stride(),
                 v.data_ptr(), *v.stride(), out.data_ptr(), *out.stride(),
-                B, Hq, Hkv, Sq, Skv, D, *mask, DTYPES[q.dtype], stream(q))
+                lse_ptr, B, Hq, Hkv, Sq, Skv, D, *mask, DTYPES[q.dtype],
+                stream(q))
     raise_on(code, name)
     count_launch(LAUNCHES, name)
-    return out
+    return (out, lse) if return_lse else out
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        out: torch.Tensor, dout: torch.Tensor, *,
-                        causal: bool = True, window: int | None = None,
-                        q_offset: int = 0, kv_len: int | None = None
+                        out: torch.Tensor, lse: torch.Tensor,
+                        dout: torch.Tensor, *, causal: bool = True,
+                        window: int | None = None, q_offset: int = 0,
+                        kv_len: int | None = None
                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The gradients (dq, dk, dv) of ``flash_attention(q, k, v, ...)``,
-    whose output was ``out``, against ``dout``: each in its input's dtype
-    and strides. Every tensor is read through its strides (the model's
-    ``movedim`` views in place)."""
+    whose output was ``out`` and row statistic ``lse`` (``return_lse=True``:
+    float32, contiguous (B, Hq, Sq)), against ``dout``: each in its input's
+    dtype and strides. Every tensor is read through its strides (the model's
+    ``movedim`` views in place). The kernel recomputes P from ``lse``; the
+    plain version on the CPU builds its own softmax and does not read it."""
     if out.shape != q.shape or dout.shape != q.shape:
         raise ValueError(f"out and dout must be q's shape {tuple(q.shape)}; "
                          f"got {tuple(out.shape)} and {tuple(dout.shape)}")
@@ -194,6 +235,15 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"window={window} must be None or at least 1")
     B, Hq, Sq, D = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
+    if lse.shape != (B, Hq, Sq):
+        raise ValueError(f"lse must be (B, Hq, Sq) = {(B, Hq, Sq)}; got "
+                         f"{tuple(lse.shape)}")
+    if lse.dtype != torch.float32:
+        raise TypeError(f"lse must be float32; got {lse.dtype}")
+    if lse.device != q.device:
+        raise ValueError(f"lse is on {lse.device}, q on {q.device}")
+    if not lse.is_contiguous():
+        raise ValueError("lse must be contiguous, as the forward returns it")
     if not q.is_cuda:
         return _ref.flash_attention_bwd_ref(
             q, k, v, out, dout, causal=causal, window=window,
@@ -204,41 +254,47 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if not q.numel():
         return dq, dk.zero_(), dv.zero_()
-    # the row statistics pass 1 leaves for pass 2: log-sum-exp, rowsum(dO O)
-    stats = torch.empty((2, B, Hq, Sq), dtype=torch.float32, device=q.device)
+    # rowsum(dO O), which the dq pass leaves for the dk/dv pass
+    delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
     mask = (int(causal), 0 if window is None else int(window), int(q_offset),
             Skv if kv_len is None else int(kv_len))
+    how = bwd_route(D)
     with on_device(q):
         code = _lib_bwd().flash_attention_bwd(
             *(x for t in (q, k, v, out, dout, dq, dk, dv)
               for x in (t.data_ptr(), *t.stride())),
-            stats[0].data_ptr(), stats[1].data_ptr(),
-            B, Hq, Hkv, Sq, Skv, D, *mask, DTYPES[q.dtype], stream(q))
+            lse.data_ptr(), delta.data_ptr(), B, Hq, Hkv, Sq, Skv, D, *mask,
+            DTYPES[q.dtype], int(how == "cuda cores"), stream(q))
     raise_on(code, BWD)
     count_launch(LAUNCHES, BWD)
+    count_launch(BWD_ROUTES, how)
     return dq, dk, dv
 
 
 class FlashAttention(torch.autograd.Function):
     """``flash_attention`` with a gradient: the forward is the wrapper above
-    (a kernel on the card, the plain version on the CPU), the backward
-    ``flash_attention_bwd`` on the saved q, k, v and output. The forward is
-    looked up in this module when it runs, so a caller may stand another
-    attention in for it (``chip_smoke.py`` does, to record or compare)."""
+    asked for the row statistic (a kernel on the card, the plain version on
+    the CPU), the backward ``flash_attention_bwd`` on the saved q, k, v,
+    output and statistic. The forward is looked up in this module when it
+    runs, so a caller may stand another attention in for it
+    (``chip_smoke.py`` does, to record or compare); it must take
+    ``return_lse``."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal=True, window=None, q_offset=0,
                 kv_len=None):
-        out = flash_attention(q, k, v, causal=causal, window=window,
-                              q_offset=q_offset, kv_len=kv_len)
-        ctx.save_for_backward(q, k, v, out)
+        out, lse = flash_attention(q, k, v, causal=causal, window=window,
+                                   q_offset=q_offset, kv_len=kv_len,
+                                   return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.mask = dict(causal=causal, window=window, q_offset=q_offset,
                         kv_len=kv_len)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, **ctx.mask)
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout,
+                                         **ctx.mask)
         return dq, dk, dv, None, None, None, None
 

@@ -11,10 +11,19 @@ comment says zero, which it is not). The Pallas kernel's mean over its
 zero-padded 128-row block is not copied. GQA groups query heads onto a KV
 head as ``h // (Hq // Hkv)`` without repeating K or V in memory.
 
+With ``return_lse=True`` it also returns each row's statistic, the quantity
+both forward kernels write for the backward: float32 (B, Hq, Sq), in log2
+units scaled as the kernels' exp2 domain is, ``logsumexp(q k^T / sqrt(D))``
+over the row's visible keys times log2(e) (equal to ``m + log2(l)`` for
+scores scaled by ``scale_log2 = log2(e) / sqrt(D)``), +inf for a row that
+sees no key. It is computed densely from the masked scores.
+
 ``flash_attention_bwd_ref`` is the plain version of the backward kernel
 ``csrc/flash_attention_bwd.cu``: the gradients of ``flash_attention_ref``,
 written out in float32 rather than taken by autograd, which the forward's
-in-place softmax refuses (it overwrites the scores it would need).
+in-place softmax refuses (it overwrites the scores it would need). It
+builds its own softmax and takes no statistic, so a wrong statistic from a
+forward kernel shows as a difference between the backward kernel and it.
 
 ``tf32_round`` and ``split_tf32`` state the rounding rule of the CUDA kernel
 ``csrc/flash_attention.cu``, which multiplies on the tensor cores in split
@@ -27,6 +36,7 @@ from __future__ import annotations
 import torch
 
 NEG_INF = -1e30
+LOG2E = 1.4426950408889634
 #: TF32 keeps 10 of float32's 23 stored mantissa bits
 TF32_DROPPED_BITS = 13
 
@@ -51,9 +61,13 @@ def split_tf32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window: int | None = None,
-                        q_offset: int = 0,
-                        kv_len: int | None = None) -> torch.Tensor:
-    """q (B, Hq, Sq, D), k/v (B, Hkv, Skv, D) -> (B, Hq, Sq, D) in q's dtype."""
+                        q_offset: int = 0, kv_len: int | None = None,
+                        return_lse: bool = False
+                        ) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
+    """q (B, Hq, Sq, D), k/v (B, Hkv, Skv, D) -> (B, Hq, Sq, D) in q's dtype;
+    with ``return_lse`` also the rows' statistic (B, Hq, Sq), float32: the
+    log-sum-exp of the row's scaled scores over its visible keys in log2
+    units (times log2(e)), +inf for a row that sees no key."""
     B, Hq, Sq, D = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
     group = Hq // Hkv
@@ -70,11 +84,17 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     # in place: at the prefill shape the (B, Hq, Sq, Skv) scores are the
     # only large buffer, and each step below would otherwise copy them
     s.masked_fill_(~mask, NEG_INF)
-    p = s.sub_(s.amax(dim=-1, keepdim=True)).exp_()
+    m = s.amax(dim=-1, keepdim=True)
+    p = s.sub_(m).exp_()
     lsum = p.sum(dim=-1, keepdim=True)
     p.div_(torch.where(lsum == 0.0, torch.ones_like(lsum), lsum))
     out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
-    return out.reshape(B, Hq, Sq, D).to(q.dtype)
+    out = out.reshape(B, Hq, Sq, D).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = ((m + lsum.log()) * LOG2E).squeeze(-1)
+    lse = torch.where(mask.any(dim=-1), lse, torch.inf)
+    return out, lse.reshape(B, Hq, Sq).contiguous()
 
 
 def _visible(Sq: int, Skv: int, causal: bool, window: int | None,

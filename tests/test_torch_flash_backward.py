@@ -3,11 +3,14 @@ plain version of ``csrc/flash_attention_bwd.cu``) against ``jax.vjp`` of the
 JAX package's ``flash_attention_ref`` on the same inputs and cotangent, and
 ``FlashAttention`` (the autograd Function the model's attention goes
 through) running that plain version on CPU tensors and launching nothing.
+The forward's row statistic (``return_lse=True``), which the backward
+kernel recomputes P from, is held to ``jax.nn.logsumexp`` of the masked,
+scaled scores times log2(e), with +inf for the rows that see no key.
 
 Tolerances: float32 within 2e-5 (kernel 8's forward tolerance; the two
-compute the same sums in another order), bfloat16 within 2e-2. The CUDA
-kernel is held to this plain version by chip_smoke.py phase 5b on the
-card."""
+compute the same sums in another order), bfloat16 within 2e-2; the
+statistic, a float32 sum in both types, within 1e-5. The CUDA kernel is held
+to this plain version by chip_smoke.py phase 5b on the card."""
 
 import jax
 import jax.numpy as jnp
@@ -20,6 +23,8 @@ from repro_torch.kernels.flash_attention import ops, ref
 from repro_torch.models import layers
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+#: the statistic against JAX's (atol = rtol): float32 sums in both types
+LSE_TOL = 1e-5
 #: B, Hq, Hkv, Sq, Skv, D, causal, window, q_offset, kv_len
 CASES = {
     "causal": (1, 4, 4, 40, 40, 16, True, None, 0, None),
@@ -150,11 +155,119 @@ def test_serving_calls_the_wrapper_and_training_the_function(grad,
 
 def test_bwd_wrapper_checks_its_inputs():
     q, k, v, dout = map(torch.from_numpy, _inputs("causal", "float32"))
-    out = ref.flash_attention_ref(q, k, v)
+    out, lse = ref.flash_attention_ref(q, k, v, return_lse=True)
     with pytest.raises(ValueError, match="q's shape"):
-        ops.flash_attention_bwd(q, k, v, out[:, :, :-1], dout)
+        ops.flash_attention_bwd(q, k, v, out[:, :, :-1], lse, dout)
     with pytest.raises(TypeError, match="one dtype"):
-        ops.flash_attention_bwd(q, k, v, out, dout.double())
+        ops.flash_attention_bwd(q, k, v, out, lse, dout.double())
     with pytest.raises(TypeError, match="float32 or bfloat16"):
-        ops.flash_attention_bwd(*(t.double() for t in (q, k, v, out, dout)))
+        ops.flash_attention_bwd(*(t.double() for t in (q, k, v, out)), lse,
+                                dout.double())
     assert "flash_attention_bwd" in ops.LAUNCHES
+
+
+def _jax_lse(q, k, kw):
+    """JAX's statistic: ``jax.nn.logsumexp`` of the scaled scores over the
+    visible keys, times log2(e); (B, Hq, Sq), -inf where no key is seen."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    kv_len = Skv if kw["kv_len"] is None else kw["kv_len"]
+    qpos = kw["q_offset"] + np.arange(Sq)[:, None]
+    kpos = np.arange(Skv)[None, :]
+    mask = np.broadcast_to(kpos < kv_len, (Sq, Skv))
+    if kw["causal"]:
+        mask = mask & (kpos <= qpos)
+    if kw["window"] is not None:
+        mask = mask & (kpos > qpos - kw["window"])
+    kk = jnp.repeat(jnp.asarray(k), Hq // Hkv, axis=1)
+    s = jnp.einsum("bhqd,bhkd->bhqk", jnp.asarray(q), kk) / np.sqrt(D)
+    s = jnp.where(mask, s, -jnp.inf)
+    return np.asarray(jax.nn.logsumexp(s, axis=-1) * np.log2(np.e)), mask
+
+
+@pytest.mark.parametrize("dtype", TOL)
+@pytest.mark.parametrize("case", CASES)
+def test_plain_statistic_matches_jax_logsumexp(case, dtype):
+    """``flash_attention_ref(return_lse=True)`` gives the quantity both
+    forward kernels write: JAX's log-sum-exp of the masked, scaled scores in
+    log2 units, +inf (not JAX's -inf) for a row that sees no key; and
+    exp2(scale_log2 q k^T - lse) on the visible keys is the forward's
+    softmax, the rows summing to 1, which is how the backward kernel uses
+    it."""
+    q, k, v, _ = _inputs(case, dtype)
+    kw = _kw(case)
+    tdt = getattr(torch, dtype)
+    tq, tk, tv = (torch.from_numpy(a).to(tdt) for a in (q, k, v))
+    out, lse = ref.flash_attention_ref(tq, tk, tv, return_lse=True, **kw)
+    assert lse.dtype == torch.float32 and lse.is_contiguous()
+    assert lse.shape == q.shape[:3]
+    torch.testing.assert_close(out, ref.flash_attention_ref(tq, tk, tv, **kw),
+                               rtol=0, atol=0)
+    # JAX on the same values (bf16 inputs widened exactly to float32)
+    want, mask = _jax_lse(tq.float().numpy(), tk.float().numpy(), kw)
+    seen = mask.any(axis=-1)
+    got = lse.numpy()
+    assert np.all(np.isposinf(got[:, :, ~seen]))
+    assert np.all(np.isneginf(want[:, :, ~seen]))
+    np.testing.assert_allclose(got[:, :, seen], want[:, :, seen],
+                               rtol=LSE_TOL, atol=LSE_TOL)
+    # P from the statistic, with the kernels' scale_log2
+    B, Hq, Sq, D = q.shape
+    g = Hq // k.shape[1]
+    s = torch.einsum("bhqd,bhkd->bhqk", tq.float(),
+                     tk.float().repeat_interleave(g, dim=1))
+    p = torch.exp2(s * (ref.LOG2E / D ** 0.5) - lse[..., None])
+    p = p * torch.from_numpy(np.array(mask))
+    rows = torch.from_numpy(np.array(seen))
+    torch.testing.assert_close(p.sum(-1)[:, :, rows],
+                               torch.ones(B, Hq, int(seen.sum())),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", TOL)
+def test_function_hands_the_saved_statistic_to_the_backward(dtype,
+                                                            monkeypatch):
+    """``FlashAttention.forward`` asks the forward for the statistic, saves
+    it and hands it to ``flash_attention_bwd``; the gradients still equal
+    ``jax.vjp``'s."""
+    case = "gqa+offset"
+    q, k, v, dout = _inputs(case, dtype)
+    kw = _kw(case)
+    _, want = _jax_grads(q, k, v, dout, dtype, kw)
+    tdt = getattr(torch, dtype)
+    t = [torch.from_numpy(a).to(tdt).requires_grad_() for a in (q, k, v)]
+    handed = []
+    real = ops.flash_attention_bwd
+    monkeypatch.setattr(ops, "flash_attention_bwd",
+                        lambda *a, **k_: handed.append(a[4]) or real(*a,
+                                                                     **k_))
+    out = ops.FlashAttention.apply(*t, kw["causal"], kw["window"],
+                                   kw["q_offset"], kw["kv_len"])
+    out.backward(torch.from_numpy(dout).to(tdt))
+    _, lse = ref.flash_attention_ref(*(x.detach() for x in t),
+                                     return_lse=True, **kw)
+    assert len(handed) == 1
+    torch.testing.assert_close(handed[0], lse, rtol=0, atol=0)
+    tol = TOL[dtype]
+    for name, x, w in zip(("dq", "dk", "dv"), t, want):
+        np.testing.assert_allclose(x.grad.float().numpy(), w, rtol=tol,
+                                   atol=tol, err_msg=f"{dtype} {name}")
+
+
+def test_bwd_wrapper_refuses_a_wrong_statistic():
+    """The statistic must be the forward's: (B, Hq, Sq), float32,
+    contiguous, on q's device. The backward's route is a function of D,
+    the same in both input types."""
+    q, k, v, dout = map(torch.from_numpy, _inputs("causal", "float32"))
+    out, lse = ref.flash_attention_ref(q, k, v, return_lse=True)
+    with pytest.raises(ValueError, match="lse must be"):
+        ops.flash_attention_bwd(q, k, v, out, lse[:, :, :-1], dout)
+    with pytest.raises(TypeError, match="lse must be float32"):
+        ops.flash_attention_bwd(q, k, v, out, lse.double(), dout)
+    with pytest.raises(ValueError, match="lse is on"):
+        ops.flash_attention_bwd(q, k, v, out, lse.to("meta"), dout)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.flash_attention_bwd(q, k, v, out, lse.mT.contiguous().mT, dout)
+    assert [ops.bwd_route(D) for D in (8, 128, 136, 256)] == [
+        "tensor cores", "tensor cores", "cuda cores", "cuda cores"]
+    assert set(ops.BWD_ROUTES) == {"tensor cores", "cuda cores"}

@@ -460,8 +460,10 @@ def test_lm_train_asset_is_jax_s_and_the_port_reproduces_it():
      "attention forward"),
     ("void (anonymous namespace)::flash_sm90_kernel<128>(CUtensorMap_st)",
      "attention forward"),
-    ("void (anonymous namespace)::bwd_dq_kernel<float, 16>(Params)",
-     "attention backward"),
+    ("void (anonymous namespace)::flash_bwd_dq_tf32_kernel<float, 128>"
+     "((anonymous namespace)::Params)", "attention backward"),
+    ("void (anonymous namespace)::flash_bwd_dkdv_simt_kernel<float, 32>"
+     "((anonymous namespace)::Params)", "attention backward"),
     ("sm80_xmma_gemm_f32f32_f32f32_f32_nn_n_tilesize256x128x8", "forward "
      "products")])
 def test_the_profile_groups_name_each_attention_kernel(kernel, group):

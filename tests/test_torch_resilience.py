@@ -14,6 +14,7 @@ explicit error — never silently wrong, never hung."""
 import os
 import threading
 import time
+import types
 
 import numpy as np
 import pytest
@@ -25,6 +26,7 @@ from repro_torch.core.artifact import Artifact
 from repro_torch.core.reference import SNNReference
 from repro_torch.data import mnist
 from repro_torch.faults import FaultPlan
+from repro_torch.faults import models as fault_models
 from repro_torch.serving import scheduler as sched_mod
 from repro_torch.serving.scheduler import ServingError, ServingScheduler
 from repro_torch.serving.snn_engine import SNNServeEngine
@@ -89,11 +91,23 @@ def test_startup_seu_scrubbed_before_service(art, xte, want):
 
 
 # ---------------------------------------------------------------- watchdog
-def test_watchdog_replaces_hung_lane(art, xte, want):
-    plan = FaultPlan(seed=7, hang_batches=(0,), hang_s=1.5)
+def test_watchdog_replaces_hung_lane(art, xte, want, monkeypatch):
+    """Batch 0 hangs until the test releases it, after the replacement lane
+    has served every request, so the hang outlasts the watchdog however
+    loaded the host is; and the watchdog (2 s) sits far above an ordinary
+    batch on a loaded host, so only the hung batch times out (with 0.2 s a
+    loaded host timed out the replacement's batches too, requeued them past
+    max_retries and failed them)."""
+    release = threading.Event()
+    monkeypatch.setattr(fault_models, "time", types.SimpleNamespace(
+        sleep=lambda seconds: release.wait(timeout=seconds)))
+    plan = FaultPlan(seed=7, hang_batches=(0,), hang_s=120.0)
     with _event(art, workers=1, max_batch=4, max_wait_us=500.0, faults=plan,
-                resilience={"watchdog_s": 0.2, "backoff_s": 0.001}) as s:
-        got, done, rids = _serve_all(s, xte[:12])
+                resilience={"watchdog_s": 2.0, "backoff_s": 0.001}) as s:
+        try:
+            got, done, rids = _serve_all(s, xte[:12])
+        finally:
+            release.set()
         st = s.stats()
         hung = [t for t in s._threads if t.name == "serve-lane-0"]
     assert np.array_equal(got, want[:12])

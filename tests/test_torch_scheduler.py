@@ -190,7 +190,20 @@ def test_failed_batch_never_strands_waiters(art, xte):
 
 
 def test_drain_does_not_steal_claimed_result(art, xte):
+    """A ``result()`` waiter's claim holds against a concurrent ``drain()``.
+    The lane serves the request only once the claim has been seen: a claim
+    lasts only until its request completes, so a lane left to serve at once
+    could complete it between two polls and the claim would never show."""
     with _event(art, workers=1, max_batch=4, max_wait_us=500.0) as s:
+        release = threading.Event()
+        serve = s.lanes[0].serve
+
+        def held(images, k, probe=False):
+            if not probe:
+                assert release.wait(timeout=120.0)
+            return serve(images, k, probe=probe)
+
+        s.lanes[0].serve = held
         got = {}
         rid = s.submit(xte[0])
         t = threading.Thread(
@@ -200,6 +213,7 @@ def test_drain_does_not_steal_claimed_result(art, xte):
         while rid not in s._claims:
             assert time.time() < deadline
             time.sleep(0.001)
+        release.set()
         drained = s.drain()
         t.join(timeout=120.0)
         assert not t.is_alive()
