@@ -363,6 +363,29 @@ Phases (any failure exits non-zero; nothing is caught):
                each of AdamW, Adafactor and SGD with two micro-batches and
                int8 compression, against JAX's losses and grad norms (1e-5
                relative) and parameters (1e-4);
+  6e. dist    — distribution and analysis (a function of its own,
+               distribution()). NCCL at world 1 (file rendezvous in a
+               temporary directory), mesh (data 1, model 1) from
+               make_test_mesh: Qwen3-MoE-235B-A22B's MoE sublayer at full
+               width (E 128, top-8, d 4096, f 1536, capacity factor 1.0) in
+               bf16 on 2 x 4096 tokens, moe_ffn_shard_map against moe_ffn
+               bit for bit (output, aux, top_i, keep); Qwen3-MoE at 2 layers
+               of full width with moe_buf_mode "shard_map" and the mesh's
+               constrainer, its bf16 prefill counted (flash_attention_sm90
+               once a layer, both MoE sublayers on moe_ffn_shard_map) and
+               its logits bit for bit the mesh-less LM's. Two gloo ranks on
+               the one card, spawned by this script (chip_smoke.py
+               --moe-rank; NCCL refuses two ranks on one device), mesh (data
+               1, model 2): the same sublayer in float32 with TF32 off, each
+               rank its 64 experts (the other 64 NaN there), routing exactly
+               moe_ffn's, output within 1e-5, aux within 1e-6; a rank that
+               fails or a spawn past DIST_SPAWN_S fails the phase. The
+               roofline (distributed/roofline.py on core.hw.H100, one card,
+               no collective term) of Qwen3-8B's and phase 6b's MoE prefills
+               against their measured walls (each wall at least 0.95 x the
+               roofline's step), and the record's HBM size within 10 % of
+               the card's. The walls of both MoE forms in both runs are
+               printed, a record only;
   7. times   — per kernel at the serving shape: its device time alone (CUDA
                events around 20 back-to-back launches queued behind a spin
                kernel, so no host dispatch falls between them; median of 50
@@ -676,6 +699,18 @@ TRAIN_GRAD_REL_TOL = 1e-5
 #: (src/repro_torch/assets/lm_train_expected.npz): losses and gradient norms
 #: relative, parameters element by element (atol = rtol)
 TRAIN_ASSET_TOL, TRAIN_PARAM_TOL = 1e-5, 1e-4
+#: phase 6e, distribution and analysis: Qwen3-MoE's MoE sublayer at full
+#: width (E 128, top-8, d 4096, f 1536, capacity factor 1.0) on DIST_TOKENS
+#: (batch rows, tokens a row) drawn from DIST_SEED, and its LM at
+#: DIST_LM_LAYERS layers of full width; the two gloo ranks on the card must
+#: both end within DIST_SPAWN_S seconds
+DIST_ARCH, DIST_TOKENS, DIST_SEED = "qwen3-moe-235b-a22b", (2, 4096), 27
+DIST_LM_LAYERS, DIST_SPAWN_S = 2, 300
+#: a measured prefill wall below this share of its roofline's step_s fails
+#: the record or the count (the roofline is the least time the work takes)
+ROOFLINE_FLOOR = 0.95
+#: the H100 record's HBM size against the card's own total memory
+HBM_RECORD_TOL = 0.10
 ATTN_TIME_S = (4096, 32768)
 #: samples and back-to-back launches of attention's times at S = 4096, whose
 #: launches take up to milliseconds, not microseconds
@@ -954,6 +989,128 @@ def draw_lm_train(lm, meta: dict) -> None:
              if g.path.split("/")[-1] in meta["norms"] else meta["scale"] * w)
         with torch.no_grad():
             g.leaf.copy_(torch.from_numpy(w.astype(np.float32)))
+
+
+def moe_inputs(job: dict, dtype, dev):
+    """Phase 6e's MoE sublayer: x (B, S, d) and the weights, drawn on ``dev``
+    from ``job["seed"]`` in float32 (x, router, w_gate, w_up, w_down, each
+    normal times 0.02 but x) and cast to ``dtype``; the router stays
+    float32, as the model holds it."""
+    import torch
+    d, E, f = job["d"], job["E"], job["f"]
+    g = torch.Generator(dev).manual_seed(job["seed"])
+
+    def draw(shape, scale=0.02):
+        return torch.randn(shape, generator=g, device=dev,
+                           dtype=torch.float32) * scale
+
+    x = draw((job["B"], job["S"], d), 1.0).to(dtype)
+    p = {"router": draw((d, E))}
+    for name, shape in (("w_gate", (E, d, f)), ("w_up", (E, d, f)),
+                        ("w_down", (E, f, d))):
+        p[name] = draw(shape).to(dtype)
+    return x, p
+
+
+def moe_rank(argv: list[str]) -> int:
+    """One rank of phase 6e's gloo run (``chip_smoke.py --moe-rank DIR RANK
+    WORLD``): it joins a gloo group of WORLD ranks through a file in DIR,
+    builds the mesh ``DIR/job.json`` names on its device type, draws the
+    job's sublayer in float32 (TF32 off), runs moe_ffn on all of it, then
+    sets every expert it does not own to NaN and runs moe_ffn_shard_map on
+    the same rows; the routing of both, the output's difference and both
+    walls go to ``DIR/rank{RANK}.json``."""
+    rdv, rank, world = argv[0], int(argv[1]), int(argv[2])
+    sys.path.insert(0, SRC)
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import moe
+    with open(os.path.join(rdv, "job.json")) as fh:
+        job = json.load(fh)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0) if job["device"] == "cuda" \
+        else torch.device("cpu")
+    dist.init_process_group(
+        "gloo", init_method="file://" + os.path.join(rdv, "gloo"),
+        rank=rank, world_size=world, timeout=datetime.timedelta(seconds=120))
+    try:
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        mesh = make_test_mesh(tuple(job["shape"]), ("data", "model"),
+                              device_type=job["device"])
+
+        def sync():
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+
+        def wall(fn, runs=3):
+            samples = []
+            for _ in range(runs):
+                sync()
+                t0 = time.perf_counter()
+                fn()
+                sync()
+                samples.append(1e3 * (time.perf_counter() - t0))
+            return statistics.median(samples)
+
+        E, k, cf = job["E"], job["k"], job["cf"]
+        x, p = moe_inputs(job, torch.float32, dev)
+        routes, real_route = [], moe.route
+
+        def recorded(*args, **kw):
+            r = real_route(*args, **kw)
+            routes.append(r)
+            return r
+
+        kw = dict(n_experts=E, top_k=k, capacity_factor=cf)
+        moe.route = recorded
+        try:
+            want, want_aux = moe.moe_ffn(x, p, **kw)
+        finally:
+            moe.route = real_route
+        ffn_ms = wall(lambda: moe.moe_ffn(x, p, **kw))
+        m = mesh.get_local_rank("model")
+        E_loc = E // mesh.size(mesh.mesh_dim_names.index("model"))
+        for name in ("w_gate", "w_up", "w_down"):
+            p[name][:m * E_loc] = float("nan")
+            p[name][(m + 1) * E_loc:] = float("nan")
+        moe.route = recorded
+        try:
+            got, got_aux = moe.moe_ffn_shard_map(x, p, mesh=mesh, **kw)
+        finally:
+            moe.route = real_route
+        sync()
+        nan_experts = sum(int(torch.isnan(p["w_gate"][e]).all())
+                          for e in range(E))
+        res = {
+            "rank": rank, "backend": dist.get_backend(),
+            "device": str(got.device), "dtype": str(got.dtype),
+            "tf32": torch.backends.cuda.matmul.allow_tf32,
+            "model_rank": m, "experts": [m * E_loc, (m + 1) * E_loc],
+            "nan_experts": nan_experts,
+            "top_i_equal": torch.equal(routes[0].top_i, routes[1].top_i),
+            "keep_equal": torch.equal(routes[0].keep, routes[1].keep),
+            "drops": int((~routes[0].keep).sum()),
+            "assignments": routes[0].keep.numel(),
+            "finite": bool(torch.isfinite(got).all()),
+            "max_abs_err": float((got - want).abs().max()),
+            "max_abs_out": float(want.abs().max()),
+            "aux": [float(got_aux), float(want_aux)],
+            "shard_map_ms": wall(lambda: moe.moe_ffn_shard_map(
+                x, p, mesh=mesh, **kw)),
+            "moe_ffn_ms": ffn_ms,
+        }
+        with open(os.path.join(rdv, f"rank{rank}.json"), "w") as fh:
+            json.dump(res, fh)
+        print(f"[dist] rank {rank}: {json.dumps(res, sort_keys=True)}")
+    finally:
+        dist.destroy_process_group()
+    return 0
 
 
 def main() -> int:
@@ -3378,6 +3535,9 @@ def main() -> int:
                      profile(lambda: decode(4)), card)
 
     other, walls = {}, {}
+    #: arch -> (config as run, batch rows, tokens a row, bf16 prefill wall
+    #: ms): phases 6 and 6b's readings, which phase 6e's roofline reads
+    prefill_walls = {}
     for name, attention in (("kernel", attention_kernel),
                             ("plain", fa_ref.flash_attention_ref),
                             ("sdpa", sdpa_attention)):
@@ -3389,6 +3549,8 @@ def main() -> int:
         finally:
             fa.flash_attention = attention_kernel
         rate = PREFILL_B * PREFILL_S * 1e3 / walls[name]
+        if name == "kernel":
+            prefill_walls[LM_ARCH] = (cfg, PREFILL_B, PREFILL_S, walls[name])
         print(f"[lm] prefill with attention on {name}: {walls[name]:.1f} ms "
               f"(median of 3 warm runs; {rate:.0f} tokens/s) — card: {card}")
 
@@ -3583,8 +3745,10 @@ def main() -> int:
                   f"{n_layers} MoE sublayers at the served capacity factor "
                   f"{cfg.capacity_factor}")
             del seen_moe
-            timed_profile(f"{arch} bf16 prefill ({n_layers} layers, {B} x "
-                          f"{S} tokens)", lambda: prefill(toks), B * S)
+            ms, _ = timed_profile(f"{arch} bf16 prefill ({n_layers} layers, "
+                                  f"{B} x {S} tokens)", lambda: prefill(toks),
+                                  B * S)
+            prefill_walls[arch] = (cfg, B, S, ms)
             del lm, prefill
             torch.cuda.empty_cache()
             layer_rel = [0.0, float("inf")]
@@ -4303,6 +4467,227 @@ def main() -> int:
     kernel_bwd = fa.flash_attention_bwd
     training()
 
+    # ------------------------------------ 6e distribution and analysis
+    # expert parallelism over torch.distributed (NCCL at world 1, two gloo
+    # ranks on the card) and the roofline on the H100 record against the
+    # walls phases 6 and 6b read (a function of its own, as 6b)
+    def distribution() -> None:
+        import torch.distributed as dist
+
+        from repro_torch.configs.shapes import ShapeCell
+        from repro_torch.core.hw import H100
+        from repro_torch.distributed import roofline
+        from repro_torch.distributed.sharding import make_constrainer
+        from repro_torch.launch.mesh import make_test_mesh
+        from repro_torch.models import moe
+
+        tag = "[dist]"
+        t_phase = time.perf_counter()
+        cfg = get_config(DIST_ARCH)
+        B, S = DIST_TOKENS
+        job = {"B": B, "S": S, "seed": DIST_SEED, "d": cfg.d_model,
+               "E": cfg.n_experts, "k": cfg.top_k, "f": cfg.d_ff_expert,
+               "cf": cfg.capacity_factor}
+        kw = dict(n_experts=cfg.n_experts, top_k=cfg.top_k,
+                  capacity_factor=cfg.capacity_factor)
+
+        # 1. NCCL at world 1, mesh (data 1, model 1): the sublayer and the
+        # LM bit for bit moe_ffn's and the mesh-less LM's
+        with tempfile.TemporaryDirectory(prefix="dist_") as rdv:
+            dist.init_process_group(
+                "nccl", init_method="file://" + os.path.join(rdv, "nccl"),
+                rank=0, world_size=1)
+            try:
+                mesh = make_test_mesh((1, 1), ("data", "model"))
+                check(mesh.device_type == "cuda"
+                      and dist.get_backend() == "nccl",
+                      f"world 1 runs on {dist.get_backend()} / "
+                      f"{mesh.device_type}, not NCCL on the card")
+                x, p = moe_inputs(job, torch.bfloat16, dev)
+                routes, real_route = [], moe.route
+
+                def recorded(*args, **kwargs):
+                    r = real_route(*args, **kwargs)
+                    routes.append(r)
+                    return r
+
+                moe.route = recorded
+                try:
+                    got, got_aux = moe.moe_ffn_shard_map(x, p, mesh=mesh,
+                                                         **kw)
+                    want, want_aux = moe.moe_ffn(x, p, **kw)
+                finally:
+                    moe.route = real_route
+                torch.cuda.synchronize()
+                same = {"output": torch.equal(got, want),
+                        "aux": torch.equal(got_aux, want_aux),
+                        "top_i": torch.equal(routes[0].top_i,
+                                             routes[1].top_i),
+                        "keep": torch.equal(routes[0].keep, routes[1].keep)}
+                sm_ms = wall_ms(lambda: moe.moe_ffn_shard_map(
+                    x, p, mesh=mesh, **kw))
+                ffn_ms = wall_ms(lambda: moe.moe_ffn(x, p, **kw))
+                print(f"{tag} NCCL world 1, mesh (data 1, model 1): "
+                      f"{cfg.name}'s MoE sublayer (E {cfg.n_experts}, top-"
+                      f"{cfg.top_k}, d {cfg.d_model}, f {cfg.d_ff_expert}, "
+                      f"factor {cfg.capacity_factor}) bf16 on {B} x {S} "
+                      f"tokens: moe_ffn_shard_map against moe_ffn bit for "
+                      f"bit {same} ({int((~routes[0].keep).sum())} of "
+                      f"{routes[0].keep.numel()} assignments dropped, aux "
+                      f"{float(got_aux):.6f}); wall moe_ffn_shard_map "
+                      f"{sm_ms:.3f} ms, moe_ffn {ffn_ms:.3f} ms (median of "
+                      f"3) — card: {card}")
+                check(all(same.values()), f"moe_ffn_shard_map at a model "
+                      f"dim of 1 is not moe_ffn bit for bit: {same}")
+                del x, p, got, want, routes
+                torch.cuda.empty_cache()
+
+                lm_cfg = dataclasses.replace(cfg, n_layers=DIST_LM_LAYERS,
+                                             moe_buf_mode="shard_map")
+                lm = drawn(lm_cfg, torch.bfloat16, seed=0, tag=tag)
+                lm.constrain = make_constrainer(mesh)
+                toks = tokens(cfg.vocab, B, S)
+                prefill = make_prefill_step(lm)
+                calls, real_sm = [], moe.moe_ffn_shard_map
+
+                def counted(*args, **kwargs):
+                    calls.append(1)
+                    return real_sm(*args, **kwargs)
+
+                moe.moe_ffn_shard_map = counted
+                reset_launches()
+                try:
+                    logits = prefill(toks)
+                    torch.cuda.synchronize()
+                    counts = launch_counts()
+                finally:
+                    moe.moe_ffn_shard_map = real_sm
+                n_attn = lm_cfg.n_periods * lm_cfg.period.count("attn")
+                want_counts = {**{n: 0 for n in KERNELS},
+                               "flash_attention_sm90": n_attn}
+                check(counts == want_counts, f"the shard_map LM's prefill "
+                      f"launched {counts}, expected {want_counts}")
+                launches["flash_attention_sm90"] += \
+                    counts["flash_attention_sm90"]
+                check(len(calls) == DIST_LM_LAYERS, f"{len(calls)} MoE "
+                      f"sublayers took moe_ffn_shard_map, expected "
+                      f"{DIST_LM_LAYERS}")
+                lm.constrain = None
+                plain = prefill(toks)
+                torch.cuda.synchronize()
+                bitwise = torch.equal(logits, plain)
+                print(f"{tag} {cfg.name} at {DIST_LM_LAYERS} layers of full "
+                      f"width, moe_buf_mode shard_map, bf16 prefill of {B} "
+                      f"x {S} tokens with the mesh's constrainer: "
+                      f"{len(calls)} MoE sublayers on moe_ffn_shard_map, "
+                      f"launches {counts}; logits bit for bit the mesh-less "
+                      f"LM's {bitwise}, finite "
+                      f"{bool(torch.isfinite(logits).all())} — card: {card}")
+                check(bitwise and bool(torch.isfinite(logits).all()),
+                      "the shard_map LM's logits are not the mesh-less LM's "
+                      "bit for bit")
+                del lm, prefill, logits, plain
+                torch.cuda.empty_cache()
+            finally:
+                dist.destroy_process_group()
+
+        # 2. two gloo ranks on the one card, mesh (data 1, model 2), float32
+        # with TF32 off: each rank its 64 experts (the others NaN there)
+        with tempfile.TemporaryDirectory(prefix="dist_gloo_") as rdv:
+            with open(os.path.join(rdv, "job.json"), "w") as fh:
+                json.dump({**job, "device": "cuda", "shape": [1, 2]}, fh)
+            t0 = time.perf_counter()
+            procs = [subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--moe-rank",
+                 rdv, str(r), "2"], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True) for r in range(2)]
+            deadline = time.monotonic() + DIST_SPAWN_S
+            try:
+                for r, proc in enumerate(procs):
+                    try:
+                        out, _ = proc.communicate(
+                            timeout=max(deadline - time.monotonic(), 1.0))
+                    except subprocess.TimeoutExpired:
+                        fail(f"gloo rank {r} did not end within "
+                             f"{DIST_SPAWN_S} s")
+                    check(proc.returncode == 0, f"gloo rank {r} failed "
+                          f"(rc {proc.returncode}):\n{out[-3000:]}")
+            finally:
+                for proc in procs:
+                    if proc.poll() is None:
+                        proc.kill()
+                        proc.wait()
+            spawn_s = time.perf_counter() - t0
+            ranks = []
+            for r in range(2):
+                with open(os.path.join(rdv, f"rank{r}.json")) as fh:
+                    ranks.append(json.load(fh))
+        E_loc = cfg.n_experts // 2
+        for r, res in enumerate(ranks):
+            print(f"{tag} gloo rank {r} of 2 on {res['device']} "
+                  f"({res['backend']}), mesh (data 1, model 2), "
+                  f"{res['dtype']}, TF32 {res['tf32']}: experts "
+                  f"{res['experts']} ({res['nan_experts']} others NaN), "
+                  f"top_i equal {res['top_i_equal']}, keep equal "
+                  f"{res['keep_equal']} ({res['drops']} of "
+                  f"{res['assignments']} dropped), output max |err| "
+                  f"{res['max_abs_err']:.3g} against moe_ffn (tolerance "
+                  f"{MOE_ASSET_TOL}; max |out| {res['max_abs_out']:.3g}), "
+                  f"aux {res['aux'][0]:.6f} / moe_ffn {res['aux'][1]:.6f}; "
+                  f"wall moe_ffn_shard_map {res['shard_map_ms']:.3f} ms, "
+                  f"moe_ffn {res['moe_ffn_ms']:.3f} ms (median of 3) — "
+                  f"card: {card}")
+            check(res["backend"] == "gloo" and res["device"].startswith(
+                "cuda") and res["dtype"] == "torch.float32"
+                and not res["tf32"], f"gloo rank {r} did not run float32 "
+                f"on the card with TF32 off: {res}")
+            check(res["experts"] == [r * E_loc, (r + 1) * E_loc]
+                  and res["nan_experts"] == cfg.n_experts - E_loc,
+                  f"gloo rank {r} does not hold only its {E_loc} experts")
+            check(res["top_i_equal"] and res["keep_equal"],
+                  f"gloo rank {r}: routing differs from moe_ffn's")
+            check(res["finite"] and res["max_abs_err"] <= MOE_ASSET_TOL,
+                  f"gloo rank {r}: output {res['max_abs_err']} from "
+                  f"moe_ffn's (tolerance {MOE_ASSET_TOL})")
+            check(abs(res["aux"][0] - res["aux"][1]) <= MOE_AUX_TOL,
+                  f"gloo rank {r}: aux {res['aux']}")
+        print(f"{tag} two gloo ranks spawned and done in {spawn_s:.1f} s")
+
+        # 3. the roofline on the H100 record against the walls phases 6
+        # and 6b read (one card: no collective term)
+        total = torch.cuda.get_device_properties(0).total_memory
+        rel = abs(H100.hbm_bytes - total) / total
+        print(f"{tag} H100 record: {H100}; the card's total memory {total} "
+              f"B, the record's {H100.hbm_bytes} B ({rel:.2%} apart, limit "
+              f"{HBM_RECORD_TOL:.0%}) — card: {card}")
+        check(rel <= HBM_RECORD_TOL, f"the H100 record's HBM size is "
+              f"{rel:.2%} from the card's")
+        for arch, (run_cfg, rows, seq, wall) in prefill_walls.items():
+            cell = ShapeCell(f"prefill_{rows}x{seq}", seq, rows, "prefill")
+            r = roofline.analyze(arch=arch, shape=cell.name, mesh_name="1",
+                                 chips=1, cfg=run_cfg, cell=cell)
+            share = 1e3 * r.step_s / wall
+            print(f"{tag} roofline {arch} ({run_cfg.n_layers} layers) bf16 "
+                  f"prefill {rows} x {seq}: model FLOPs {r.model_flops:.4g}, "
+                  f"FLOPs {r.flops_per_chip:.4g}, bytes "
+                  f"{r.bytes_per_chip:.4g}; compute {1e3 * r.compute_s:.3f} "
+                  f"ms, memory {1e3 * r.memory_s:.3f} ms, collective "
+                  f"{1e3 * r.collective_s:.3f} ms -> {r.bottleneck}; step "
+                  f"{1e3 * r.step_s:.3f} ms against the measured wall "
+                  f"{wall:.3f} ms: {share:.1%} of it (MFU at the wall "
+                  f"{r.model_flops / (H100.peak_bf16_flops * wall / 1e3):.1%})"
+                  f" — card: {card}")
+            check(wall >= ROOFLINE_FLOOR * 1e3 * r.step_s,
+                  f"{arch}: the measured wall {wall:.3f} ms is under "
+                  f"{ROOFLINE_FLOOR} x the roofline's {1e3 * r.step_s:.3f} "
+                  f"ms: the record or the count is wrong")
+        check(set(prefill_walls) == {LM_ARCH, *MOE_PREFILL},
+              f"the roofline read {sorted(prefill_walls)}")
+        print(f"{tag} phase wall {time.perf_counter() - t_phase:.3f} s — "
+              f"card: {card}")
+
+    distribution()
+
     # --------------------------------------------------------------- 7 times
     images = xte[:SERVE_BATCH]
     times = host_times(prog, images)
@@ -4830,4 +5215,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--moe-rank"]:
+        sys.exit(moe_rank(sys.argv[2:]))
     sys.exit(main())

@@ -1,8 +1,12 @@
-"""Hardware records of the paper's FPGA: its deployed design point and the
-board cost model the serving stack binds to every lowered program.
+"""Hardware records: the paper's FPGA (its deployed design point and the
+board cost model the serving stack binds to every lowered program) and the
+card the port runs on, an NVIDIA H100 SXM5, whose rates the roofline reads
+(``distributed/roofline.py``).
 
-A copy of the board-side records of ``repro.core.hw``. The TPU target
-record stays out of the port: no TPU number is a property of this package.
+The board-side records are a copy of those of ``repro.core.hw``. The TPU
+target record stays out of the port: no TPU number is a property of this
+package, and no energy figure is kept for the card (NVIDIA publishes no
+pJ per byte or per FLOP that this package could cite).
 """
 
 from __future__ import annotations
@@ -76,5 +80,22 @@ class BoardCostModel:
         return self.groups * self.lane
 
 
+@dataclasses.dataclass(frozen=True)
+class GpuTarget:
+    """One NVIDIA H100 SXM5 card, the rates of NVIDIA's H100 Tensor Core GPU
+    datasheet (SXM5 column). The roofline's three terms read
+    ``peak_bf16_flops``, ``hbm_bandwidth`` and ``link_bandwidth``."""
+
+    name: str = "h100-sxm5"
+    # BF16 Tensor Core, dense: the datasheet's 1,979 TFLOPS is with sparsity
+    peak_bf16_flops: float = 989e12       # FLOP/s per card
+    hbm_bandwidth: float = 3.35e12        # HBM3, bytes/s per card
+    hbm_bytes: int = 80 * 2**30           # 80 GB of HBM3 per card
+    # NVLink 4: 900 GB/s per card, both directions together; a collective's
+    # bytes leave a card in one direction
+    link_bandwidth: float = 450e9         # bytes/s per card, one direction
+
+
+H100 = GpuTarget()
 PYNQ_Z2 = FpgaReference()
 PYNQ_COST = BoardCostModel()

@@ -1,3 +1,7 @@
-"""Program distribution across processes and hosts: the TCP transport
-(``transport``). The port of ``repro.distributed``'s transport; its sharding,
-analytic, roofline and HLO modules are not ported (ROADMAP §1 item 11)."""
+"""Distribution and analysis: the TCP transport of lowered programs
+(``transport``), the sharding rules and DTensor placements (``sharding``),
+the analytic FLOP and byte count (``analytic``) and the three-term roofline
+on the card's rates (``roofline``); the ports of ``repro.distributed``'s
+modules of those names. JAX's HLO parser (``hloparse``) has no
+counterpart: torch produces no HLO, so the roofline takes collective bytes
+as an argument instead."""

@@ -1,8 +1,19 @@
-"""The lower-once program broadcast hook.
+"""Mesh construction and the lower-once program broadcast hook: the port of
+``repro.launch.mesh``.
 
-The port of the broadcast half of ``repro.launch.mesh``. The mesh builders
-(``build_mesh``, ``make_production_mesh``, ``make_test_mesh``) belong to
-ROADMAP §1 item 11 and are not ported.
+The mesh builders are FUNCTIONS, not module-level constants: importing this
+module touches no process group and no card.
+
+    single-pod:  (16, 16)      axes ("data", "model")       = 256 ranks
+    multi-pod:   (2, 16, 16)   axes ("pod", "data", "model") = 512 ranks
+
+The "pod" axis is pure data parallelism across pods; "data" is data
+parallel / FSDP within a pod; "model" is tensor/expert parallel. A mesh is
+a ``torch.distributed`` ``DeviceMesh`` over the default process group,
+whose world size must be the mesh's size: the caller initialises it (NCCL
+on the cards; gloo, or the fake process group of
+``torch.testing._internal.distributed.fake_pg``, on the CPU).
+``distributed.sharding.mesh_of`` reads its names and sizes.
 
 ``broadcast_program`` is the process-group companion to the per-process
 ``ProgramCache``: the leader lowers once and publishes the serialized
@@ -16,6 +27,34 @@ from __future__ import annotations
 
 import os
 import time
+
+import torch
+
+
+def build_mesh(shape, axes, *, device_type: str = "cuda"):
+    """A ``DeviceMesh`` of ``shape`` with dims named ``axes`` over the
+    default process group, on ``device_type``: ``"cuda"`` (the default)
+    raises without a card, ``"cpu"`` runs on gloo or the fake group."""
+    if device_type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "device_type 'cuda' requested but CUDA is not available; pass "
+            "device_type='cpu' to build the mesh over a CPU process group")
+    from torch.distributed.device_mesh import init_device_mesh
+    return init_device_mesh(device_type, tuple(int(n) for n in shape),
+                            mesh_dim_names=tuple(axes))
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str = "cuda"):
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return build_mesh(shape, axes, device_type=device_type)
+
+
+def make_test_mesh(shape=(2, 2), axes=("data", "model"), *,
+                   device_type: str = "cuda"):
+    """Small mesh for unit tests (a process group of prod(shape) ranks)."""
+    return build_mesh(shape, axes, device_type=device_type)
 
 
 # ------------------------------------------------ program broadcast hook

@@ -5,10 +5,13 @@ same in both packages (the CPU tests compare them with ``dataclasses.asdict``).
 Families: dense / moe / ssm / hybrid / audio (enc-dec) / vlm. Heterogeneous
 stacks (Jamba) are a repeating *period* of sublayers, ``n_layers /
 len(period)`` times. The port runs every family (``models/model.py``); the
-fields that only steer sharding, rematerialisation or the GQA layout under
-JAX (``attn_gqa_mode``, ``remat*``, ``fsdp_weight_gather``,
-``activation_constraints``, ``moe_buf_mode``) are kept so configurations
-compare equal, and change nothing in the port.
+fields that only steer sharding or the GQA layout under JAX
+(``attn_gqa_mode``, ``fsdp_weight_gather``, ``activation_constraints``)
+are kept so configurations compare equal, and change nothing in the port.
+``remat`` and ``remat_policy`` place the port's checkpoints where JAX
+places its own; ``moe_buf_mode="shard_map"`` runs the MoE sublayers expert
+parallel (``moe.moe_ffn_shard_map``) where the model's mesh has a "model"
+dim that divides E, and its other values change nothing.
 """
 
 from __future__ import annotations

@@ -21,9 +21,15 @@ never moved or cast after it is built (``.to`` would part the slices from
 their leaf). Weight matrices keep JAX's ``x @ w`` orientation, (in, out),
 so a JAX parameter tree loads without a transpose (``models/convert.py``).
 The router, ``A_log``, ``D`` and ``dt_bias`` are float32 whatever the
-model's dtype, as JAX draws them. What JAX's ``constrain`` callbacks,
-``attn_gqa_mode`` and ``moe_buf_mode`` steer (sharding and memory under XLA)
-has no counterpart here and changes no result. ``cfg.remat`` and
+model's dtype, as JAX draws them. What ``attn_gqa_mode`` steers (the
+GQA layout under XLA) has no counterpart here and changes no result.
+``constrain`` is JAX's callback (``distributed.sharding.make_constrainer``):
+the port reads only the mesh it carries, ``constrain.mesh``. With
+``cfg.moe_buf_mode == "shard_map"`` and a mesh whose "model" dim divides E,
+each MoE sublayer runs ``moe.moe_ffn_shard_map`` over that mesh (expert
+parallel, one all-reduce); otherwise ``moe.moe_ffn``, with ``buf_mode``
+"local" in place of "shard_map" as JAX passes it (Mixtral's 8 experts on
+the production mesh's model dim of 16). ``cfg.remat`` and
 ``cfg.remat_policy`` are placed where JAX places its ``jax.checkpoint``: one
 ``torch.utils.checkpoint`` around each period's body when the forward
 carries gradients (``"full"``: everything recomputed in the backward;
@@ -216,13 +222,17 @@ def _sinusoid(S: int, d: int, dtype: torch.dtype,
 
 class LM(nn.Module):
     def __init__(self, cfg: ArchConfig, *, dtype: torch.dtype = torch.bfloat16,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", constrain=None):
         """Allocates the parameters (uninitialised) on ``device`` in
         ``dtype`` (the float32 leaves in float32); ``init_params`` draws
-        them, ``convert`` loads JAX's."""
+        them, ``convert`` loads JAX's. ``device="meta"`` allocates nothing
+        (a full configuration's shapes for the sharding rules).
+        ``constrain`` is JAX's sharding callback; its ``mesh`` (a
+        ``DeviceMesh``) steers the MoE sublayers (``_ffn``)."""
         super().__init__()
         dev = resolve_device(device)
         self.cfg = cfg
+        self.constrain = constrain
 
         def empty(leaf, lead=()):
             return torch.empty(lead + leaf.shape, device=dev,
@@ -366,12 +376,27 @@ class LM(nn.Module):
         return x + out @ p["x_wo"]
 
     def _ffn(self, x, p, idx_in_period):
-        """-> (x + the FFN's output, its aux loss, float32)."""
+        """-> (x + the FFN's output, its aux loss, float32). A MoE sublayer
+        runs ``moe_ffn_shard_map`` where the config asks for it and the
+        mesh has a "model" dim that divides E, else ``moe_ffn``, as JAX's
+        ``_ffn`` guards it."""
         c = self.cfg
         if c.is_moe_layer(idx_in_period):
-            y, aux = moe.moe_ffn(self._norm(x, p, "ln2"), p,
-                                 n_experts=c.n_experts, top_k=c.top_k,
-                                 capacity_factor=c.capacity_factor)
+            h = self._norm(x, p, "ln2")
+            mesh = getattr(self.constrain, "mesh", None)
+            names = tuple(getattr(mesh, "mesh_dim_names", None) or ())
+            if (c.moe_buf_mode == "shard_map" and "model" in names
+                    and c.n_experts % mesh.size(names.index("model")) == 0):
+                y, aux = moe.moe_ffn_shard_map(
+                    h, p, n_experts=c.n_experts, top_k=c.top_k,
+                    capacity_factor=c.capacity_factor, mesh=mesh)
+            else:
+                bm = "local" if c.moe_buf_mode == "shard_map" \
+                    else c.moe_buf_mode
+                y, aux = moe.moe_ffn(h, p, n_experts=c.n_experts,
+                                     top_k=c.top_k,
+                                     capacity_factor=c.capacity_factor,
+                                     buf_mode=bm)
             return x + y, aux
         zero = torch.zeros((), dtype=torch.float32, device=x.device)
         if "ln2" not in p:

@@ -17,8 +17,15 @@ The port of ``repro.models.moe`` (``capacity``, ``moe_ffn``,
 ``jax.lax.top_k`` takes the lowest index first among equal values and
 ``torch.topk`` does not, so the top k come from a stable descending sort.
 The expert products are ``torch.matmul``, as JAX leaves its einsums to XLA;
-no kernel of this package runs here. ``moe_ffn_shard_map`` (expert
-parallelism over a device mesh) waits for ROADMAP §1 item 11.
+no kernel of this package runs here.
+
+``moe_ffn_shard_map`` is JAX's expert-parallel form over a
+``torch.distributed`` ``DeviceMesh`` with a "model" dim: each model rank
+runs E / model of the experts on its data shard's rows and one all-reduce
+over "model" merges their outputs. ``LM`` takes it where
+``cfg.moe_buf_mode == "shard_map"``, its ``constrain`` carries such a mesh
+and the model dim divides E; elsewhere ``moe_ffn`` (whose ``buf_mode``
+steers only JAX's sharding).
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ import math
 from typing import Callable, NamedTuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 Constrain = Callable[[torch.Tensor, tuple], torch.Tensor]
@@ -119,6 +127,161 @@ def moe_ffn(x: torch.Tensor, p, *, n_experts: int, top_k: int,
     out_k = out_k * r.top_w.reshape(B, S * k)[..., None].to(x.dtype)
     out = out_k.view(B, S, k, d).sum(dim=2)
     return out, r.aux.float()
+
+
+class _SumGrad(torch.autograd.Function):
+    """Identity forward; the gradient all-reduced over ``groups`` (one
+    after another) in the backward: a replicated input's cotangent summed
+    over the mesh dims it is replicated on, as JAX's shard_map transpose
+    sums it."""
+
+    @staticmethod
+    def forward(ctx, x, groups):
+        ctx.groups = groups
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        for group in ctx.groups:
+            dist.all_reduce(g, group=group)
+        return g, None
+
+
+class _AllReduce(torch.autograd.Function):
+    """All-reduce over ``group`` forward, identity backward: every rank's
+    partial output takes the whole output's gradient (JAX divides the
+    cotangent of an output replicated over "model" by the model size and
+    psums it back)."""
+
+    @staticmethod
+    def forward(ctx, y, group):
+        y = y.contiguous().clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _FirstShard(torch.autograd.Function):
+    """JAX's ``out_specs=P()`` under ``check_rep=False`` for a value that
+    differs across data shards: the forward returns data rank 0's value on
+    every rank (a sum over the data groups in which only data rank 0 adds a
+    non-zero), and the backward gives this rank's value ``1 / size`` of the
+    cotangent, ``size`` the mesh's number of ranks."""
+
+    @staticmethod
+    def forward(ctx, v, first, groups, size):
+        ctx.size = size
+        v = v.clone() if first else torch.zeros_like(v)
+        for group in groups:
+            dist.all_reduce(v, group=group)
+        return v
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.size, None, None, None
+
+
+def moe_ffn_shard_map(x: torch.Tensor, p, *, n_experts: int, top_k: int,
+                      capacity_factor: float, mesh,
+                      model_axis: str = "model"
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Expert parallelism over ``mesh``, a ``DeviceMesh`` with a
+    ``model_axis`` dim (data dims "pod" and "data" where it has them): the
+    port of JAX's shard_map form, run on every rank of the mesh.
+
+      * x (B_l, S, d) is this rank's rows: its data shard, the same on
+        every rank of its model group; p holds all E experts, and the rank
+        reads the views of its own E_loc = E / model (``w_gate``, ``w_up``,
+        ``w_down`` rows ``rank * E_loc`` on) and no other expert;
+      * routing is ``route``'s, on all E experts (the float32 router, the
+        stable-sort top k, ``pos`` from a cumsum over all E, C from S), so
+        every model rank drops the assignments ``moe_ffn`` drops;
+      * the dispatch scatter and the combine gather are local, masked to
+        the rank's own experts (foreign assignments land on local expert 0
+        and add exact zeros);
+      * one all-reduce of the (B_l, S, d) partial output over the model
+        group is the only collective on the output.
+
+    Returns (out (B_l, S, d), aux float32 scalar) on every rank. At a model
+    dim of size 1 this is ``moe_ffn`` op for op, and its output is.
+
+    Gradients are those of ``jax.grad`` through JAX's shard_map: the
+    output's all-reduce has an identity backward, and the gradients of the
+    replicated inputs are all-reduced over the dims they are replicated on
+    (x over "model", the router over every dim, each expert slice over the
+    data dims), so each rank ends with JAX's gradient of its own shard.
+
+    ``aux`` reproduces two faults of the reference (ROADMAP §3): JAX
+    returns it under ``out_specs=P()`` with ``check_rep=False``, so (1) the
+    forward's aux is the first data shard's (data rank 0's, here sent to
+    every rank), not the batch's, and (2) its gradient is that of the mean
+    over data shards of each shard's aux: each rank's own aux takes 1 /
+    (mesh size) of the cotangent before the sums above.
+
+    x must lie on the mesh's device type; a "cuda" mesh without a card
+    raises."""
+    if mesh.device_type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "a 'cuda' mesh was passed but CUDA is not available; build the "
+            "mesh with device_type='cpu' to run on the CPU")
+    if x.device.type != mesh.device_type:
+        raise ValueError(f"x lies on {x.device}, the mesh on "
+                         f"{mesh.device_type!r}")
+    names = tuple(mesh.mesh_dim_names)
+    B, S, d = x.shape
+    E, k = n_experts, top_k
+    msize = mesh.size(names.index(model_axis))
+    if E % msize:
+        raise ValueError(f"{E} experts do not divide over a {model_axis} "
+                         f"dim of {msize}")
+    E_loc = E // msize
+    rank = mesh.get_local_rank(model_axis)
+    dp = [a for a in ("pod", "data") if a in names]
+    model_group = mesh.get_group(model_axis)
+    dp_groups = [mesh.get_group(a) for a in dp]
+    lo = rank * E_loc
+
+    x = _SumGrad.apply(x, [model_group])
+    router = _SumGrad.apply(p["router"], [mesh.get_group(a) for a in names])
+    wg, wu, wd = (_SumGrad.apply(p[name][lo:lo + E_loc], dp_groups)
+                  for name in ("w_gate", "w_up", "w_down"))
+
+    r = route(x, router, n_experts=E, top_k=k,
+              capacity_factor=capacity_factor)
+    C = r.capacity
+    flat_e = r.top_i.reshape(B, S * k)
+    mine = (flat_e // E_loc) == rank
+    e_loc = torch.where(mine, flat_e - lo, 0)
+    use = r.keep & mine
+    pos_c = r.pos.clamp(max=C - 1)
+
+    # ---- dispatch: scatter-add this rank's kept assignments, (E_loc, B, C, d)
+    xk = x.repeat_interleave(k, dim=1)                           # (B, S*k, d)
+    vals = xk.masked_fill_(~use[..., None], 0)
+    b_idx = torch.arange(B, device=x.device)[:, None]
+    slot = (e_loc * B + b_idx) * C + pos_c                       # (B, S*k)
+    buf = torch.zeros((E_loc * B * C, d), dtype=x.dtype, device=x.device)
+    buf.index_add_(0, slot.reshape(-1), vals.reshape(-1, d))
+
+    # ---- this rank's experts (SwiGLU), one batched product over E_loc
+    buf = buf.view(E_loc, B * C, d)
+    h = torch.matmul(buf, wg)
+    u = torch.matmul(buf, wu)
+    y = torch.matmul(F.silu(h) * u, wd)                          # (E_loc, B*C, d)
+
+    # ---- combine, local, then the one all-reduce over "model"
+    out_k = y.view(E_loc * B * C, d)[slot.reshape(-1)].view(B, S * k, d)
+    out_k = out_k.masked_fill_(~use[..., None], 0)
+    out_k = out_k * r.top_w.reshape(B, S * k)[..., None].to(x.dtype)
+    out = out_k.view(B, S, k, d).sum(dim=2)
+    out = _AllReduce.apply(out, model_group)
+    first = all(mesh.get_local_rank(a) == 0 for a in dp)
+    aux = _FirstShard.apply(r.aux.float(), first, dp_groups, mesh.size())
+    return out, aux
 
 
 def moe_ffn_dense_oracle(x: torch.Tensor, p, *, n_experts: int,

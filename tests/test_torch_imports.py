@@ -239,3 +239,41 @@ def test_resilience_entry_points_raise_without_cuda(monkeypatch):
         made = make(device="cpu")
         if hasattr(made, "close"):
             made.close()
+
+
+#: modules whose files the walk must reach (distribution and analysis)
+DISTRIBUTION = ("distributed/sharding.py", "distributed/analytic.py",
+                "distributed/roofline.py", "launch/mesh.py", "core/hw.py",
+                "models/moe.py")
+
+
+def test_walk_covers_the_distribution_modules():
+    walked = {os.path.relpath(p, PORT) for p in _port_files()}
+    assert set(DISTRIBUTION) <= walked
+
+
+def test_distribution_entry_points_raise_without_cuda(monkeypatch):
+    """The mesh builders and the expert-parallel MoE refuse a card that is
+    not there; the builders run over a CPU group when asked for
+    ``device_type="cpu"`` (``tests/test_torch_sharding.py``), the MoE on a
+    CPU mesh (``tests/test_torch_moe_shard_map.py``)."""
+    import types
+
+    from repro_torch.launch import mesh
+    from repro_torch.models import moe
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cuda_mesh = types.SimpleNamespace(device_type="cuda",
+                                      mesh_dim_names=("data", "model"))
+    x = torch.zeros(1, 4, 8)
+    p = {"router": torch.zeros(8, 4), "w_gate": torch.zeros(4, 8, 4),
+         "w_up": torch.zeros(4, 8, 4), "w_down": torch.zeros(4, 4, 8)}
+    for make in (mesh.make_production_mesh,
+                 lambda: mesh.make_production_mesh(multi_pod=True),
+                 mesh.make_test_mesh,
+                 lambda: mesh.build_mesh((2, 2), ("data", "model")),
+                 lambda: moe.moe_ffn_shard_map(
+                     x, p, n_experts=4, top_k=2, capacity_factor=1.0,
+                     mesh=cuda_mesh)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
