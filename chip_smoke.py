@@ -386,6 +386,23 @@ Phases (any failure exits non-zero; nothing is caught):
                roofline's step), and the record's HBM size within 10 % of
                the card's. The walls of both MoE forms in both runs are
                printed, a record only;
+  6f. dryrun — the port's dry-run (launch/dryrun.py; a function of its own,
+               dry_run()): each cell's step on fake tensors over the fake
+               process group, on "cuda". (a) World 1, mesh (data 1, model
+               1): phase 6d's Yi-6B step (TRAIN_LAYERS layers, float32,
+               AdamW at 3e-4), its argument bytes exactly those of the
+               parameters, AdamW state and batch phase 6d allocated, fits
+               true, its predicted peak (argument + output + temp) beside
+               phase 6d's max_memory_allocated with their ratio (a record);
+               all 32 layers fit false; phase 6's Qwen3-8B bf16 prefill's
+               argument bytes exactly its real tensors'. (b) Phase 6e's
+               float32 MoE sublayer on (data 1, model 2) on the fake group:
+               the same collectives, op for op and byte for byte, as each
+               gloo rank of phase 6e counted under CommDebugMode. (c)
+               DRYRUN_CELLS at full width on the production meshes, each
+               ok, with its roofline row, fits, local_regions, no_effect and
+               build and run seconds. No kernel launches; the phase within
+               DRYRUN_PHASE_S;
   7. times   — per kernel at the serving shape: its device time alone (CUDA
                events around 20 back-to-back launches queued behind a spin
                kernel, so no host dispatch falls between them; median of 50
@@ -706,6 +723,11 @@ TRAIN_ASSET_TOL, TRAIN_PARAM_TOL = 1e-5, 1e-4
 #: both end within DIST_SPAWN_S seconds
 DIST_ARCH, DIST_TOKENS, DIST_SEED = "qwen3-moe-235b-a22b", (2, 4096), 27
 DIST_LM_LAYERS, DIST_SPAWN_S = 2, 300
+#: phase 6f, the dry-run: the full-width cells on the production meshes
+#: (arch, shape, multi-pod, variant), and the phase's time limit
+DRYRUN_CELLS = (("qwen3-8b", "train_4k", False, "baseline"),
+                ("qwen3-moe-235b-a22b", "prefill_32k", True, "moe_shmap"))
+DRYRUN_PHASE_S = 180
 #: a measured prefill wall below this share of its roofline's step_s fails
 #: the record or the count (the roofline is the least time the work takes)
 ROOFLINE_FLOOR = 0.95
@@ -1085,6 +1107,12 @@ def moe_rank(argv: list[str]) -> int:
         finally:
             moe.route = real_route
         sync()
+        # the collectives of one more call, for phase 6f's fake count
+        from repro_torch.launch import dryrun as DR
+        rec = DR.Recorder()
+        with DR.counting(rec) as cm:
+            moe.moe_ffn_shard_map(x, p, mesh=mesh, **kw)
+        sync()
         nan_experts = sum(int(torch.isnan(p["w_gate"][e]).all())
                           for e in range(E))
         res = {
@@ -1104,6 +1132,7 @@ def moe_rank(argv: list[str]) -> int:
             "shard_map_ms": wall(lambda: moe.moe_ffn_shard_map(
                 x, p, mesh=mesh, **kw)),
             "moe_ffn_ms": ffn_ms,
+            "comm_counts": DR.comm_counts(cm), "comms": rec.comms,
         }
         with open(os.path.join(rdv, f"rank{rank}.json"), "w") as fh:
             json.dump(res, fh)
@@ -1155,6 +1184,7 @@ def main() -> int:
     from repro_torch.serving.scheduler import ServingScheduler
     from repro_torch.serving.snn_engine import SNNServeEngine
     from repro_torch.training import ttfs_trainer
+    from repro_torch.models.convert import leaf_groups
     from repro_torch.training.lm_step import make_prefill_step
 
     wrappers = (ops, ea, lif, smm, dec, fa)
@@ -3538,6 +3568,13 @@ def main() -> int:
     #: arch -> (config as run, batch rows, tokens a row, bf16 prefill wall
     #: ms): phases 6 and 6b's readings, which phase 6e's roofline reads
     prefill_walls = {}
+    #: phase 6f's reference of the real tensors: {"prefill": bytes of phase
+    #: 6's parameters and tokens, "train": (bytes of phase 6d's
+    #: parameters, AdamW state and batch, its peak memory), "gloo": phase
+    #: 6e's gloo ranks' collective counts}
+    real_record = {"prefill": sum(
+        g.leaf.numel() * g.leaf.element_size() for g in leaf_groups(lm))
+        + toks.numel() * toks.element_size()}
     for name, attention in (("kernel", attention_kernel),
                             ("plain", fa_ref.flash_attention_ref),
                             ("sdpa", sdpa_attention)):
@@ -4295,6 +4332,15 @@ def main() -> int:
         t0 = time.perf_counter()
         tr = Trainer(cfg, batch=TRAIN_B, seq=TRAIN_S, device=dev)
         torch.cuda.synchronize()
+        # phase 6f's reference: the step's arguments as allocated here (the
+        # optimiser's step, a host int, as the int32 scalar JAX holds)
+        real_batch = tr.batch_at(0)
+        train_args = sum(
+            t.numel() * t.element_size() for t in
+            [g.leaf for g in leaf_groups(tr.lm)]
+            + [t for slot in ("m", "v") for t in tr.opt_state[slot].values()]
+            + list(real_batch.values())) + 4
+        del real_batch
         n = sum(p.numel() for p in tr.lm.parameters())
         n_blocks = sum(p.numel() for blk in tr.lm.layers
                        for p in blk.parameters())
@@ -4315,6 +4361,8 @@ def main() -> int:
                               lambda: tr.step(i), want)
             walls.append(wall)
         step_ms = statistics.median(walls[-3:])
+        real_record["train"] = (train_args,
+                                torch.cuda.max_memory_allocated())
         print(f"{tag} {cfg.name} train step on {TRAIN_B} x {TRAIN_S} "
               f"tokens: {step_ms:.1f} ms (median of 3 warm steps; "
               f"{TRAIN_B * TRAIN_S * 1e3 / step_ms:.0f} tokens/s); peak "
@@ -4652,6 +4700,7 @@ def main() -> int:
             check(abs(res["aux"][0] - res["aux"][1]) <= MOE_AUX_TOL,
                   f"gloo rank {r}: aux {res['aux']}")
         print(f"{tag} two gloo ranks spawned and done in {spawn_s:.1f} s")
+        real_record["gloo"] = ranks
 
         # 3. the roofline on the H100 record against the walls phases 6
         # and 6b read (one card: no collective term)
@@ -4687,6 +4736,142 @@ def main() -> int:
               f"card: {card}")
 
     distribution()
+
+    # ------------------------------------------------------------ 6f dry-run
+    # the port's dry-run (launch/dryrun.py) on fake tensors over the fake
+    # process group, held to what phases 6, 6d and 6e allocated and counted
+    # for real (a function of its own, as 6b)
+    def dry_run() -> None:
+        from repro_torch.configs.shapes import ShapeCell
+        from repro_torch.core.hw import H100
+        from repro_torch.launch import dryrun as DR
+
+        tag = "[dryrun]"
+        t_phase = time.perf_counter()
+        reset_launches()
+
+        def cell(arch, shape, multi, variant="baseline", **kw):
+            t0 = time.perf_counter()
+            rec = DR.run_cell(arch, shape, multi, variant=variant,
+                              write=False, **kw)
+            m = rec["memory_analysis"]
+            total = sum(m.values())
+            print(f"{tag} {arch} {shape} {rec['mesh']} {variant}: "
+                  f"{rec['status']}, {rec['chips']} ranks; arguments "
+                  f"{m['argument_size_in_bytes']} B, output "
+                  f"{m['output_size_in_bytes']} B, temp "
+                  f"{m['temp_size_in_bytes']} B: {total / 1e9:.2f} GB a "
+                  f"rank, fits {rec['fits']} (H100 record "
+                  f"{H100.hbm_bytes} B); collectives "
+                  f"{json.dumps(rec['coll_by_kind'])} "
+                  f"({rec['collectives_from']}: "
+                  f"{json.dumps(rec['comm_counts'])}); local_regions "
+                  f"{[r.split(': ')[0] for r in rec['local_regions']]}; "
+                  f"no_effect {rec['no_effect']}; build {rec['lower_s']} "
+                  f"s, run {rec['compile_s']} s, "
+                  f"{time.perf_counter() - t0:.1f} s in all")
+            check(rec["status"] == "ok", f"{arch} {shape}: {rec}")
+            calls = {k: v[0] for k, v in rec["comms"].items()}
+            check(calls == rec["comm_counts"], f"{arch} {shape}: the "
+                  f"recorder counted {calls}, CommDebugMode "
+                  f"{rec['comm_counts']}")
+            return rec, total
+
+        # (a) world 1 against the card's own runs: phase 6d's Yi-6B step
+        # (TRAIN_LAYERS of 32 layers, float32, AdamW at 3e-4, remat) and
+        # phase 6's Qwen3-8B bf16 prefill
+        train_cell = ShapeCell("train_4k", TRAIN_S, TRAIN_B, "train")
+        w1 = dict(mesh_shape=(1, 1))
+        cfg8 = dataclasses.replace(get_config(TRAIN_ARCH),
+                                   n_layers=TRAIN_LAYERS)
+        rec, total = cell(TRAIN_ARCH, "train_4k", False, cfg=cfg8,
+                          cell=train_cell, dtype=torch.float32, **w1)
+        real_args, real_peak = real_record["train"]
+        args = rec["memory_analysis"]["argument_size_in_bytes"]
+        print(f"{tag} {TRAIN_ARCH} step at world 1 ({TRAIN_LAYERS} layers, "
+              f"{TRAIN_B} x {TRAIN_S}, float32): arguments {args} B against "
+              f"phase 6d's real tensors {real_args} B; predicted peak "
+              f"(argument + output + temp) {total / 1e9:.2f} GB against "
+              f"phase 6d's measured max_memory_allocated "
+              f"{real_peak / 1e9:.2f} GB: ratio {total / real_peak:.3f} "
+              f"(a record) — card: {card}")
+        check(args == real_args, f"the dry-run's argument bytes {args} are "
+              f"not phase 6d's {real_args}")
+        check(rec["fits"], f"{TRAIN_ARCH} at {TRAIN_LAYERS} layers does "
+              f"not fit by the dry-run")
+        rec, total = cell(TRAIN_ARCH, "train_4k", False, cfg=dataclasses.
+                          replace(cfg8, n_layers=32), cell=train_cell,
+                          dtype=torch.float32, **w1)
+        check(not rec["fits"], f"{TRAIN_ARCH} at 32 layers fits by the "
+              f"dry-run ({total / 1e9:.2f} GB)")
+        rec, _ = cell(LM_ARCH, "prefill_32k", False, cell=ShapeCell(
+            "prefill_32k", PREFILL_S, PREFILL_B, "prefill"), **w1)
+        args = rec["memory_analysis"]["argument_size_in_bytes"]
+        check(args == real_record["prefill"], f"{LM_ARCH} prefill: the "
+              f"dry-run's argument bytes {args} are not phase 6's "
+              f"{real_record['prefill']}")
+        print(f"{tag} {LM_ARCH} bf16 prefill {PREFILL_B} x {PREFILL_S} at "
+              f"world 1: arguments {args} B, phase 6's real tensors "
+              f"{real_record['prefill']} B")
+
+        # (b) the fake count against phase 6e's real gloo count: the same
+        # MoE sublayer, mesh (data 1, model 2), tokens and float32 on the
+        # fake group
+        import torch.distributed as dist
+        from torch.distributed.tensor.experimental import \
+            implicit_replication
+        from torch._subclasses.fake_tensor import FakeTensorMode
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+        from repro_torch.distributed import sharding as SH
+        from repro_torch.launch.mesh import make_test_mesh
+        from repro_torch.models import moe
+        mcfg = get_config(DIST_ARCH)
+        B, S = DIST_TOKENS
+        dist.init_process_group("fake", store=FakeStore(), rank=0,
+                                world_size=2)
+        try:
+            mesh = make_test_mesh((1, 2), ("data", "model"))
+            fake_mode = FakeTensorMode(allow_non_fake_inputs=True)
+            E, d, f = mcfg.n_experts, mcfg.d_model, mcfg.d_ff_expert
+
+            def fake(shape, logical):
+                return DR.fake_dtensor(fake_mode, mesh, shape, torch.float32,
+                                       SH.spec(mesh, shape, logical), "cuda")
+            x = fake((B, S, d), ("data", None, None))
+            p = {"router": fake((d, E), (None, None)),
+                 "w_gate": fake((E, d, f), ("model", None, None)),
+                 "w_up": fake((E, d, f), ("model", None, None)),
+                 "w_down": fake((E, f, d), ("model", None, None))}
+            rec_, used = DR.Recorder(), set()
+            with fake_mode, implicit_replication(), DR.regions(used), \
+                    DR.counting(rec_) as cm:
+                moe.moe_ffn_shard_map(
+                    x, p, n_experts=E, top_k=mcfg.top_k,
+                    capacity_factor=mcfg.capacity_factor, mesh=mesh)
+            fake_counts, fake_comms = DR.comm_counts(cm), rec_.comms
+        finally:
+            dist.destroy_process_group()
+        for r, res in enumerate(real_record["gloo"]):
+            print(f"{tag} {mcfg.name}'s MoE sublayer on (data 1, model 2), "
+                  f"{B} x {S} float32: gloo rank {r} counted "
+                  f"{res['comm_counts']} {res['comms']}, the fake group "
+                  f"{fake_counts} {fake_comms} (regions {sorted(used)})")
+            check(res["comm_counts"] == fake_counts
+                  and res["comms"] == fake_comms, f"gloo rank {r}'s "
+                  f"collectives differ from the fake group's")
+
+        # (c) full width on the production meshes
+        for arch, shape, multi, variant in DRYRUN_CELLS:
+            cell(arch, shape, multi, variant)
+        counts = launch_counts()
+        check(not any(counts.values()), f"the dry-run launched {counts}")
+        print(f"{tag} phase wall {time.perf_counter() - t_phase:.3f} s "
+              f"(limit {DRYRUN_PHASE_S} s); no kernel launched — card: "
+              f"{card}")
+        check(time.perf_counter() - t_phase <= DRYRUN_PHASE_S,
+              f"phase 6f took more than {DRYRUN_PHASE_S} s")
+
+    dry_run()
 
     # --------------------------------------------------------------- 7 times
     images = xte[:SERVE_BATCH]

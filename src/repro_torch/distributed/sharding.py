@@ -67,7 +67,7 @@ def mesh_of(mesh) -> Any:
     names = getattr(mesh, "mesh_dim_names", None)
     if names is None:
         return mesh
-    return Mesh(tuple(names), tuple(int(n) for n in mesh.mesh.shape))
+    return Mesh(tuple(names), tuple(mesh.size(i) for i in range(mesh.ndim)))
 
 
 # --------------------------------------------------------------- helpers
@@ -150,12 +150,21 @@ def to_placements(mesh, s) -> list:
 
 
 def make_constrainer(mesh):
-    """The callback models take: ``constrain(x, logical_axes)``. It carries
-    the mesh (``constrain.mesh``, a ``DeviceMesh``) so that expert-parallel
-    layers bind to it without models building meshes. torch has no
-    sharding constraint on a tensor, so ``x`` comes back unchanged."""
+    """The callback models take: ``constrain(x, logical_axes)``, JAX's
+    ``with_sharding_constraint`` through these rules. A ``DTensor`` comes
+    back redistributed to ``to_placements(mesh, spec(mesh, x.shape,
+    logical_axes))`` (the collectives that takes are DTensor's); anything
+    else, a plain tensor on one card among it, comes back as the same
+    object. The callback carries the mesh (``constrain.mesh``, a
+    ``DeviceMesh``) so that expert-parallel layers bind to it without
+    models building meshes."""
+    from torch.distributed.tensor import DTensor
+
     def constrain(x, logical_axes):
-        return x
+        if not isinstance(x, DTensor):
+            return x
+        s = spec(mesh, tuple(x.shape), tuple(logical_axes))
+        return x.redistribute(mesh, to_placements(mesh, s))
     constrain.mesh = mesh
     return constrain
 

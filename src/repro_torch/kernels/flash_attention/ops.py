@@ -46,6 +46,27 @@ has no Pallas backward: JAX differentiates the jnp ``chunked_attention``
 (``src/repro/models/layers.py:57``), so this kernel replaces no TPU
 kernel; it is what lets the port train on the card without a plain version
 on the path.
+
+Two more kinds of input reach the wrappers in the dry-run
+(``launch/dryrun.py``), and neither is a fallback:
+
+* A fake tensor (``FakeTensorMode``, any device) takes the kernels' fake
+  path: the forward returns ``torch.empty_like(q)`` and, with
+  ``return_lse``, the float32 (B, Hq, Sq) statistic, the backward dq, dk and
+  dv and allocates its float32 (B, Hq, Sq) scratch, exactly what the kernels
+  allocate. Nothing is launched or counted, no library is loaded, no
+  ``data_ptr()`` is read and the plain version's (Sq x Skv) scores are never
+  built, so the dry-run's memory is the kernels'.
+* A ``DTensor`` runs locally under attention's sharding rule
+  (``shard_rule``): q, k, v and the output are sharded alike over batch and
+  over heads where the mesh dim divides Hkv; where it divides only Hq and
+  a rank's query heads lie in one GQA group, k and v stay whole on that
+  dim and each rank reads its group's KV head (the backward's dk, dv sum
+  over the ranks that share it); every other placement is replicated
+  first. Those redistributions are DTensor's, and its collective count
+  sees them. The local call is this wrapper again, on the local shards.
+
+Both checks read ``type(q)`` first, so a plain tensor pays one comparison.
 """
 
 from __future__ import annotations
@@ -77,6 +98,83 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 SM90_HEAD_DIMS = (64, 128)
 #: TMA's alignment of every stride but the innermost, and of the base
 TMA_ALIGN = 16
+
+
+def _is_fake(t: torch.Tensor) -> bool:
+    from torch._subclasses.fake_tensor import FakeTensor
+    return isinstance(t, FakeTensor)
+
+
+def _is_dtensor(t: torch.Tensor) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+def shard_rule(q, k) -> tuple[list, list, int | None]:
+    """Attention's placements on ``q``'s mesh for q (B, Hq, S, D), the
+    output and the statistic, and for k and v: ``Shard(0)`` on each mesh
+    dim where q is sharded over batch; on a mesh dim where q is sharded over
+    heads, ``Shard(1)`` for all of them where its size n divides Hkv, else,
+    where n divides Hq and each rank's Hq / n query heads lie in one GQA
+    group, q's heads sharded and k, v whole there, each rank reading the
+    one KV head of its group (that dim is the third value); every other
+    placement ``Replicate()``."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh, Hq, Hkv = q.device_mesh, q.shape[1], k.shape[1]
+    qpl, kpl, group_dim = [], [], None
+    for i, pl in enumerate(q.placements):
+        n = mesh.size(i)
+        if pl == Shard(0):
+            qpl.append(Shard(0))
+            kpl.append(Shard(0))
+        elif pl == Shard(1) and Hkv % n == 0:
+            qpl.append(Shard(1))
+            kpl.append(Shard(1))
+        elif pl == Shard(1) and Hq % n == 0 and (Hq // Hkv) % (Hq // n) == 0 \
+                and group_dim is None:
+            qpl.append(Shard(1))
+            kpl.append(Replicate())
+            group_dim = i
+        else:
+            qpl.append(Replicate())
+            kpl.append(Replicate())
+    return qpl, kpl, group_dim
+
+
+def _sharded(fn, tensors, backward=False, **kw):
+    """``fn`` on DTensors under ``shard_rule``: q (and the output, the
+    statistic and dout) and k, v redistributed to the rule's placements,
+    ``fn`` on the local shards (k and v cut to the rank's KV head where the
+    rule says so), the outputs wrapped back as DTensors: q's placements for
+    the output, the statistic and dq; k's for dk and dv, whose one KV head
+    a rank computed is placed into zeros of the whole and summed over the
+    ranks that share it (``Partial``)."""
+    from torch.distributed.tensor import DTensor, Partial
+    q, k = tensors[0], tensors[1]
+    mesh = q.device_mesh
+    qpl, kpl, gdim = shard_rule(q, k)
+    pls = [kpl if i in (1, 2) else qpl for i in range(len(tensors))]
+    local = [t.redistribute(mesh, pl).to_local()
+             for t, pl in zip(tensors, pls)]
+    j = None
+    if gdim is not None:
+        Hq, Hkv = q.shape[1], k.shape[1]
+        j = mesh.get_local_rank(gdim) * (Hq // mesh.size(gdim)) // \
+            (Hq // Hkv)
+        local[1], local[2] = (t[:, j:j + 1] for t in local[1:3])
+    out = fn(*local, **kw)
+    outs = out if isinstance(out, tuple) else (out,)
+    wrapped = []
+    for i, o in enumerate(outs):
+        pl = qpl
+        if backward and i > 0:
+            pl = list(kpl)
+            if j is not None:
+                whole = o.new_zeros((o.shape[0], k.shape[1]) + o.shape[2:])
+                whole[:, j:j + 1] = o
+                o, pl[gdim] = whole, Partial()
+        wrapped.append(DTensor.from_local(o, mesh, pl, run_check=False))
+    return tuple(wrapped) if isinstance(out, tuple) else wrapped[0]
 
 
 def reset_launches() -> None:
@@ -174,6 +272,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Hkv, Skv = k.shape[1], k.shape[2]
     if Skv == 0:
         raise ValueError("attention over no keys (Skv = 0) is undefined")
+    if type(q) is not torch.Tensor:
+        kw = dict(causal=causal, window=window, q_offset=q_offset,
+                  kv_len=kv_len, return_lse=return_lse)
+        if _is_dtensor(q):
+            return _sharded(flash_attention, (q, k, v), **kw)
+        if _is_fake(q):
+            out = torch.empty_like(q)
+            if not return_lse:
+                return out
+            return out, torch.empty((B, Hq, Sq), dtype=torch.float32,
+                                    device=q.device)
     if not q.is_cuda:
         return _ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                         q_offset=q_offset, kv_len=kv_len,
@@ -235,6 +344,15 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"window={window} must be None or at least 1")
     B, Hq, Sq, D = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
+    if type(q) is not torch.Tensor:
+        if _is_dtensor(q):
+            return _sharded(flash_attention_bwd, (q, k, v, out, lse, dout),
+                            backward=True, causal=causal, window=window,
+                            q_offset=q_offset, kv_len=kv_len)
+        if _is_fake(q):
+            grads = tuple(torch.empty_like(t) for t in (q, k, v))
+            torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+            return grads
     if lse.shape != (B, Hq, Sq):
         raise ValueError(f"lse must be (B, Hq, Sq) = {(B, Hq, Sq)}; got "
                          f"{tuple(lse.shape)}")

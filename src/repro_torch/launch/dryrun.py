@@ -1,0 +1,1233 @@
+"""Multi-pod dry-run of the port: every (arch x shape x mesh) cell's real
+step on fake tensors over a fake process group. The port of
+``repro.launch.dryrun``.
+
+For each cell this builds the port's own step (``make_train_step`` with its
+in-place optimiser update on ``LM.stacked``, ``make_prefill_step`` or
+``make_serve_step``) over ``DTensor`` parameters, optimiser state and batch
+or cache, laid out by ``distributed.sharding``'s rules on the production
+mesh (256 ranks single-pod, 512 multi-pod, or a variant's ``mesh_shape``)
+of ``torch.testing._internal.distributed.fake_pg``'s group, and runs it
+once under ``FakeTensorMode`` (nothing is allocated), ``implicit_replication``
+and ``CommDebugMode``. The model's sharding constraints are JAX's
+(``sharding.make_constrainer``); DTensor's propagation places every other
+collective. One JSON record per cell goes to ``results/dryrun_torch/``
+under JAX's file stems and record keys:
+
+  * ``memory_analysis``: JAX's four keys, per rank. ``argument_size_in_bytes``
+    is the local shards of parameters, optimiser state and batch or cache
+    (an optimiser's step and a cache's length as JAX's int32 scalar);
+    ``temp_size_in_bytes`` the peak of the bytes the step allocates beyond
+    them, less its outputs; ``output_size_in_bytes`` the outputs it
+    allocates (the train step updates parameters and state in place and
+    returns its metrics); ``generated_code_size_in_bytes`` 0: nothing is
+    compiled, the kernels are built once per process. The peak is counted
+    from the storages the step's operations create and free, under the
+    fake mode (``Recorder``); the caching allocator's rounding is not.
+  * ``coll_by_kind``: the per-rank bytes of the collectives the step
+    calls (each op's result, as JAX's HLO parse counts them) under JAX's
+    kind names, handed to ``roofline.analyze``; ``comm_counts`` is
+    ``CommDebugMode``'s count by op, archived under ``comms/`` where JAX
+    wrote ``hlo/``. ``collectives_from`` says ``"CommDebugMode"``: it
+    stands in for JAX's ``hloparse.py``.
+  * ``fits``: argument + output + temp within ``core.hw.H100.hbm_bytes``.
+  * ``local_regions``: the regions DTensor cannot propagate, run on each
+    rank's shards under ``local_map`` with the placements JAX's
+    constraints give them (``REGIONS``). No region is skipped and no op is
+    dropped; each computes only what needs its collectives and calls the
+    model's own functions for the rest.
+  * ``no_effect``: each configuration field the port lacks.
+  * ``lower_s``: the time to build the fake step; ``compile_s`` the time
+    to run it.
+
+Attention is kernel 8: on fake tensors its wrappers take the kernels' fake
+path and on DTensors its sharding rule (``kernels/flash_attention/ops.py``),
+so it is traced in every LM cell and launched by none.
+
+``place_step`` lays a step out from any tensors: ``build_cell`` hands it
+meta trees and fake shards, the tests real tensors on gloo ranks, so that
+the count a cell reads on the fake group is checked against the same step
+run for real.
+
+Usage:
+    python -m repro_torch.launch.dryrun --arch yi-6b --shape train_4k \
+        --mesh single
+    python -m repro_torch.launch.dryrun --all            # every cell
+
+The entry points default to ``device_type="cuda"``: the fake tensors carry
+the card's device, as the real step's would. On a machine without a card
+pass ``--device cpu``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import dataclasses
+import functools
+import json
+import logging
+import math
+import os
+import sys
+import time
+import traceback
+import weakref
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.configs import shapes as shp
+from repro_torch.configs.registry import ALIASES, get_config
+from repro_torch.core.hw import H100
+from repro_torch.distributed import roofline as RL
+from repro_torch.distributed import sharding as SH
+from repro_torch.launch import specs as SP
+from repro_torch.launch.mesh import build_mesh
+from repro_torch.models import layers as L, mamba2, moe
+from repro_torch.models.config import ArchConfig
+from repro_torch.models.convert import leaf_groups
+from repro_torch.models.model import LM
+from repro_torch.training import lm_step, optim as O
+
+
+# §Perf iteration variants: config/sharding deltas applied on top of an
+# arch config, JAX's table.
+VARIANTS = {
+    "baseline": {},
+    "remat_dots": {"cfg": {"remat_policy": "dots"}},
+    "remat_none": {"cfg": {"remat": False}},
+    "kv_seqshard": {"kv_seq_shard": True},
+    "tp_only": {"fsdp": False},
+    "tp_remat_dots": {"fsdp": False, "cfg": {"remat_policy": "dots"}},
+    "tp_kvseq": {"fsdp": False, "kv_seq_shard": True},
+    "wgather": {"cfg": {"fsdp_weight_gather": True}},
+    "stack_fsdp": {"fsdp_mode": "stack"},
+    "stack_wgather": {"fsdp_mode": "stack",
+                      "cfg": {"fsdp_weight_gather": True}},
+    "stack_wg_dots": {"fsdp_mode": "stack",
+                      "cfg": {"fsdp_weight_gather": True,
+                              "remat_policy": "dots"}},
+    "noconstr": {"cfg": {"activation_constraints": False}},
+    "tp_noconstr": {"fsdp": False,
+                    "cfg": {"activation_constraints": False}},
+    "tp_nc_dots": {"fsdp": False,
+                   "cfg": {"activation_constraints": False,
+                           "remat_policy": "dots"}},
+    "tp_nc_kvseq": {"fsdp": False, "kv_seq_shard": True,
+                    "cfg": {"activation_constraints": False}},
+    "moe_local": {"cfg": {"moe_buf_mode": "local"}},
+    "moe_local_nc": {"cfg": {"moe_buf_mode": "local",
+                             "activation_constraints": False}},
+    "gqa_repeat": {"cfg": {"attn_gqa_mode": "repeat"}},
+    "gqa_dots": {"cfg": {"attn_gqa_mode": "repeat", "remat_policy": "dots"}},
+    "gqa_kvseq": {"kv_seq_shard": True,
+                  "cfg": {"attn_gqa_mode": "repeat"}},
+    "opt_moe": {"cfg": {"attn_gqa_mode": "repeat", "moe_buf_mode": "local"}},
+    # beyond-paper sharding scheme: same 256 chips, re-meshed 64x4 so the
+    # Megatron AR payload (B_local*S*d) shrinks 4x and DP grows; params must
+    # fit at TP=4 (planner-checked). "a different sharding scheme" per §Perf.
+    "mesh_tp4": {"mesh_shape": (64, 4), "fsdp": False,
+                 "cfg": {"attn_gqa_mode": "repeat"}},
+    "mesh_tp4_fsdp": {"mesh_shape": (64, 4),
+                      "cfg": {"attn_gqa_mode": "repeat"}},
+    "opt_decode": {"kv_seq_shard": True, "fsdp": False,
+                   "cfg": {"attn_gqa_mode": "repeat"}},
+    # mesh_tp4 + ZeRO-1: optimizer state sharded over data (m/v live once
+    # across the fleet); params stay TP-only. Fixes tp4's HBM overshoot for
+    # the price of one grad reduce-scatter + param all-gather per step.
+    "mesh_tp4_z1": {"mesh_shape": (64, 4), "fsdp": False, "opt_fsdp": True,
+                    "cfg": {"attn_gqa_mode": "repeat"}},
+    "mesh_tp4_z1_dots": {"mesh_shape": (64, 4), "fsdp": False,
+                         "opt_fsdp": True,
+                         "cfg": {"attn_gqa_mode": "repeat",
+                                 "remat_policy": "dots"}},
+    "mesh_tp2_z1": {"mesh_shape": (128, 2), "fsdp": False, "opt_fsdp": True,
+                    "cfg": {"attn_gqa_mode": "repeat"}},
+    "moe_shmap": {"cfg": {"moe_buf_mode": "shard_map",
+                          "attn_gqa_mode": "repeat"}},
+}
+
+#: JAX's collective kinds by the name of a c10d or functional collective op
+KINDS = {
+    "all_reduce": "all-reduce", "allreduce_": "all-reduce",
+    "all_reduce_coalesced": "all-reduce",
+    "allreduce_coalesced_": "all-reduce",
+    "all_gather_into_tensor": "all-gather", "_allgather_base_": "all-gather",
+    "allgather_": "all-gather", "allgather_coalesced_": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "allgather_into_tensor_coalesced_": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "_reduce_scatter_base_": "reduce-scatter",
+    "reduce_scatter_": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced_": "reduce-scatter",
+    "all_to_all_single": "all-to-all", "alltoall_base_": "all-to-all",
+    "alltoall_": "all-to-all",
+    "broadcast": "collective-permute", "broadcast_": "collective-permute",
+    "shard_dim_alltoall": "all-to-all",
+}
+#: DTensor's sharding propagation, whose ops run on global shapes
+_PROPAGATION = (os.path.join("distributed", "tensor", "_sharding_prop.py"),
+                os.path.join("distributed", "tensor", "_op_schema.py"))
+#: the namespaces of collective ops, and the name CommDebugMode counts
+#: each under
+_COLLECTIVE_NS = {"_c10d_functional": "c10d_functional",
+                  "c10d_functional": "c10d_functional", "c10d": "c10d",
+                  "_c10d_functional_autograd": "c10d_functional",
+                  "_dtensor": "_dtensor"}
+
+#: the regions DTensor cannot propagate, each run under ``local_map``
+REGIONS = {
+    "moe_ffn": "models/moe.py::moe_ffn: the dispatch scatter "
+               "(aten.index_add_) has no DTensor sharding strategy; each "
+               "rank runs moe.local_experts (or moe_ffn) on its rows "
+               "(JAX's ('data', None, None) on x) and its experts' shards "
+               "(E or f on 'model'), its part of the output a Partial sum "
+               "over 'model'; the load-balance loss from moe.balance's "
+               "means summed over the data dims, as over the whole batch",
+    "moe_ffn_shard_map": "models/moe.py::moe_ffn_shard_map: JAX's "
+                         "shard_map; each rank runs moe.shard_map_body on "
+                         "its rows and its E / model experts (JAX's in_specs)",
+    "embed": "models/model.py::LM._lookup: the backward of DTensor's "
+             "vocab-sharded lookup (MaskPartial) fails on (B, S) tokens; "
+             "each rank looks its rows' tokens up in its vocab shard (the "
+             "table gathered over the data axes), a Partial sum over "
+             "'model'",
+    "decode_attention": "models/layers.py::decode_attention: DTensor cannot "
+                        "propagate the GQA regrouping of q over a sharded "
+                        "head or head_dim; each rank attends over its shard "
+                        "of the cache (batch, KV heads, head_dim or "
+                        "sequence as cache_pspecs lays it out), partial "
+                        "scores all-reduced over a sharded head_dim, the "
+                        "softmax's max and sum and the output over a "
+                        "sharded sequence",
+    "period_carry": "models/model.py::LM._period: JAX's scan keeps its "
+                    "carry's sharding from period to period; a Python loop "
+                    "does not, so x is redistributed to the placements it "
+                    "entered the period with (an all-reduce of the partial "
+                    "residual over 'model' in x's dtype)",
+    "gelu_mlp": "models/layers.py::gelu_mlp: DTensor (torch 2.11) cannot "
+                "add a sharded bias to the partial product its propagation "
+                "picks after a sharded layernorm; each rank runs gelu_mlp "
+                "on the Megatron split with a zero b_out, its rows with the "
+                "hidden dim on 'model' (JAX's w_in / w_out specs), the "
+                "output all-reduced over 'model', then b_out added",
+    "split_heads": "models/model.py::LM._split_heads: DTensor refuses to "
+                   "split a projection's columns sharded over a mesh dim "
+                   "that does not divide its heads (XLA reshards without a "
+                   "word); the columns are gathered whole on that dim "
+                   "first, heads replicated there as JAX's q/k spec falls "
+                   "back",
+    "loss": "models/model.py::LM._nll: the gold logit's gather on "
+            "vocab-sharded logits (MaskPartial) fails as the lookup's "
+            "backward does; each rank takes its rows' log-sum-exp and gold "
+            "logit over its vocab shard, max and sums all-reduced over "
+            "'model' (LM.loss's mask and mean stay the model's)",
+    "cache_store": "models/model.py::LM._store: DTensor's select of one "
+                   "position of a cache sharded over its sequence gathers "
+                   "a copy, and the decode step's write into it is lost; "
+                   "the rank that holds the position writes it into its "
+                   "shard",
+    "mamba2_decode_step": "models/mamba2.py::mamba2_decode_step: DTensor "
+                          "cannot propagate the (B, H) batched product of "
+                          "the state over sharded heads; each rank steps "
+                          "its batch rows with the sublayer's weights and "
+                          "the state gathered over 'model' (the state goes "
+                          "back to the cache's heads shard)",
+    "ssd_chunked": "models/mamba2.py::ssd_chunked: DTensor does not finish "
+                   "propagating its 5-D batched products; each rank runs it "
+                   "on its batch rows and heads (JAX's ('data', None, None, "
+                   "'model', None) on the chunks)",
+}
+
+
+def _quiet() -> None:
+    """DTensor warns at every redistribution that crosses two mesh dims
+    ("pod", "data"); the dry-run counts those collectives instead."""
+    logging.getLogger("torch.distributed.tensor._redistribute").setLevel(
+        logging.ERROR)
+
+
+# ------------------------------------------------------------ recording
+def _local(t: torch.Tensor) -> torch.Tensor:
+    return getattr(t, "_local_tensor", t)
+
+
+def _tensors(x):
+    if isinstance(x, torch.Tensor):
+        yield x
+    elif isinstance(x, (list, tuple)):
+        for y in x:
+            yield from _tensors(y)
+    elif isinstance(x, dict):
+        for y in x.values():
+            yield from _tensors(y)
+
+
+def _nbytes(x) -> int:
+    return sum(_local(t).numel() * _local(t).element_size()
+               for t in _tensors(x))
+
+
+def tree_bytes(tree) -> int:
+    """A tree's bytes on one rank: each tensor's local shard, each Python
+    int (an optimiser's ``step``, a cache's ``len``) as JAX's int32
+    scalar."""
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    if isinstance(tree, torch.Tensor):
+        return _nbytes(tree)
+    return 4 if isinstance(tree, int) else 0
+
+
+class Recorder:
+    """A dispatch mode that counts, on this rank: each collective op's
+    calls and result bytes (a c10d op's output argument), by op name; and
+    the bytes of the storages the local operations create, live and at
+    their peak, each freed when its storage is. It sees what a DTensor op
+    desugars into, as ``CommDebugMode`` does, and leaves out the tensors of
+    the global shape DTensor's sharding propagation makes to infer an
+    output's. Storages that exist before (``exclude``) are never
+    counted."""
+
+    def __init__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+        from torch.utils.weak import WeakIdKeyDictionary
+        rec = self
+        #: op name -> [calls, bytes]; and each call in order
+        self.comms: dict[str, list[int]] = {}
+        self.calls: list[tuple[str, int]] = []
+        self.live = self.peak = 0
+        self._seen = WeakIdKeyDictionary()
+
+        from torch.distributed.tensor import DTensor
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                if any(issubclass(t, DTensor) for t in types):
+                    # as CommDebugMode: DTensor runs first and comes back
+                    # here with the collectives and the local ops it
+                    # desugars into
+                    return NotImplemented
+                out = func(*args, **(kwargs or {}))
+                rec._op(func, args, out)
+                return out
+
+        self.mode = Mode()
+
+    def exclude(self, tree) -> None:
+        for t in _tensors(tree):
+            self._seen[_local(t).untyped_storage()] = 0
+
+    def _op(self, func, args, out) -> None:
+        name = func._overloadpacket.__name__
+        if func.namespace in _COLLECTIVE_NS and name in KINDS:
+            n = _nbytes(args[0] if func.namespace == "c10d" else out)
+            key = f"{_COLLECTIVE_NS[func.namespace]}.{name}"
+            entry = self.comms.setdefault(key, [0, 0])
+            entry[0] += 1
+            entry[1] += n
+            self.calls.append((key, n))
+        tensors = list(_tensors(out))
+        if not tensors or self._propagating():
+            return
+        for t in tensors:
+            st = _local(t).untyped_storage()
+            if st in self._seen:
+                continue
+            n = st.nbytes()
+            self._seen[st] = n
+            self.live += n
+            self.peak = max(self.peak, self.live)
+            weakref.finalize(st, self._free, n)
+
+    @staticmethod
+    def _propagating() -> bool:
+        """Whether DTensor's sharding propagation is running the op on
+        tensors of the global shape to learn its output's (no rank
+        allocates those)."""
+        f = sys._getframe(3)
+        while f is not None:
+            if f.f_code.co_filename.endswith(_PROPAGATION):
+                return True
+            f = f.f_back
+        return False
+
+    def _free(self, n: int) -> None:
+        self.live -= n
+
+    def new_bytes(self, tree) -> int:
+        """The bytes of ``tree``'s storages that the operations created."""
+        seen = {}
+        for t in _tensors(tree):
+            st = _local(t).untyped_storage()
+            seen[id(st)] = self._seen.get(st, 0)
+        return sum(seen.values())
+
+    def by_kind(self) -> dict[str, int]:
+        out: dict[str, int] = {}
+        for name, (_, n) in self.comms.items():
+            kind = KINDS[name.split(".", 1)[1]]
+            out[kind] = out.get(kind, 0) + n
+        return out
+
+
+@contextlib.contextmanager
+def counting(recorder: Recorder):
+    """CommDebugMode and ``recorder`` around a region (a real run's, or
+    inside the fake mode); yields the CommDebugMode."""
+    from torch.distributed.tensor.debug import CommDebugMode
+    with CommDebugMode() as cm, recorder.mode:
+        yield cm
+
+
+def comm_counts(cm) -> dict[str, int]:
+    """CommDebugMode's count by op name (``c10d_functional.all_reduce``)."""
+    return {str(k): int(v) for k, v in cm.get_comm_counts().items() if v}
+
+
+# -------------------------------------------------------------- regions
+def _placements(mesh, shape, logical):
+    return SH.to_placements(mesh, SH.spec(mesh, tuple(shape), logical))
+
+
+def _dp_replicated(mesh, placements):
+    """``placements`` with the data dims ("pod", "data") replicated: a
+    region's view of an FSDP-sharded weight (gathered at use)."""
+    from torch.distributed.tensor import Replicate
+    dp = SH.dp_axes(mesh)
+    return [Replicate() if n in dp else p
+            for n, p in zip(mesh.mesh_dim_names, placements)]
+
+
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+def _offset(mesh, dims, n_local: int) -> int:
+    """The global index of this rank's first element of a tensor dim of
+    local size ``n_local`` sharded over the mesh dims ``dims`` (major
+    first)."""
+    off = 0
+    for i in dims:
+        off = off * mesh.size(i) + mesh.get_local_rank(i)
+    return off * n_local
+
+
+def _sum(t, mesh, i):
+    """``t`` all-reduced (summed) over mesh dim ``i``; the backward is the
+    identity: each rank's term takes the whole sum's gradient."""
+    return moe._AllReduce.apply(t, mesh.get_group(i))
+
+
+def _grads(ins, split):
+    """``local_map``'s gradient placements for inputs placed ``ins``: on a
+    mesh dim where an input is replicated and ``split`` (what the region's
+    work is split by there: its rows, its experts, its heads) is not, each
+    rank's gradient is its part of the sum, ``Partial``."""
+    from torch.distributed.tensor import Partial, Replicate
+    return tuple([Partial() if p == Replicate() and d != Replicate() else p
+                  for p, d in zip(pl, split)] for pl in ins)
+
+
+def _split_by(*placements):
+    """Per mesh dim, the first placement of ``placements`` that is not
+    ``Replicate()`` (what a region's work is split by)."""
+    from torch.distributed.tensor import Replicate
+    return [next((p for p in ps if p != Replicate()), Replicate())
+            for ps in zip(*placements)]
+
+
+def _moe_region(real, used):
+    def moe_ffn(x, p, *, n_experts, top_k, capacity_factor=1.0,
+                constrain=None, buf_mode="e_sharded"):
+        if not _is_dtensor(x):
+            return real(x, p, n_experts=n_experts, top_k=top_k,
+                        capacity_factor=capacity_factor, constrain=constrain,
+                        buf_mode=buf_mode)
+        from torch.distributed.tensor import Partial, Replicate, Shard
+        from torch.distributed.tensor.experimental import local_map
+        used.add("moe_ffn")
+        mesh = x.device_mesh
+        names = tuple(mesh.mesh_dim_names)
+        rows = _placements(mesh, x.shape, ("data", None, None))
+        rep = [Replicate()] * len(names)
+        w = {k: _dp_replicated(mesh, p[k].placements)
+             for k in ("w_gate", "w_up", "w_down")}
+        m = names.index("model") if "model" in names else None
+        split = m is not None and w["w_gate"][m] != Replicate()
+        data = [i for i, pl in enumerate(rows) if pl != Replicate()]
+        n_rows = math.prod(mesh.size(i) for i in data)
+        out_pl, aux_pl = list(rows), list(rep)
+        if split:                     # each model rank a part of the sum
+            out_pl[m] = aux_pl[m] = Partial()
+        kw = dict(n_experts=n_experts, top_k=top_k,
+                  capacity_factor=capacity_factor)
+
+        def local(x, router, wg, wu, wd):
+            if split and w["w_gate"][m] == Shard(0):   # these experts
+                lo = _offset(mesh, [m], wg.shape[0])
+                out, _ = moe.local_experts(x, router, wg, wu, wd, lo, **kw)
+            else:
+                out, _ = real(x, {"router": router, "w_gate": wg,
+                                  "w_up": wu, "w_down": wd},
+                              constrain=constrain, buf_mode=buf_mode, **kw)
+            # the load-balance loss over all the rows, as the unsharded
+            # model takes it: its two means summed over the data dims
+            probs = moe._probs(x, router)
+            me, ce = moe.balance(probs, moe.topk(probs, top_k)[1],
+                                 n_experts)
+            for i in data:
+                me, ce = _sum(me, mesh, i), _sum(ce, mesh, i)
+            aux = moe.balance_loss(me / n_rows, ce / n_rows)
+            if split and mesh.get_local_rank(m) != 0:
+                aux = aux * 0                 # model rank 0's term alone
+            return out, aux
+
+        ins = (rows, rep, w["w_gate"], w["w_up"], w["w_down"])
+        return local_map(local, out_placements=(out_pl, aux_pl),
+                         in_placements=ins,
+                         in_grad_placements=_grads(
+                             ins, _split_by(rows, w["w_gate"])),
+                         device_mesh=mesh, redistribute_inputs=True)(
+            x, p["router"], p["w_gate"], p["w_up"], p["w_down"])
+    return moe_ffn
+
+
+def _shard_map_region(real, used):
+    def moe_ffn_shard_map(x, p, *, n_experts, top_k, capacity_factor, mesh,
+                          model_axis="model"):
+        if not _is_dtensor(x):
+            return real(x, p, n_experts=n_experts, top_k=top_k,
+                        capacity_factor=capacity_factor, mesh=mesh,
+                        model_axis=model_axis)
+        from torch.distributed.tensor import Replicate, Shard
+        from torch.distributed.tensor.experimental import local_map
+        used.add("moe_ffn_shard_map")
+        names = tuple(mesh.mesh_dim_names)
+        rows = _placements(mesh, x.shape, ("data", None, None))
+        rep = [Replicate()] * len(names)
+        experts = [Shard(0) if n == model_axis else Replicate()
+                   for n in names]
+        body = functools.partial(
+            moe.shard_map_body, n_experts=n_experts, top_k=top_k,
+            capacity_factor=capacity_factor, mesh=mesh,
+            model_axis=model_axis)
+        # the body's own autograd functions sum the replicated inputs'
+        # gradients, as JAX's shard_map transpose does
+        return local_map(body, out_placements=(rows, rep),
+                         in_placements=(rows, rep, experts, experts,
+                                        experts),
+                         device_mesh=mesh, redistribute_inputs=True)(
+            x, p["router"], p["w_gate"], p["w_up"], p["w_down"])
+    return moe_ffn_shard_map
+
+
+def _ssd_region(real, used):
+    def ssd_chunked(x, a, B_, C_, chunk, constrain=None, init_state=None):
+        if not _is_dtensor(x):
+            return real(x, a, B_, C_, chunk, constrain,
+                        init_state=init_state)
+        from torch.distributed.tensor.experimental import local_map
+        used.add("ssd_chunked")
+        mesh = x.device_mesh
+        H, G = x.shape[2], B_.shape[2]
+        heads = _placements(mesh, x.shape, ("data", None, "model", None))
+        decay = _placements(mesh, a.shape, ("data", None, "model"))
+        groups = heads if G == H else _placements(
+            mesh, B_.shape, ("data", None, None, None))
+        state = _placements(mesh, (x.shape[0], H, B_.shape[3], x.shape[3]),
+                            ("data", "model", None, None))
+        if G != H and G != 1 and heads != groups:
+            raise NotImplementedError(
+                f"the SSD region takes one group or one a head; got {G} "
+                f"groups over {H} heads")
+
+        def local(x, a, B_, C_, s=None):
+            Hl = x.shape[2]
+            if B_.shape[2] != Hl:        # one group: every local head's
+                B_, C_ = (mamba2._expand_groups(t, Hl) for t in (B_, C_))
+            return real(x, a, B_, C_, chunk, constrain, init_state=s)
+
+        ins = (heads, decay, groups, groups)
+        args = (x, a, B_, C_)
+        if init_state is not None:
+            ins, args = ins + (state,), args + (init_state,)
+        return local_map(local, out_placements=(heads, state),
+                         in_placements=ins,
+                         in_grad_placements=_grads(ins, heads),
+                         device_mesh=mesh, redistribute_inputs=True)(*args)
+    return ssd_chunked
+
+
+def _lookup_region(real, used):
+    def _lookup(self, tokens):
+        emb = self.top["embed"]
+        if not _is_dtensor(emb):
+            return real(self, tokens)
+        import torch.nn.functional as F
+        from torch.distributed.tensor import Partial, Replicate, Shard
+        from torch.distributed.tensor.experimental import local_map
+        used.add("embed")
+        mesh = emb.device_mesh
+        rows = _placements(mesh, tokens.shape, ("data", None))
+        table = _dp_replicated(mesh, emb.placements)
+        vocab = [i for i, pl in enumerate(table) if pl == Shard(0)]
+        out_pl = [rows[i] if rows[i] != Replicate() else (
+            Partial() if i in vocab else Replicate())
+            for i in range(mesh.ndim)]
+
+        def local(tok, w):                # the lookup in this vocab shard
+            V = w.shape[0]
+            idx = tok.long() - _offset(mesh, vocab, V)
+            inside = (idx >= 0) & (idx < V)
+            x = F.embedding(idx.clamp(0, V - 1), w)
+            return x * inside[..., None].to(x.dtype)
+
+        ins = (rows, table)
+        return local_map(local, out_placements=out_pl, in_placements=ins,
+                         in_grad_placements=_grads(ins, rows),
+                         device_mesh=mesh, redistribute_inputs=True)(
+            tokens, emb)
+    return _lookup
+
+
+def _decode_attention_region(real, used):
+    def decode_attention(q, k_cache, v_cache, *, cache_len, window=None,
+                         window_rotated=False):
+        if not _is_dtensor(k_cache):
+            return real(q, k_cache, v_cache, cache_len=cache_len,
+                        window=window, window_rotated=window_rotated)
+        import torch.distributed._functional_collectives as funcol
+        from torch.distributed.tensor import Replicate, Shard
+        from torch.distributed.tensor.experimental import local_map
+        used.add("decode_attention")
+        mesh = k_cache.device_mesh
+        cpl = list(k_cache.placements)      # (B, Hkv, S, D)
+        qpl = [pl if pl in (Shard(0), Shard(1), Shard(3)) else Replicate()
+               for pl in cpl]
+        on = {d: [i for i, pl in enumerate(cpl) if pl == Shard(d)]
+              for d in (2, 3)}
+        D = q.shape[3]
+
+        def local(q, k, v):
+            s = L.decode_scores(q, k, D)
+            for i in on[3]:                   # head_dim: partial scores
+                s = _sum(s, mesh, i)
+            S_l = k.shape[2]
+            kpos = _offset(mesh, on[2], S_l) + torch.arange(
+                S_l, device=q.device)
+            s = s.masked_fill(~L.decode_valid(kpos, cache_len, window,
+                                              window_rotated), L.NEG_INF)
+            # the softmax over a sharded sequence: its max and sum, and
+            # the weighted values, summed over the shards
+            m = s.amax(dim=-1, keepdim=True)
+            for i in on[2]:
+                m = funcol.all_reduce(m, "max", (mesh, i))
+            e = torch.exp(s - m)
+            den = e.sum(dim=-1, keepdim=True)
+            out = torch.einsum("bhgk,bhkd->bhgd", e, v.float())
+            for i in on[2]:
+                den, out = _sum(den, mesh, i), _sum(out, mesh, i)
+            out = out / den
+            return out.reshape(q.shape[0], q.shape[1], 1,
+                               -1).to(q.dtype)
+
+        out = local_map(local, out_placements=qpl,
+                        in_placements=(qpl, cpl, cpl), device_mesh=mesh,
+                        redistribute_inputs=True)(q, k_cache, v_cache)
+        # whole heads again before the (B, 1, Hq * D) flatten
+        return out.redistribute(mesh, [Replicate() if pl == Shard(3)
+                                       else pl for pl in qpl])
+    return decode_attention
+
+
+def _carry_region(real, used):
+    def _period(self, block, x, aux, positions, enc_out):
+        entry = x.placements if _is_dtensor(x) else None
+        x, aux = real(self, block, x, aux, positions, enc_out)
+        if entry is not None and tuple(x.placements) != tuple(entry):
+            used.add("period_carry")
+            x = x.redistribute(x.device_mesh, entry)
+        return x, aux
+    return _period
+
+
+def _gelu_region(real, used):
+    def gelu_mlp(x, w_in, b_in, w_out, b_out):
+        if not _is_dtensor(x):
+            return real(x, w_in, b_in, w_out, b_out)
+        from torch.distributed.tensor import Replicate, Shard
+        from torch.distributed.tensor.experimental import local_map
+        used.add("gelu_mlp")
+        mesh = x.device_mesh
+        rows = _placements(mesh, x.shape, ("data", None, None))
+        rep = [Replicate()] * mesh.ndim
+        split = [i for i, pl in enumerate(_dp_replicated(
+            mesh, w_in.placements)) if pl == Shard(1)]
+        hid = [Shard(0) if i in split else Replicate()
+               for i in range(mesh.ndim)]
+        w_in_pl = [Shard(1) if i in split else Replicate()
+                   for i in range(mesh.ndim)]
+
+        def local(x, w_in, b_in, w_out):  # the Megatron split, no b_out
+            y = real(x, w_in, b_in, w_out, w_out.new_zeros(w_out.shape[-1]))
+            for i in split:               # the hidden dim's partial sums
+                y = _sum(y, mesh, i)
+            return y
+
+        ins = (rows, w_in_pl, hid, hid)
+        y = local_map(local, out_placements=rows, in_placements=ins,
+                      in_grad_placements=_grads(ins, _split_by(rows, hid)),
+                      device_mesh=mesh, redistribute_inputs=True)(
+            x, w_in, b_in, w_out)
+        return y + b_out.redistribute(mesh, rep)
+    return gelu_mlp
+
+
+def _heads_region(real, used):
+    def _split_heads(self, t, heads):
+        if _is_dtensor(t):
+            from torch.distributed.tensor import Replicate, Shard
+            mesh = t.device_mesh
+            pl = [Replicate() if p == Shard(2) and heads % mesh.size(i)
+                  else p for i, p in enumerate(t.placements)]
+            if pl != list(t.placements):
+                used.add("split_heads")
+                t = t.redistribute(mesh, pl)
+        return real(self, t, heads)
+    return _split_heads
+
+
+def _store_region(real, used):
+    def _store(self, cache, slot, new):
+        from torch.distributed.tensor import Replicate, Shard
+        seq = [i for i, pl in enumerate(getattr(cache, "placements", ()))
+               if pl == Shard(2)]
+        if not seq:
+            return real(self, cache, slot, new)
+        used.add("cache_store")
+        mesh = cache.device_mesh
+        # new (B, Hkv, D) laid out as the cache's batch, heads and head_dim
+        pl = [Replicate() if p == Shard(2) else Shard(2) if p == Shard(3)
+              else p for p in cache.placements]
+        local, val = cache.to_local(), new.redistribute(mesh, pl).to_local()
+        at = slot - _offset(mesh, seq, local.shape[2])
+        if 0 <= at < local.shape[2]:          # the rank that holds the slot
+            real(self, local, at, val)
+    return _store
+
+
+def _nll_region(real, used):
+    def _nll(self, logits, labels):
+        if not _is_dtensor(logits):
+            return real(self, logits, labels)
+        import torch.distributed._functional_collectives as funcol
+        from torch.distributed.tensor import Replicate, Shard
+        from torch.distributed.tensor.experimental import local_map
+        used.add("loss")
+        mesh = logits.device_mesh
+        lpl = _placements(mesh, logits.shape, ("data", None, "model"))
+        rows = [pl if pl == Shard(0) else Replicate() for pl in lpl]
+        vocab = [i for i, pl in enumerate(lpl) if pl == Shard(2)]
+
+        def local(z, labels):   # the log-sum-exp and gold over vocab shards
+            V = z.shape[-1]
+            z32 = z.float()
+            m = z32.detach().amax(dim=-1, keepdim=True)
+            for i in vocab:
+                m = funcol.all_reduce(m, "max", (mesh, i))
+            se = torch.exp(z32 - m).sum(dim=-1)
+            idx = labels - _offset(mesh, vocab, V)
+            inside = (idx >= 0) & (idx < V)
+            gold = torch.gather(z, -1, idx.clamp(0, V - 1)[..., None])[..., 0]
+            gold = gold.float() * inside
+            for i in vocab:
+                se, gold = _sum(se, mesh, i), _sum(gold, mesh, i)
+            return torch.log(se) + m[..., 0] - gold
+
+        return local_map(local, out_placements=rows,
+                         in_placements=(lpl, rows), device_mesh=mesh,
+                         redistribute_inputs=True)(logits, labels)
+    return _nll
+
+
+def _ssm_decode_region(real, used):
+    def mamba2_decode_step(x_t, p, cfg, state):
+        if not _is_dtensor(x_t):
+            return real(x_t, p, cfg, state)
+        from torch.distributed.tensor import Replicate
+        from torch.distributed.tensor.experimental import local_map
+        used.add("mamba2_decode_step")
+        mesh = x_t.device_mesh
+        rows = _placements(mesh, x_t.shape, ("data", None, None))
+        rep = [Replicate()] * mesh.ndim
+        names = sorted(p)
+
+        def local(x, st, conv, *weights):
+            y, new = real(x, dict(zip(names, weights)), cfg,
+                          mamba2.SSMState(state=st, conv=conv))
+            return y, new.state, new.conv
+
+        y, st, conv = local_map(
+            local, out_placements=(rows, rows, rows),
+            in_placements=(rows, rows, rows) + (rep,) * len(names),
+            device_mesh=mesh, redistribute_inputs=True)(
+            x_t, state.state, state.conv, *(p[n] for n in names))
+        return y, mamba2.SSMState(state=st, conv=conv)
+    return mamba2_decode_step
+
+
+#: where each region stands in: (module or class, attribute, region)
+_SITES = ((moe, "moe_ffn", _moe_region),
+          (moe, "moe_ffn_shard_map", _shard_map_region),
+          (mamba2, "ssd_chunked", _ssd_region),
+          (mamba2, "mamba2_decode_step", _ssm_decode_region),
+          (L, "decode_attention", _decode_attention_region),
+          (L, "gelu_mlp", _gelu_region),
+          (LM, "_lookup", _lookup_region),
+          (LM, "_nll", _nll_region),
+          (LM, "_store", _store_region),
+          (LM, "_split_heads", _heads_region),
+          (LM, "_period", _carry_region))
+
+
+@contextlib.contextmanager
+def regions(used: set):
+    """The functions of ``REGIONS`` replaced, for the duration, by wrappers
+    that run them on DTensors' local shards under ``local_map`` (plain
+    tensors pass through to the function itself); ``used`` collects the
+    regions a run took."""
+    real = [getattr(owner, name) for owner, name, _ in _SITES]
+    for (owner, name, region), fn in zip(_SITES, real):
+        setattr(owner, name, region(fn, used))
+    try:
+        yield
+    finally:
+        for (owner, name, _), fn in zip(_SITES, real):
+            setattr(owner, name, fn)
+
+
+@contextlib.contextmanager
+def mesh_arithmetic_outside_the_modes():
+    """``_StridedShard`` (torch 2.13) finds a shard's offsets from an
+    ``arange`` it makes and reads back (``.tolist()``); under the fake mode
+    that tensor is fake and the read fails (``aten._local_scalar_dense``).
+    Its integers come from the mesh, not the data: for the duration that
+    method runs with the dispatch modes (the fake mode, the counters) set
+    aside. Where torch has no such method, nothing changes."""
+    from torch.distributed.tensor import placement_types as PT
+    from torch.utils._python_dispatch import _disable_current_modes
+    cls = getattr(PT, "_StridedShard", None)
+    real = getattr(cls, "__dict__", {}).get("local_shard_size_and_offset")
+    if real is None:
+        yield
+        return
+
+    @functools.wraps(real)
+    def offsets(*args, **kw):
+        with _disable_current_modes():
+            return real(*args, **kw)
+    cls.local_shard_size_and_offset = offsets
+    try:
+        yield
+    finally:
+        cls.local_shard_size_and_offset = real
+
+
+# ---------------------------------------------------------------- cells
+def fake_dtensor(fake_mode, mesh, shape, dtype, s, device_type: str):
+    """A ``DTensor`` of global ``shape`` laid out by spec ``s`` on
+    ``mesh``, its local shard a fake tensor on ``device_type``."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    pl = SH.to_placements(mesh, s)
+    local, _ = compute_local_shape_and_global_offset(tuple(shape), mesh, pl)
+    with fake_mode:
+        t = torch.empty(local, dtype=dtype, device=device_type)
+    stride = torch.empty(tuple(shape), device="meta").stride()
+    return DTensor.from_local(t, mesh, pl, run_check=False,
+                              shape=torch.Size(shape), stride=stride)
+
+
+def shard_lm(lm: LM, mesh, make: Callable, *, fsdp: bool = True,
+             fsdp_mode: str = "hidden") -> dict:
+    """Lay ``lm``'s parameters out on ``mesh`` by ``param_pspecs``: each of
+    JAX's leaves becomes ``make(leaf, spec)`` (a ``DTensor``), stored
+    where the leaf was (``lm.top``, ``lm.stacked``), and each per-period
+    parameter becomes slice p of its stacked ``DTensor``, as ``LM``
+    builds it. Returns the leaves by path (the step's parameter
+    argument). On a stacked dim sharded over the data axes DTensor's
+    select gathers the period and returns a copy, not a view
+    (``copied_leaves``)."""
+    from torch import nn
+    tree = {g.path: g.leaf for g in leaf_groups(lm)}
+    specs = SH.param_pspecs(mesh, tree, fsdp=fsdp, fsdp_mode=fsdp_mode)
+    out = {}
+    for path, leaf in tree.items():
+        D = make(leaf, specs[path])
+        out[path] = D
+        if path in lm.stacked:
+            lm.stacked[path] = D
+            tree_name, key, name = path.split("/")
+            blocks = lm.layers if tree_name == "blocks" else lm.encoder
+            for i, blk in enumerate(blocks):
+                blk[key][name] = nn.Parameter(D[i], requires_grad=False)
+        else:
+            lm.top[path] = nn.Parameter(D, requires_grad=False)
+    return out
+
+
+def copied_leaves(lm: LM) -> list:
+    """The stacked leaves whose per-period parameters are copies, not views
+    of them (``LeafGroup.views``): DTensor's select on a period dim sharded
+    over the data axes (``fsdp_mode="stack"``, or a 2-D norm scale whose
+    period count divides them, as JAX's rules lay it out) all-gathers the
+    period into a copy. The train step updates such a leaf itself, and
+    ``with_copies`` gathers its periods before each step."""
+    return [g for g in leaf_groups(lm) if g.stacked and not g.views]
+
+
+def with_copies(step, copies):
+    """``step`` after the gathers of the copied periods from their stacked
+    leaves (``copied_leaves``): the collectives JAX's scan over a sharded
+    stack pays inside its step. A train step updates the stacked leaf
+    itself, so each call reads the periods of the last update."""
+    if not copies:
+        return step
+
+    def run(*args, **kw):
+        with torch.no_grad():
+            for g in copies:
+                for i, t in enumerate(g.tensors):
+                    t.copy_(g.leaf[i])
+        return step(*args, **kw)
+    return run
+
+
+def place_step(lm: LM, mesh, kind: str, trees: dict, make: Callable,
+               variant: str = "baseline", *,
+               optimizer: O.Optimizer | None = None):
+    """The port's own step of a cell of ``kind`` ("train", "prefill",
+    "decode") over ``lm`` and ``trees`` laid out on ``mesh`` by the
+    variant's rules, with the mesh's constrainer: each tensor of ``lm``'s
+    parameters (``param_pspecs``) and of ``trees`` (``batch``, and ``opt``
+    (``param_pspecs``) to train; ``cache`` (``cache_pspecs``) and ``tokens``
+    to decode) becomes ``make(tensor, spec)``, a
+    ``DTensor`` (fake in ``build_cell``, a real one's shards in a test);
+    Python ints stay as they are. -> (the step with no arguments, its
+    arguments by name, ``copied_leaves``)."""
+    var = VARIANTS[variant]
+    fsdp = var.get("fsdp", True)
+    fsdp_mode = var.get("fsdp_mode", "hidden")
+    lm.constrain = SH.make_constrainer(mesh)
+    params = shard_lm(lm, mesh, make, fsdp=fsdp, fsdp_mode=fsdp_mode)
+    copies = copied_leaves(lm)
+
+    def lay(tree, specs):
+        return _map_tree(lambda path, t: make(t, specs[path])
+                         if isinstance(t, torch.Tensor) and t.dim() else t,
+                         tree)
+
+    def batch_of(tree):
+        return lay(tree, SH.flatten(SH.batch_pspec(mesh, tree)))
+
+    if kind == "train":
+        opt_state = lay(trees["opt"], SH.flatten(SH.param_pspecs(
+            mesh, trees["opt"], fsdp=var.get("opt_fsdp", fsdp),
+            fsdp_mode=fsdp_mode)))
+        batch = batch_of(trees["batch"])
+        step = with_copies(lm_step.make_train_step(lm, optimizer), copies)
+        return (lambda: step(opt_state, batch)), {
+            "params": params, "opt": opt_state, "batch": batch}, copies
+    if kind == "prefill":
+        batch = batch_of(trees["batch"])
+        prefill = with_copies(lm_step.make_prefill_step(lm), copies)
+        return (lambda: prefill(**batch)), {
+            "params": params, "batch": batch}, copies
+    cache = lay(trees["cache"], SH.flatten(SH.cache_pspecs(
+        mesh, trees["cache"], seq_shard=var.get("kv_seq_shard", False))))
+    tokens = batch_of({"tokens": trees["tokens"]})["tokens"]
+    serve = with_copies(lm_step.make_serve_step(lm), copies)
+    # the cache's length runs as the host int the port reads (0 for the
+    # int32 scalar JAX passes, which is what is counted)
+    length = cache["len"]
+    run_cache = {"blocks": cache["blocks"],
+                 "len": length if isinstance(length, int) else 0}
+    return (lambda: serve(run_cache, tokens)), {
+        "params": params, "cache": cache, "tokens": tokens}, copies
+
+
+def _map_tree(fn, tree, path=()):
+    if isinstance(tree, dict):
+        return {k: _map_tree(fn, v, path + (k,)) for k, v in tree.items()}
+    return fn("/".join(path), tree)
+
+
+def no_effect(cfg: ArchConfig) -> list[str]:
+    """The configuration fields the port lacks, with what they would
+    steer under JAX."""
+    out = []
+    if cfg.attn_gqa_mode != "grouped":
+        out.append(f"attn_gqa_mode={cfg.attn_gqa_mode}: the port has one "
+                   "attention (kernel 8 reads each KV head's group in "
+                   "place); JAX's 'repeat' layout has no counterpart")
+    if cfg.n_experts and cfg.moe_buf_mode != "shard_map":
+        out.append(f"moe_buf_mode={cfg.moe_buf_mode}: the dispatch runs in "
+                   "the moe_ffn region on each rank's rows and experts; "
+                   "JAX's buffer layouts have no counterpart there")
+    return out
+
+
+@dataclasses.dataclass
+class Cell:
+    """A built cell: its step ``fn`` (no arguments) over ``args``, laid
+    out on ``mesh``, to run under ``fake_mode``."""
+    arch: str
+    cfg: ArchConfig
+    cell: shp.ShapeCell
+    mesh: Any
+    fn: Callable
+    args: dict
+    fake_mode: Any
+    lm: LM
+    copies: list
+    no_effect: list
+
+
+def build_cell(arch: str, shape_name: str, multi_pod: bool,
+               variant: str = "baseline", *, cfg: ArchConfig | None = None,
+               cell: shp.ShapeCell | None = None, device_type: str = "cuda",
+               mesh_shape: tuple | None = None,
+               dtype: torch.dtype = torch.bfloat16) -> Cell:
+    """The cell's step on fake tensors. ``cfg`` and ``cell`` replace the
+    arch's config (before the variant's changes) and the shape's cell (a
+    depth cut, an off-grid shape), ``mesh_shape`` the mesh's (JAX's
+    variants' own, or a test's), ``dtype`` the parameters' and the
+    frontend inputs' (JAX's dry-run's bf16; the optimiser is the config's
+    at 3e-4). Initialises the fake process group at the mesh's size when
+    no group exists; ``run_cell`` destroys it."""
+    import torch.distributed as dist
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if device_type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "device_type 'cuda' requested but CUDA is not available; pass "
+            "device_type='cpu' (--device cpu) to run the dry-run on the CPU")
+    _quiet()
+    var = VARIANTS[variant]
+    cfg = cfg if cfg is not None else get_config(arch)
+    if var.get("cfg"):
+        cfg = dataclasses.replace(cfg, **var["cfg"])
+    cell = cell or shp.SHAPES[shape_name]
+    shape = tuple(mesh_shape or var.get("mesh_shape") or (16, 16))
+    if multi_pod:
+        shape = (2,) + shape
+    axes = ("pod", "data", "model") if len(shape) == 3 else ("data", "model")
+    if not dist.is_initialized():
+        dist.init_process_group("fake", store=FakeStore(), rank=0,
+                                world_size=int(torch.Size(shape).numel()))
+    mesh = build_mesh(shape, axes, device_type=device_type)
+    fake_mode = FakeTensorMode(allow_non_fake_inputs=True)
+
+    lm = LM(cfg, dtype=dtype, device="meta")
+    opt = None
+    if cell.kind == "train":
+        opt = O.get(cfg.optimizer, 3e-4)
+        trees = {"batch": SP.train_batch_specs(cfg, shape_name, cell),
+                 "opt": opt.init({g.path: g.leaf for g in leaf_groups(lm)})}
+    elif cell.kind == "prefill":
+        trees = {"batch": SP.prefill_specs(cfg, shape_name, cell)}
+    else:
+        trees = SP.decode_specs(cfg, shape_name, lm, cell=cell)
+    if "batch" in trees:             # the frontend inputs in the model's
+        trees["batch"] = {k: v.to(dtype) if v.is_floating_point() else v
+                          for k, v in trees["batch"].items()}
+
+    def make(t, s):
+        return fake_dtensor(fake_mode, mesh, t.shape, t.dtype, s, device_type)
+    fn, args, copies = place_step(lm, mesh, cell.kind, trees, make, variant,
+                                  optimizer=opt)
+    return Cell(arch, cfg, cell, mesh, fn, args, fake_mode, lm,
+                copies, no_effect(cfg))
+
+
+@dataclasses.dataclass
+class Run:
+    """What running a cell's step on the fake tensors read."""
+    arg_bytes: int
+    out_bytes: int
+    temp_bytes: int
+    coll_by_kind: dict
+    comms: dict
+    calls: list
+    comm_counts: dict
+    local_regions: list
+    run_s: float
+    out: Any = None
+
+
+def run_step(c: Cell) -> Run:
+    """``c.fn`` once under the fake mode, ``implicit_replication``, the
+    regions, ``CommDebugMode`` and a ``Recorder``."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    rec = Recorder()
+    rec.exclude(c.args)
+    rec.exclude([p for p in c.lm.parameters()])
+    used: set = set()
+    t0 = time.perf_counter()
+    with mesh_arithmetic_outside_the_modes(), c.fake_mode, \
+            implicit_replication(), regions(used), counting(rec) as cm:
+        out = c.fn()
+    run_s = time.perf_counter() - t0
+    out_bytes = rec.new_bytes(out)
+    # the copied periods live through the step (made at build, refilled
+    # by its gathers)
+    copied = sum(_nbytes(t) for g in c.copies for t in g.tensors)
+    return Run(arg_bytes=tree_bytes(c.args), out_bytes=out_bytes,
+               temp_bytes=max(rec.peak - out_bytes, 0) + copied,
+               coll_by_kind=rec.by_kind(),
+               comms={k: v[:] for k, v in rec.comms.items()},
+               calls=list(rec.calls), comm_counts=comm_counts(cm),
+               local_regions=[REGIONS[r] for r in sorted(used)],
+               run_s=run_s, out=out)
+
+
+def _stem(arch: str, shape_name: str, mesh_name: str, variant: str) -> str:
+    stem = f"{arch.replace('.', '_')}__{shape_name}__{mesh_name}"
+    return stem if variant == "baseline" else stem + f"__{variant}"
+
+
+def run_cell(arch: str, shape_name: str, multi_pod: bool,
+             out_dir: str = "results/dryrun_torch",
+             variant: str = "baseline", *, cfg: ArchConfig | None = None,
+             cell: shp.ShapeCell | None = None, device_type: str = "cuda",
+             mesh_shape: tuple | None = None,
+             dtype: torch.dtype = torch.bfloat16, write: bool = True) -> dict:
+    """One cell: JAX's skip, ``build_cell``, ``run_step``, the roofline,
+    and the record (written under JAX's stem with ``write``). The fake
+    group is created here and destroyed before this returns."""
+    import torch.distributed as dist
+    mesh_name = "multi" if multi_pod else "single"
+    base = cfg if cfg is not None else get_config(arch)
+    runs, why = shp.applicable(base, shape_name)
+    rec = {"arch": arch, "shape": shape_name, "mesh": mesh_name,
+           "variant": variant}
+    if not runs:
+        rec.update(status="skipped", reason=why)
+        if write:
+            os.makedirs(out_dir, exist_ok=True)
+            fname = f"{arch.replace('.', '_')}__{shape_name}__{mesh_name}" \
+                    ".json"
+            with open(os.path.join(out_dir, fname), "w") as f:
+                json.dump(rec, f, indent=1)
+        return rec
+    try:
+        t0 = time.perf_counter()
+        c = build_cell(arch, shape_name, multi_pod, variant, cfg=cfg,
+                       cell=cell, device_type=device_type,
+                       mesh_shape=mesh_shape, dtype=dtype)
+        t_lower = time.perf_counter() - t0
+        r = run_step(c)
+        chips = int(c.mesh.size())
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    rl = RL.analyze(arch=arch, shape=c.cell.name, mesh_name=mesh_name,
+                    chips=chips, cfg=c.cfg, cell=c.cell,
+                    coll_by_kind=r.coll_by_kind)
+    mem = {"argument_size_in_bytes": r.arg_bytes,
+           "output_size_in_bytes": r.out_bytes,
+           "temp_size_in_bytes": r.temp_bytes,
+           "generated_code_size_in_bytes": 0}
+    total = r.arg_bytes + r.out_bytes + r.temp_bytes
+    rec.update(
+        status="ok", chips=chips,
+        lower_s=round(t_lower, 1), compile_s=round(r.run_s, 1),
+        flops_per_chip=rl.flops_per_chip, bytes_per_chip=rl.bytes_per_chip,
+        raw_hlo_flops=rl.raw_hlo_flops, raw_hlo_bytes=rl.raw_hlo_bytes,
+        coll_bytes=rl.coll_bytes, coll_by_kind=rl.coll_by_kind,
+        model_flops=rl.model_flops, compute_s=rl.compute_s,
+        memory_s=rl.memory_s, collective_s=rl.collective_s,
+        bottleneck=rl.bottleneck, useful_ratio=rl.useful_ratio,
+        step_s=rl.step_s, mfu=rl.mfu, memory_analysis=mem,
+        collectives_from="CommDebugMode", comm_counts=r.comm_counts,
+        comms=r.comms,
+        fits=total <= H100.hbm_bytes, hbm_bytes=H100.hbm_bytes,
+        local_regions=r.local_regions, no_effect=c.no_effect,
+        copied_leaves=[g.path for g in c.copies], device_type=device_type,
+        generated_code_note="nothing is compiled: the kernels are built "
+                            "once per process, outside the step")
+    if write:
+        os.makedirs(out_dir, exist_ok=True)
+        stem = _stem(arch, shape_name, mesh_name, variant)
+        with open(os.path.join(out_dir, stem + ".json"), "w") as f:
+            json.dump(rec, f, indent=1, default=float)
+        comms_dir = os.path.join(out_dir, "comms")
+        os.makedirs(comms_dir, exist_ok=True)
+        with open(os.path.join(comms_dir, stem + ".json"), "w") as f:
+            json.dump({"comm_counts": r.comm_counts, "comms": r.comms}, f,
+                      indent=1)
+    print(rl.row())
+    return rec
+
+
+def main(argv: list[str] | None = None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default=None, help="arch id (assignment name)")
+    ap.add_argument("--shape", default=None, choices=list(shp.SHAPES))
+    ap.add_argument("--mesh", default="single", choices=["single", "multi"])
+    ap.add_argument("--variant", default="baseline", choices=list(VARIANTS))
+    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--resume", action="store_true",
+                    help="skip cells whose result JSON already exists")
+    ap.add_argument("--out", default="results/dryrun_torch")
+    ap.add_argument("--device", default="cuda",
+                    help="the fake tensors' and the mesh's device type: "
+                         "cuda (default) or cpu")
+    args = ap.parse_args(argv)
+
+    if args.all:
+        ok = failed = skipped = 0
+        for arch in ALIASES:
+            for shape_name in shp.SHAPES:
+                for mesh_name in ("single", "multi"):
+                    fname = os.path.join(
+                        args.out, f"{arch.replace('.', '_')}__{shape_name}"
+                        f"__{mesh_name}.json")
+                    if args.resume and os.path.exists(fname):
+                        ok += 1
+                        continue
+                    t0 = time.perf_counter()
+                    try:
+                        rec = run_cell(arch, shape_name, mesh_name == "multi",
+                                       args.out, device_type=args.device)
+                        if rec["status"] == "ok":
+                            ok += 1
+                        else:
+                            skipped += 1
+                        print(f"[dryrun] {arch} {shape_name} {mesh_name}: "
+                              f"{rec['status']} in "
+                              f"{time.perf_counter() - t0:.1f} s", flush=True)
+                    except Exception:
+                        failed += 1
+                        traceback.print_exc()
+                        print(f"[dryrun] {arch} {shape_name} {mesh_name}: "
+                              f"failed in {time.perf_counter() - t0:.1f} s",
+                              flush=True)
+        print(f"dry-run sweep: ok={ok} skipped={skipped} failed={failed}")
+        raise SystemExit(1 if failed else 0)
+
+    rec = run_cell(args.arch, args.shape, args.mesh == "multi", args.out,
+                   variant=args.variant, device_type=args.device)
+    print(json.dumps({k: v for k, v in rec.items()
+                      if k not in ("coll_by_kind", "memory_analysis",
+                                   "comm_counts")},
+                     indent=1, default=float))
+
+
+if __name__ == "__main__":
+    main()

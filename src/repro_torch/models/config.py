@@ -4,14 +4,20 @@ same in both packages (the CPU tests compare them with ``dataclasses.asdict``).
 
 Families: dense / moe / ssm / hybrid / audio (enc-dec) / vlm. Heterogeneous
 stacks (Jamba) are a repeating *period* of sublayers, ``n_layers /
-len(period)`` times. The port runs every family (``models/model.py``); the
-fields that only steer sharding or the GQA layout under JAX
-(``attn_gqa_mode``, ``fsdp_weight_gather``, ``activation_constraints``)
-are kept so configurations compare equal, and change nothing in the port.
+len(period)`` times. The port runs every family (``models/model.py``).
+``fsdp_weight_gather`` and ``activation_constraints`` steer the sharding
+constraints the model hands its ``constrain`` callback, as in JAX: they
+take effect on a sharded program (``DTensor``s, the dry-run) and change
+nothing on one card. ``attn_gqa_mode`` (JAX's GQA layout under XLA) has no
+counterpart: the port has one attention.
 ``remat`` and ``remat_policy`` place the port's checkpoints where JAX
 places its own; ``moe_buf_mode="shard_map"`` runs the MoE sublayers expert
 parallel (``moe.moe_ffn_shard_map``) where the model's mesh has a "model"
-dim that divides E, and its other values change nothing.
+dim that divides E. Its other values have no effect: ``moe_ffn`` hands
+its ``constrain`` JAX's buffer axes for them, but no constraint inside
+``moe_ffn`` acts, on one card or in the dry-run, whose ``moe_ffn`` region
+places the rows and experts itself (``launch/dryrun.py::no_effect`` says
+so in each record).
 """
 
 from __future__ import annotations

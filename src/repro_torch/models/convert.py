@@ -114,6 +114,17 @@ class LeafGroup(NamedTuple):
     def stacked(self) -> bool:
         return self.leaf is not self.tensors[0]
 
+    @property
+    def views(self) -> bool:
+        """Whether every parameter shares the leaf's storage, so that
+        writing into either writes the other. The model's own are views; a
+        ``DTensor``'s select on a period dim sharded over the data axes
+        gathers the period into a copy."""
+        def storage(t):
+            return getattr(t, "_local_tensor", t).untyped_storage()
+        base = storage(self.leaf)
+        return all(storage(t) is base for t in self.tensors)
+
     def stack(self, tensors) -> torch.Tensor:
         """Tensors paired with ``tensors`` (such as their gradients) in the
         leaf's shape: stacked over the periods, or the one tensor."""

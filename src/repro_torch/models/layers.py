@@ -93,17 +93,33 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     decode): every slot is valid once full, and positions need no causal
     mask."""
     B, Hq, _, D = q.shape
-    Hkv, S = k_cache.shape[1], k_cache.shape[2]
-    qg = q.reshape(B, Hkv, Hq // Hkv, D).float() / (D ** 0.5)
-    s = torch.einsum("bhgd,bhkd->bhgk", qg, k_cache.float())
+    S = k_cache.shape[2]
+    s = decode_scores(q, k_cache, D)
     kpos = torch.arange(S, device=q.device)
-    valid = kpos < cache_len
-    if window is not None and not window_rotated:
-        valid &= kpos > cache_len - 1 - window
-    s = s.masked_fill(~valid, NEG_INF)
+    s = s.masked_fill(~decode_valid(kpos, cache_len, window, window_rotated),
+                      NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgk,bhkd->bhgd", p, v_cache.float())
     return out.reshape(B, Hq, 1, D).to(q.dtype)
+
+
+def decode_scores(q: torch.Tensor, k_cache: torch.Tensor,
+                  d_head: int) -> torch.Tensor:
+    """``decode_attention``'s float32 scores (B, Hkv, Hq / Hkv, S): each
+    query head against its GQA group's keys, over ``sqrt(d_head)``."""
+    B, Hq, _, D = q.shape
+    Hkv = k_cache.shape[1]
+    qg = q.reshape(B, Hkv, Hq // Hkv, D).float() / (d_head ** 0.5)
+    return torch.einsum("bhgd,bhkd->bhgk", qg, k_cache.float())
+
+
+def decode_valid(kpos: torch.Tensor, cache_len: int, window: int | None,
+                 window_rotated: bool) -> torch.Tensor:
+    """Which cache positions ``kpos`` a decode step attends to."""
+    valid = kpos < cache_len
+    if window is not None and not window_rotated:
+        valid &= kpos > cache_len - 1 - window
+    return valid
 
 
 # ------------------------------------------------------------------- MLPs

@@ -53,8 +53,13 @@ def ssd_chunked(x: torch.Tensor, a: torch.Tensor, B_: torch.Tensor,
                 init_state: torch.Tensor | None = None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """-> (y (B, S, H, P) float32, final state (B, H, N, P) float32). x is
-    already scaled by dt. ``constrain`` steers only JAX's sharding."""
-    del constrain
+    already scaled by dt. ``constrain`` is JAX's callback, handed the
+    chunked x, B and C in JAX's (B, nc, Q, H, .) layout, heads on "model",
+    before they are permuted to the port's (B, nc, H, Q, .). Those calls
+    keep JAX's sequence of constraints and never act: the dry-run runs this
+    function inside its ``ssd_chunked`` region on each rank's plain shards,
+    whose placements (the same heads on "model") stand in for them."""
+    constrain = constrain or (lambda t, axes: t)
     B, S, H, P = x.shape
     N = B_.shape[-1]
     Q = min(chunk, S)
@@ -70,11 +75,13 @@ def ssd_chunked(x: torch.Tensor, a: torch.Tensor, B_: torch.Tensor,
     nc = S_p // Q
 
     # chunk views, heads moved ahead of the positions: (B, nc, H, Q, .)
-    xc = x.float().reshape(B, nc, Q, H, P).permute(0, 1, 3, 2, 4)
-    Bc = _expand_groups(B_, H).float().reshape(B, nc, Q, H, N).permute(
+    heads = ("data", None, None, "model", None)
+    xc = constrain(x.float().reshape(B, nc, Q, H, P), heads).permute(
         0, 1, 3, 2, 4)
-    Cc = _expand_groups(C_, H).float().reshape(B, nc, Q, H, N).permute(
-        0, 1, 3, 2, 4)
+    Bc = constrain(_expand_groups(B_, H).float().reshape(B, nc, Q, H, N),
+                   heads).permute(0, 1, 3, 2, 4)
+    Cc = constrain(_expand_groups(C_, H).float().reshape(B, nc, Q, H, N),
+                   heads).permute(0, 1, 3, 2, 4)
     cum = torch.cumsum(a.float().reshape(B, nc, Q, H), dim=2).permute(
         0, 1, 3, 2)                                              # (B,nc,H,Q)
 
@@ -149,7 +156,7 @@ def mamba2_mixer(x: torch.Tensor, p, cfg, constrain: Constrain | None = None,
     a = A * dt                                                   # log decay
     x_dt = x_in.float() * dt[..., None]
 
-    y, fstate = ssd_chunked(x_dt, a, B_, C_, cfg.ssm_chunk,
+    y, fstate = ssd_chunked(x_dt, a, B_, C_, cfg.ssm_chunk, constrain,
                             init_state=None if state is None else state.state)
     y = y + p["D"][:, None] * x_in.float()
     y = y.reshape(B, S, d_in).to(x.dtype)

@@ -23,8 +23,21 @@ so a JAX parameter tree loads without a transpose (``models/convert.py``).
 The router, ``A_log``, ``D`` and ``dt_bias`` are float32 whatever the
 model's dtype, as JAX draws them. What ``attn_gqa_mode`` steers (the
 GQA layout under XLA) has no counterpart here and changes no result.
-``constrain`` is JAX's callback (``distributed.sharding.make_constrainer``):
-the port reads only the mesh it carries, ``constrain.mesh``. With
+``constrain`` is JAX's callback (``distributed.sharding.make_constrainer``),
+called at JAX's points in JAX's order: x after the embedding and the
+logits (always), each sublayer's weights under ``cfg.fsdp_weight_gather``
+(``_gather_weights``), and, under ``cfg.activation_constraints``
+(``constrain_mid``), q and k, the dense FFN's input, the MoE sublayer's
+one-hot, buffer and expert activations and the SSD's chunked inputs. On a
+``DTensor`` it redistributes as JAX's sharding constraint does; on a plain
+tensor it returns the same object, so one card computes the same bits with
+or without it. The MoE and SSD calls never meet a ``DTensor``: the dry-run
+runs those functions in regions on each rank's plain shards
+(``launch/dryrun.py``), whose placements stand in for them. It also
+carries the mesh, ``constrain.mesh``. ``_lookup``, ``_nll``, ``_store`` and
+``_split_heads`` are the points where the dry-run's regions step in for
+DTensor (the sharded lookup, log-sum-exp, cache write and head split); on
+plain tensors they are the model's own arithmetic. With
 ``cfg.moe_buf_mode == "shard_map"`` and a mesh whose "model" dim divides E,
 each MoE sublayer runs ``moe.moe_ffn_shard_map`` over that mesh (expert
 parallel, one all-reduce); otherwise ``moe.moe_ffn``, with ``buf_mode``
@@ -220,15 +233,23 @@ def _sinusoid(S: int, d: int, dtype: torch.dtype,
     return torch.from_numpy(_sinusoid_np(S, d)).to(dtype).to(device)
 
 
+def _noop(x, logical_axes):
+    return x
+
+
 class LM(nn.Module):
+    #: the weights ``_gather_weights`` constrains to their TP-only specs
+    _WG_IN = ("wq", "wk", "wv", "x_wq", "x_wk", "x_wv", "w_in", "in_proj")
+    _WG_OUT = ("wo", "x_wo", "w_down", "w_out", "out_proj")
+
     def __init__(self, cfg: ArchConfig, *, dtype: torch.dtype = torch.bfloat16,
                  device: str | torch.device = "cuda", constrain=None):
         """Allocates the parameters (uninitialised) on ``device`` in
         ``dtype`` (the float32 leaves in float32); ``init_params`` draws
         them, ``convert`` loads JAX's. ``device="meta"`` allocates nothing
         (a full configuration's shapes for the sharding rules).
-        ``constrain`` is JAX's sharding callback; its ``mesh`` (a
-        ``DeviceMesh``) steers the MoE sublayers (``_ffn``)."""
+        ``constrain`` is JAX's sharding callback (None: no constraint); its
+        ``mesh`` (a ``DeviceMesh``) steers the MoE sublayers (``_ffn``)."""
         super().__init__()
         dev = resolve_device(device)
         self.cfg = cfg
@@ -314,20 +335,61 @@ class LM(nn.Module):
         return self
 
     # =============================================================== helpers
+    def _constrain(self, x, logical_axes):
+        """JAX's ``self.constrain``: x and the logits, the gathered
+        weights."""
+        return x if self.constrain is None else \
+            self.constrain(x, logical_axes)
+
+    @property
+    def constrain_mid(self):
+        """JAX's mid-layer callback: ``constrain`` under
+        ``cfg.activation_constraints``, else none."""
+        if self.constrain is None or not self.cfg.activation_constraints:
+            return _noop
+        return self.constrain
+
+    def _gather_weights(self, sub):
+        """ZeRO-3's weight gather (``cfg.fsdp_weight_gather``): this
+        sublayer's matrices constrained to their TP-only specs at use, in
+        JAX's order (its scan hands the body each dict with sorted keys).
+        Without the knob, ``sub`` itself."""
+        if not self.cfg.fsdp_weight_gather:
+            return sub
+        out = {}
+        for k in sorted(sub):
+            v = sub[k]
+            if k in self._WG_IN and v.ndim == 2:
+                v = self._constrain(v, (None, ("model", None)))
+            elif k in self._WG_OUT and v.ndim == 2:
+                v = self._constrain(v, (("model", None), None))
+            elif k in ("w_gate", "w_up"):
+                v = self._constrain(v, (("model", None), None,
+                                        ("model", None)) if v.ndim == 3
+                                    else (None, ("model", None)))
+            elif k == "w_down" and v.ndim == 3:
+                v = self._constrain(v, (("model", None), ("model", None),
+                                        None))
+            out[k] = v
+        return out
+
     def _norm(self, x, p, name="ln"):
         if self.cfg.norm == "layernorm":
             return L.layernorm(x, p[name], p[f"{name}_b"], self.cfg.norm_eps)
         return L.rmsnorm(x, p[name], self.cfg.norm_eps)
+
+    def _split_heads(self, t, heads):
+        """(B, S, heads * d_head) -> (B, S, heads, d_head)."""
+        return t.reshape(t.shape[0], t.shape[1], heads, self.cfg.d_head)
 
     def _qkv(self, h, p):
         c = self.cfg
         q, k, v = h @ p["wq"], h @ p["wk"], h @ p["wv"]
         if c.qkv_bias:
             q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-        B, S = h.shape[:2]
-        q = q.reshape(B, S, c.n_heads, c.d_head)
-        k = k.reshape(B, S, c.n_kv_heads, c.d_head)
-        v = v.reshape(B, S, c.n_kv_heads, c.d_head)
+        q = self._split_heads(q, c.n_heads)
+        k = self._split_heads(k, c.n_kv_heads)
+        v = self._split_heads(v, c.n_kv_heads)
         if c.qk_norm:
             q = L.rmsnorm(q, p["q_norm"], c.norm_eps)
             k = L.rmsnorm(k, p["k_norm"], c.norm_eps)
@@ -346,6 +408,9 @@ class LM(nn.Module):
         h = self._norm(x, p)
         q, k, v = self._qkv(h, p)
         q, k = self._rope(q, k, positions)
+        sp = ("data", None, "model", None)
+        q = self.constrain_mid(q, sp)
+        k = self.constrain_mid(k, sp)
         out = L.chunked_attention(q.movedim(1, 2), k.movedim(1, 2),
                                   v.movedim(1, 2), causal=causal,
                                   window=self.cfg.attn_window)
@@ -358,9 +423,8 @@ class LM(nn.Module):
         projections, the forward's cross-attention inputs and what a filled
         decode cache holds as ``xk``, ``xv``."""
         c = self.cfg
-        B = enc_out.shape[0]
-        k = (enc_out @ p["x_wk"]).reshape(B, -1, c.n_kv_heads, c.d_head)
-        v = (enc_out @ p["x_wv"]).reshape(B, -1, c.n_kv_heads, c.d_head)
+        k = self._split_heads(enc_out @ p["x_wk"], c.n_kv_heads)
+        v = self._split_heads(enc_out @ p["x_wv"], c.n_kv_heads)
         return k.movedim(1, 2), v.movedim(1, 2)
 
     def _cross_attn(self, x, p, k, v):
@@ -370,7 +434,7 @@ class LM(nn.Module):
         c = self.cfg
         h = self._norm(x, p, "x_ln")
         B, S = h.shape[:2]
-        q = (h @ p["x_wq"]).reshape(B, S, c.n_heads, c.d_head)
+        q = self._split_heads(h @ p["x_wq"], c.n_heads)
         out = L.chunked_attention(q.movedim(1, 2), k, v, causal=False)
         out = out.movedim(1, 2).reshape(B, S, -1)
         return x + out @ p["x_wo"]
@@ -396,6 +460,7 @@ class LM(nn.Module):
                 y, aux = moe.moe_ffn(h, p, n_experts=c.n_experts,
                                      top_k=c.top_k,
                                      capacity_factor=c.capacity_factor,
+                                     constrain=self.constrain_mid,
                                      buf_mode=bm)
             return x + y, aux
         zero = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -405,6 +470,7 @@ class LM(nn.Module):
         if c.act == "gelu":
             return x + L.gelu_mlp(h, p["w_in"], p["b_in"], p["w_out"],
                                   p["b_out"]), zero
+        h = self.constrain_mid(h, ("data", None, None))
         return x + L.swiglu(h, p["w_gate"], p["w_up"], p["w_down"]), zero
 
     def _head(self, x):
@@ -416,6 +482,10 @@ class LM(nn.Module):
         return x @ head
 
     # ================================================================ forward
+    def _lookup(self, tokens):
+        """The rows of ``embed`` the tokens name."""
+        return F.embedding(tokens.long(), self.top["embed"])
+
     def _embed(self, tokens, patch_embeds=None):
         """Token embeddings, the first P positions replaced by the patch
         embeddings (B, P, d) cast to the model's dtype: a splice, the
@@ -423,7 +493,7 @@ class LM(nn.Module):
         backward sums repeated tokens' gradients in a fixed order (indexing's
         accumulating scatter does not, on the CPU), which a resumed run
         needs to repeat an uninterrupted one bit for bit."""
-        x = F.embedding(tokens.long(), self.top["embed"])
+        x = self._lookup(tokens)
         if patch_embeds is not None:
             P = patch_embeds.shape[1]
             x = torch.cat([patch_embeds.to(x.dtype), x[:, P:]], dim=1)
@@ -432,13 +502,14 @@ class LM(nn.Module):
     def _period(self, block, x, aux, positions, enc_out):
         """One period's sublayers on x -> (x, aux + their aux losses)."""
         for i, kind in enumerate(self.cfg.period):
-            p = block[f"{i}:{kind}"]
+            p = self._gather_weights(block[f"{i}:{kind}"])
             if kind == "attn":
                 x = self._attn_full(x, p, positions)
                 if enc_out is not None:
                     x = self._cross_attn(x, p, *self._cross_kv(enc_out, p))
             else:
-                x = x + mamba2.mamba2_mixer(self._norm(x, p), p, self.cfg)
+                x = x + mamba2.mamba2_mixer(self._norm(x, p), p, self.cfg,
+                                            self.constrain_mid)
             x, a = self._ffn(x, p, i)
             aux = aux + a
         return x, aux
@@ -465,14 +536,15 @@ class LM(nn.Module):
         encoder-decoder encodes ``enc_frames`` once and each decoder
         sublayer runs self-attention, cross-attention over the encoder's
         output, then its FFN."""
-        x = self._embed(tokens, patch_embeds)
+        x = self._constrain(self._embed(tokens, patch_embeds),
+                            ("data", None, None))
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         enc_out = self.encode(enc_frames) if self.cfg.enc_layers else None
         period = self._remat(self._period)
         for block in self.layers:
             x, aux = period(block, x, aux, positions, enc_out)
-        return self._head(x), aux
+        return self._constrain(self._head(x), ("data", None, "model")), aux
 
     def loss(self, batch: dict) -> tuple[torch.Tensor, dict]:
         """batch: ``tokens`` (B, S), ``labels`` (B, S) (-100 is masked),
@@ -486,13 +558,24 @@ class LM(nn.Module):
                                    enc_frames=batch.get("enc_frames"))
         labels = batch["labels"].long()
         mask = labels >= 0
-        lse = torch.logsumexp(logits.float(), dim=-1)
-        gold = torch.gather(logits, -1, labels.clamp_min(0)[..., None])[..., 0]
-        nll = lse - gold.float()
+        nll = self._nll(logits, labels.clamp_min(0))
         denom = mask.sum().clamp_min(1)
         ce = torch.where(mask, nll, 0.0).sum() / denom
         total = ce + 0.01 * aux
         return total, {"ce": ce, "aux": aux, "tokens": denom.float()}
+
+    def _store(self, cache, slot, new):
+        """A decode step's K or V, new (B, Hkv, D), written into its cache
+        (B, Hkv, S, D) at position ``slot``, in place."""
+        cache[:, :, slot] = new
+
+    def _nll(self, logits, labels):
+        """Each position's negative log-likelihood, float32: the
+        log-sum-exp of float32 logits less the gold logit gathered in the
+        logits' dtype. ``labels`` are in [0, V)."""
+        lse = torch.logsumexp(logits.float(), dim=-1)
+        gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+        return lse - gold.float()
 
     def encode(self, frames: torch.Tensor) -> torch.Tensor:
         """Whisper's encoder: frames (B, S, d) in the model's dtype ->
@@ -566,11 +649,12 @@ class LM(nn.Module):
         c = self.cfg
         B = tokens.shape[0]
         pos = int(cache["len"])
-        x = self.top["embed"][tokens.long()]
+        x = self._embed(tokens)
         positions = torch.full((B, 1), pos, dtype=torch.int32,
                                device=x.device)
         blocks = cache["blocks"]
         for n, i, kind, p in self.sublayers():
+            p = self._gather_weights(p)
             pc = blocks[f"{i}:{kind}"]
             h = self._norm(x, p)
             if kind == "attn":
@@ -580,8 +664,8 @@ class LM(nn.Module):
                 s_kv = kc.shape[2]
                 rotated = c.attn_window is not None and s_kv == c.attn_window
                 slot = pos % s_kv if rotated else min(pos, s_kv - 1)
-                kc[:, :, slot] = k[:, 0]
-                vc[:, :, slot] = v[:, 0]
+                self._store(kc, slot, k[:, 0])
+                self._store(vc, slot, v[:, 0])
                 out = L.decode_attention(q.movedim(1, 2), kc, vc,
                                          cache_len=min(pos + 1, s_kv),
                                          window=c.attn_window,

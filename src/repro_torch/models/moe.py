@@ -66,18 +66,33 @@ def _probs(x: torch.Tensor, router: torch.Tensor) -> torch.Tensor:
     return torch.softmax(x.float() @ router.float(), dim=-1)     # (B, S, E)
 
 
+def balance(probs: torch.Tensor, top_i: torch.Tensor,
+            n_experts: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The Switch load-balance loss's two means over the tokens of probs
+    (B, S, E): each expert's mean router probability and its share of the
+    first choices, (E,) each."""
+    me = probs.mean(dim=(0, 1))
+    ce = F.one_hot(top_i[..., 0], n_experts).float().mean(dim=(0, 1))
+    return me, ce
+
+
+def balance_loss(me: torch.Tensor, ce: torch.Tensor) -> torch.Tensor:
+    """The load-balance loss from ``balance``'s means: E * sum(me * ce)."""
+    return me.shape[0] * torch.sum(me * ce)
+
+
 def route(x: torch.Tensor, router: torch.Tensor, *, n_experts: int,
-          top_k: int, capacity_factor: float = 1.0) -> Routing:
-    """``moe_ffn``'s routing and dispatch coordinates on x (B, S, d)."""
+          top_k: int, capacity_factor: float = 1.0,
+          constrain: Constrain | None = None) -> Routing:
+    """``moe_ffn``'s routing and dispatch coordinates on x (B, S, d);
+    ``constrain`` takes the one-hot in JAX's (B, S*k, E) layout."""
     B, S, _ = x.shape
     E, k = n_experts, top_k
     C = capacity(S, k, E, capacity_factor)
     probs = _probs(x, router)
     top_w, top_i = topk(probs, k)
     top_w = top_w / top_w.sum(dim=-1, keepdim=True)
-    me = probs.mean(dim=(0, 1))                                  # (E,)
-    ce = F.one_hot(top_i[..., 0], E).float().mean(dim=(0, 1))
-    aux = E * torch.sum(me * ce)
+    aux = balance_loss(*balance(probs, top_i, E))
     flat_e = top_i.reshape(B, S * k)
     # JAX's sum((cumsum(onehot) - 1) * onehot, -1), as (cumsum - 1) read at
     # each assignment's own expert; the one-hot is laid out (B, E, S*k) so
@@ -85,6 +100,9 @@ def route(x: torch.Tensor, router: torch.Tensor, *, n_experts: int,
     # one took 12.9 ms a Qwen3-MoE layer on an H100)
     experts = torch.arange(E, device=x.device)[None, :, None]
     onehot = (flat_e[:, None, :] == experts).to(torch.int32)    # (B, E, S*k)
+    if constrain is not None:
+        onehot = constrain(onehot.transpose(1, 2),
+                           ("data", None, "model")).transpose(1, 2)
     counts = onehot.cumsum(dim=2, dtype=torch.int32)
     pos = counts.gather(1, flat_e[:, None, :])[:, 0] - 1
     return Routing(top_w, top_i, pos, pos < C, aux, C)
@@ -95,31 +113,52 @@ def moe_ffn(x: torch.Tensor, p, *, n_experts: int, top_k: int,
             buf_mode: str = "e_sharded"
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, d); p: router (d, E), w_gate/w_up (E, d, f), w_down (E, f, d)
-    -> (out (B, S, d), aux float32 scalar). ``constrain`` and ``buf_mode``
-    steer only JAX's sharding; they change no result and are accepted for
-    the signature's sake."""
-    del constrain, buf_mode
+    -> (out (B, S, d), aux float32 scalar). ``constrain`` is JAX's
+    callback, handed the one-hot, the buffer (twice: fresh, then filled)
+    and the experts' activations h and y at JAX's points and in JAX's
+    layouts, (B, S*k, E) and (B, E, C, .), each a view of the port's own
+    E-major layout (the transposes there and back copy nothing);
+    ``buf_mode`` picks the buffer's logical axes, JAX's ("data", None,
+    None, None) under "local", ("data", "model", None, None) otherwise.
+    Neither changes a result. The calls keep JAX's sequence of constraints,
+    but no constraint here ever acts: on one card the tensors are plain,
+    and the dry-run runs this function inside its ``moe_ffn`` region on
+    each rank's plain shards (``launch/dryrun.py``), whose placements
+    stand in for these constraints; so ``buf_mode`` has no effect there
+    either (``dryrun.no_effect``)."""
+    constrain = constrain or (lambda t, axes: t)
     B, S, d = x.shape
     E, k = n_experts, top_k
     r = route(x, p["router"], n_experts=E, top_k=k,
-              capacity_factor=capacity_factor)
+              capacity_factor=capacity_factor, constrain=constrain)
     C = r.capacity
     flat_e = r.top_i.reshape(B, S * k)
     pos_c = r.pos.clamp(max=C - 1)
+
+    def jax_layout(t, axes):
+        """``constrain`` on the (E, B*C, .) tensor t seen as JAX's
+        (B, E, C, .), returned in t's layout."""
+        v = t.view(E, B, C, t.shape[-1]).transpose(0, 1)
+        return constrain(v, axes).transpose(0, 1).reshape(t.shape)
 
     # ---- dispatch: scatter-add the kept assignments into (E, B, C, d)
     xk = x.repeat_interleave(k, dim=1)                           # (B, S*k, d)
     vals = xk.masked_fill_(~r.keep[..., None], 0)
     b_idx = torch.arange(B, device=x.device)[:, None]
     slot = (flat_e * B + b_idx) * C + pos_c                      # (B, S*k)
-    buf = torch.zeros((E * B * C, d), dtype=x.dtype, device=x.device)
-    buf.index_add_(0, slot.reshape(-1), vals.reshape(-1, d))
+    buf_axes = ("data", None, None, None) if buf_mode == "local" \
+        else ("data", "model", None, None)
+    buf = jax_layout(x.new_zeros((E, B * C, d)), buf_axes)
+    buf = buf.view(E * B * C, d).index_add_(0, slot.reshape(-1),
+                                            vals.reshape(-1, d))
+    buf = jax_layout(buf.view(E, B * C, d), buf_axes)
 
     # ---- experts (SwiGLU), one batched product over E
-    buf = buf.view(E, B * C, d)
+    act = ("data", "model", None, None)
     h = torch.matmul(buf, p["w_gate"])
     u = torch.matmul(buf, p["w_up"])
-    y = torch.matmul(F.silu(h) * u, p["w_down"])                 # (E, B*C, d)
+    h = jax_layout(F.silu(h) * u, act)
+    y = jax_layout(torch.matmul(h, p["w_down"]), act)            # (E, B*C, d)
 
     # ---- combine
     out_k = y.view(E * B * C, d)[slot.reshape(-1)].view(B, S * k, d)
@@ -239,27 +278,66 @@ def moe_ffn_shard_map(x: torch.Tensor, p, *, n_experts: int, top_k: int,
         raise ValueError(f"{E} experts do not divide over a {model_axis} "
                          f"dim of {msize}")
     E_loc = E // msize
+    lo = mesh.get_local_rank(model_axis) * E_loc
+    return shard_map_body(x, p["router"],
+                          *(p[name][lo:lo + E_loc]
+                            for name in ("w_gate", "w_up", "w_down")),
+                          n_experts=E, top_k=k,
+                          capacity_factor=capacity_factor, mesh=mesh,
+                          model_axis=model_axis)
+
+
+def shard_map_body(x: torch.Tensor, router: torch.Tensor, wg: torch.Tensor,
+                   wu: torch.Tensor, wd: torch.Tensor, *, n_experts: int,
+                   top_k: int, capacity_factor: float, mesh,
+                   model_axis: str = "model"
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``moe_ffn_shard_map`` on this rank's shards as its shard_map body
+    receives them: x (B_l, S, d) its rows, the whole float32 router, and
+    w_gate, w_up, w_down its E / model experts. The dry-run calls it on a
+    DTensor's local shards."""
+    names = tuple(mesh.mesh_dim_names)
+    E_loc = wg.shape[0]
     rank = mesh.get_local_rank(model_axis)
     dp = [a for a in ("pod", "data") if a in names]
     model_group = mesh.get_group(model_axis)
     dp_groups = [mesh.get_group(a) for a in dp]
-    lo = rank * E_loc
 
     x = _SumGrad.apply(x, [model_group])
-    router = _SumGrad.apply(p["router"], [mesh.get_group(a) for a in names])
-    wg, wu, wd = (_SumGrad.apply(p[name][lo:lo + E_loc], dp_groups)
-                  for name in ("w_gate", "w_up", "w_down"))
+    router = _SumGrad.apply(router, [mesh.get_group(a) for a in names])
+    wg, wu, wd = (_SumGrad.apply(w, dp_groups) for w in (wg, wu, wd))
+    out, r = local_experts(x, router, wg, wu, wd, rank * E_loc,
+                           n_experts=n_experts, top_k=top_k,
+                           capacity_factor=capacity_factor)
+    out = _AllReduce.apply(out, model_group)
+    first = all(mesh.get_local_rank(a) == 0 for a in dp)
+    aux = _FirstShard.apply(r.aux.float(), first, dp_groups, mesh.size())
+    return out, aux
 
-    r = route(x, router, n_experts=E, top_k=k,
+
+def local_experts(x: torch.Tensor, router: torch.Tensor, wg: torch.Tensor,
+                  wu: torch.Tensor, wd: torch.Tensor, lo: int, *,
+                  n_experts: int, top_k: int, capacity_factor: float
+                  ) -> tuple[torch.Tensor, Routing]:
+    """Experts ``lo`` .. ``lo + E_loc`` of all E on x (B, S, d), E_loc =
+    ``wg.shape[0]``: ``route``'s routing over all E with the whole
+    router, then the dispatch scatter, the experts and the combine gather,
+    local and masked to these experts (foreign assignments land on local
+    expert 0 and add exact zeros) -> (this part of the output, the
+    routing). The parts summed over a partition of the experts are
+    ``moe_ffn``'s output."""
+    B, S, d = x.shape
+    k, E_loc = top_k, wg.shape[0]
+    r = route(x, router, n_experts=n_experts, top_k=k,
               capacity_factor=capacity_factor)
     C = r.capacity
     flat_e = r.top_i.reshape(B, S * k)
-    mine = (flat_e // E_loc) == rank
+    mine = (flat_e >= lo) & (flat_e < lo + E_loc)
     e_loc = torch.where(mine, flat_e - lo, 0)
     use = r.keep & mine
     pos_c = r.pos.clamp(max=C - 1)
 
-    # ---- dispatch: scatter-add this rank's kept assignments, (E_loc, B, C, d)
+    # ---- dispatch: scatter-add these kept assignments, (E_loc, B, C, d)
     xk = x.repeat_interleave(k, dim=1)                           # (B, S*k, d)
     vals = xk.masked_fill_(~use[..., None], 0)
     b_idx = torch.arange(B, device=x.device)[:, None]
@@ -267,21 +345,17 @@ def moe_ffn_shard_map(x: torch.Tensor, p, *, n_experts: int, top_k: int,
     buf = torch.zeros((E_loc * B * C, d), dtype=x.dtype, device=x.device)
     buf.index_add_(0, slot.reshape(-1), vals.reshape(-1, d))
 
-    # ---- this rank's experts (SwiGLU), one batched product over E_loc
+    # ---- these experts (SwiGLU), one batched product over E_loc
     buf = buf.view(E_loc, B * C, d)
     h = torch.matmul(buf, wg)
     u = torch.matmul(buf, wu)
     y = torch.matmul(F.silu(h) * u, wd)                          # (E_loc, B*C, d)
 
-    # ---- combine, local, then the one all-reduce over "model"
+    # ---- combine, local
     out_k = y.view(E_loc * B * C, d)[slot.reshape(-1)].view(B, S * k, d)
     out_k = out_k.masked_fill_(~use[..., None], 0)
     out_k = out_k * r.top_w.reshape(B, S * k)[..., None].to(x.dtype)
-    out = out_k.view(B, S, k, d).sum(dim=2)
-    out = _AllReduce.apply(out, model_group)
-    first = all(mesh.get_local_rank(a) == 0 for a in dp)
-    aux = _FirstShard.apply(r.aux.float(), first, dp_groups, mesh.size())
-    return out, aux
+    return out_k.view(B, S, k, d).sum(dim=2), r
 
 
 def moe_ffn_dense_oracle(x: torch.Tensor, p, *, n_experts: int,

@@ -8,8 +8,10 @@ optimiser receives. It works on JAX's leaves (``models.convert.
 leaf_groups``), one at a time, and updates each where it lies (the
 model's stacked leaves hold its per-period parameters): an elementwise
 optimiser (AdamW, SGD) a period at a time on slices of the leaf and of
-its state; Adafactor, whose factoring and clip read the whole leaf, and
-compression, whose scale does, on the period gradients stacked into the
+its state; Adafactor, whose factoring and clip read the whole leaf,
+compression, whose scale does, and a leaf whose periods are copies rather
+than views of it (``LeafGroup.views``: a ``DTensor`` stacked over a period
+dim sharded over the data axes), on the period gradients stacked into the
 leaf's shape. The optimiser state and the residual keep
 JAX's tree layout, keyed by the leaves' ``"/"``-joined paths, so a
 checkpoint of ``{"params": lm_to_jax(lm), "opt": opt_state}`` is JAX's
@@ -98,7 +100,8 @@ def make_train_step(lm: LM, optimizer: O.Optimizer, *, grad_accum: int = 1,
                 gs, flat[at:at + n] = flat[at:at + n], [None] * n
                 at += n
                 state = {s: inner[s][grp.path] for s in slots}
-                if optimizer.elementwise and not compress_grads:
+                if optimizer.elementwise and not compress_grads and \
+                        grp.views:
                     # a period at a time, on slices of the leaf and state
                     for i, (g, p) in enumerate(zip(gs, grp.tensors)):
                         sq = sq + torch.sum(torch.square(g.to(torch.float32)))

@@ -1,0 +1,152 @@
+"""The port's dry-run on the fake process group, one process:
+
+    python tests/_torch_dryrun_fake.py OUT_DIR jax|gloo
+
+Every cell runs ``launch.dryrun.run_cell`` on ``"cpu"`` fake tensors, each
+creating and destroying its own fake group. It prints one JSON object, of
+the cells held to JAX's (``jax``: ``arguments``, ``shmap``, ``constrain``)
+or to real gloo runs (``gloo``):
+
+  * ``arguments``: per-rank ``argument_size_in_bytes`` of the reduced
+    Yi-6B's train cell (8 x 32 tokens) and its decode cells (8 rows, a
+    cache of 64; ``baseline`` and ``kv_seqshard``) on (pod 2, data 2,
+    model 2), bf16 as JAX's dry-run; the train cell's record written to
+    OUT_DIR;
+  * ``shmap``: the reduced Qwen3-MoE's bf16 prefill (8 x 32) on that mesh
+    under ``moe_shmap``: each c10d all-reduce's bytes, the MoE sublayers
+    and the bytes one a sublayer should be;
+  * ``gloo``: each cell ``_torch_dryrun_gloo.py`` runs for real (its
+    ``CELLS``: reduced configs in float32 on (data 2, model 2)), here on
+    the fake group: CommDebugMode's count, the recorder's bytes by op and
+    the regions taken;
+  * ``constrain``: ``make_constrainer`` on DTensors of that mesh, the
+    placements it gave and those of ``to_placements(spec(...))``;
+  * ``recorder``: whether the recorder's count equals CommDebugMode's in
+    every cell.
+"""
+
+import json
+import os
+import sys
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.configs.registry import get_config, reduced
+from repro_torch.configs.shapes import ShapeCell
+from repro_torch.distributed import sharding as SH
+from repro_torch.launch import dryrun as DR
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from _torch_dryrun_gloo import CELLS  # noqa: E402
+
+TRAIN = ShapeCell("train_4k", 32, 8, "train")
+DECODE = ShapeCell("decode_32k", 64, 8, "decode")
+PREFILL = ShapeCell("prefill_32k", 32, 8, "prefill")
+MESH3 = (2, 2)                      # with multi_pod: (pod 2, data 2, model 2)
+
+
+def cell(arch, shape, cell, *, multi_pod=True, mesh=MESH3, variant="baseline",
+         dtype=torch.bfloat16, out_dir=None):
+    """``run_step``'s reading of a cell, with the record when ``out_dir``."""
+    rec, runs = None, []
+    real = DR.run_step
+
+    def keep(c):
+        r = real(c)
+        runs.append(r)
+        return r
+    DR.run_step = keep
+    try:
+        rec = DR.run_cell(arch, shape, multi_pod, out_dir or "", variant,
+                          cfg=reduced(get_config(arch)), cell=cell,
+                          device_type="cpu", mesh_shape=mesh, dtype=dtype,
+                          write=out_dir is not None)
+    finally:
+        DR.run_step = real
+    return rec, runs[0]
+
+
+def constrain_checks() -> list:
+    from torch.distributed.tensor import distribute_tensor, Replicate
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    from repro_torch.launch.mesh import make_test_mesh
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=4)
+    try:
+        mesh = make_test_mesh((2, 2), ("data", "model"), device_type="cpu")
+        con = SH.make_constrainer(mesh)
+        out = []
+        for shape, axes in (((4, 8, 16), ("data", None, None)),
+                            ((4, 8, 4, 16), ("data", None, "model", None)),
+                            ((4, 8, 3, 16), ("data", None, "model", None)),
+                            ((4, 8, 32), ("data", None, "model"))):
+            x = distribute_tensor(torch.zeros(shape), mesh,
+                                  [Replicate(), Replicate()])
+            got = con(x, axes)
+            want = SH.to_placements(mesh, SH.spec(mesh, shape, axes))
+            out.append([[str(p) for p in got.placements],
+                        [str(p) for p in want],
+                        list(got.to_local().shape), con.mesh is mesh])
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+def agree(run) -> bool:
+    return {k: v[0] for k, v in run.comms.items()} == run.comm_counts
+
+
+def main() -> None:
+    out_dir, part = sys.argv[1], sys.argv[2]
+    res = {"recorder": {}}
+    if part == "gloo":
+        gloo_cells(res)
+    else:
+        jax_cells(res, out_dir)
+    print("RESULT " + json.dumps(res, default=float))
+
+
+def jax_cells(res, out_dir) -> None:
+    res["arguments"] = {}
+    rec, run = cell("yi-6b", "train_4k", TRAIN, out_dir=out_dir)
+    res["arguments"]["train"] = rec["memory_analysis"][
+        "argument_size_in_bytes"]
+    res["train_record"] = rec
+    res["recorder"]["train"] = agree(run)
+    for name, variant in (("decode", "baseline"),
+                          ("decode_seqshard", "kv_seqshard")):
+        rec, run = cell("yi-6b", "decode_32k", DECODE, variant=variant)
+        res["arguments"][name] = rec["memory_analysis"][
+            "argument_size_in_bytes"]
+        res["recorder"][name] = agree(run)
+    cfg = reduced(get_config("qwen3-moe-235b-a22b"))
+    rec, run = cell("qwen3-moe-235b-a22b", "prefill_32k", PREFILL,
+                    variant="moe_shmap")
+    B_l = PREFILL.global_batch // 4            # rows over (pod, data)
+    res["shmap"] = {
+        "allreduce": [n for name, n in run.calls
+                      if name == "c10d.allreduce_"],
+        "sublayers": cfg.n_layers, "want": B_l * PREFILL.seq_len *
+        cfg.d_model * 2, "regions": rec["local_regions"],
+        "status": rec["status"]}
+    res["recorder"]["shmap"] = agree(run)
+    res["constrain"] = constrain_checks()
+
+
+def gloo_cells(res) -> None:
+    res["gloo"] = {}
+    names = {"train": "train_4k", "prefill": "prefill_32k",
+             "decode": "decode_32k"}
+    for name, arch, kind, variant, (B, S) in CELLS:
+        rec, run = cell(arch, names[kind], ShapeCell(kind, S, B, kind),
+                        multi_pod=False, variant=variant, dtype=torch.float32)
+        res["gloo"][name] = {
+            "counts": run.comm_counts, "comms": run.comms,
+            "regions": sorted(k for k, v in DR.REGIONS.items()
+                              if v in run.local_regions)}
+        res["recorder"][name] = agree(run)
+    res["prefill"] = res["gloo"]["prefill"]
+
+
+if __name__ == "__main__":
+    main()

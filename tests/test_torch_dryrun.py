@@ -1,0 +1,336 @@
+"""The port's dry-run (``launch/specs.py``, ``launch/dryrun.py``) and the
+sharding constraints it runs on, held to JAX's.
+
+Process groups are global and xdist shares workers, so none is made here:
+JAX's side runs on 8 placeholder devices in ``_torch_dryrun_jax.py`` (JAX's
+``dryrun.py`` is never imported: it forces 512 devices), the port's fake
+cells in two ``_torch_dryrun_fake.py`` processes and the same sharded steps
+run for real on four gloo ranks in ``_torch_dryrun_gloo.py``, all started
+at once under one limit.
+"""
+
+import ast
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
+
+from repro_torch.configs import shapes as shp
+from repro_torch.configs.registry import ALIASES, get_config, reduced
+from repro_torch.distributed import sharding as SH
+from repro_torch.kernels.flash_attention import ops as fa
+from repro_torch.launch import dryrun as DR
+from repro_torch.launch import specs as SP
+from repro_torch.models.model import LM
+
+from _torch_dryrun_gloo import CELLS as GLOO_CELLS
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+ROOT = os.path.dirname(HERE)
+SRC = os.path.join(ROOT, "src")
+JAX_DRYRUN = os.path.join(SRC, "repro", "launch", "dryrun.py")
+LIMIT_S = 120
+#: JAX's families and knobs of ``_torch_dryrun_jax.py``'s constraint run
+FAMILIES = ("yi-6b", "qwen3-moe-235b-a22b", "mamba2-780m",
+            "jamba-1.5-large-398b", "whisper-tiny", "internvl2-26b",
+            "qwen2.5-32b")
+KNOBS = {"on": {}, "off": {"activation_constraints": False},
+         "wgather": {"fsdp_weight_gather": True}}
+#: the reduced Yi-6B's float32 logits, sharded on four gloo ranks, against
+#: its unsharded forward; and every other output of the sharded steps of
+#: ``_torch_dryrun_gloo.py`` (logits, aux, loss, gradient norm, parameters,
+#: optimiser state, cache) against the unsharded port's
+GLOO_TOL = 1e-5
+
+
+def _env():
+    env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu",
+               OMP_NUM_THREADS="1")
+    return env
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """JAX's helper, the fake cells and the four gloo ranks, at once."""
+    tmp = tmp_path_factory.mktemp("dryrun")
+    rdv, out = tmp / "gloo", tmp / "records"
+    rdv.mkdir()
+    out.mkdir()
+    procs = {
+        "jax": subprocess.Popen([sys.executable,
+                                 os.path.join(HERE, "_torch_dryrun_jax.py")],
+                                env=_env(), stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True),
+        **{f"fake_{part}": subprocess.Popen(
+            [sys.executable, os.path.join(HERE, "_torch_dryrun_fake.py"),
+             str(out), part], env=_env(), stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True) for part in ("jax", "gloo")}}
+    for r in range(4):
+        procs[f"gloo{r}"] = subprocess.Popen(
+            [sys.executable, os.path.join(HERE, "_torch_dryrun_gloo.py"),
+             str(rdv), str(r), "4"], env=_env(), stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+    texts = {}
+    try:
+        for name, proc in procs.items():
+            stdout, stderr = proc.communicate(timeout=LIMIT_S)
+            assert proc.returncode == 0, f"{name}: {stderr[-3000:]}"
+            texts[name] = stdout
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    fake = {"recorder": {}}
+    for part in ("jax", "gloo"):
+        got = json.loads(texts[f"fake_{part}"].split("RESULT ", 1)[1])
+        fake["recorder"].update(got.pop("recorder"))
+        fake.update(got)
+    gloo = [json.loads((rdv / f"rank{r}.json").read_text())
+            for r in range(4)]
+    return {"jax": json.loads(texts["jax"]), "fake": fake,
+            "gloo": gloo, "records": out}
+
+
+def _flat(tree, path=()):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat(v, path + (k,)))
+        return out
+    return {"/".join(path): [list(tree.shape),
+                             str(tree.dtype).replace("torch.", "")]}
+
+
+@pytest.mark.parametrize("arch", list(ALIASES))
+def test_specs_equal_jax_leaf_for_leaf(runs, arch):
+    cfg = get_config(arch)
+    lm = LM(cfg, dtype=torch.bfloat16, device="meta")
+    for shape in shp.SHAPES:
+        want = runs["jax"]["specs"][f"{arch}/{shape}"]
+        got = {"train": _flat(SP.train_batch_specs(cfg, shape)),
+               "prefill": _flat(SP.prefill_specs(cfg, shape)),
+               "decode": _flat(SP.decode_specs(cfg, shape, lm))}
+        assert got == want, (arch, shape)
+
+
+def test_variants_equal_jax():
+    tree = ast.parse(open(JAX_DRYRUN).read())
+    node = next(n for n in tree.body if isinstance(n, ast.Assign)
+                and getattr(n.targets[0], "id", None) == "VARIANTS")
+    assert DR.VARIANTS == ast.literal_eval(node.value)
+
+
+def _port_calls(arch, change):
+    cfg = reduced(get_config(arch))
+    cfg = dataclasses.replace(cfg, n_layers=len(cfg.period),
+                              enc_layers=min(cfg.enc_layers, 1), **change)
+    calls = []
+
+    def record(x, axes):
+        calls.append([list(x.shape), json.loads(json.dumps(axes))])
+        return x
+    lm = LM(cfg, dtype=torch.float32, device="cpu", constrain=record)
+    lm.init_params(torch.Generator().manual_seed(0))
+    kw = {}
+    if cfg.enc_layers:
+        kw["enc_frames"] = torch.zeros(2, cfg.cross_len, cfg.d_model)
+    if cfg.family == "vlm":
+        kw["patch_embeds"] = torch.zeros(2, cfg.n_patches, cfg.d_model)
+    S = cfg.dec_max_len if cfg.enc_layers else 32
+    with torch.no_grad():
+        lm.forward(torch.zeros(2, S, dtype=torch.int32), **kw)
+    return calls
+
+
+@pytest.mark.parametrize("knob", list(KNOBS))
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_constraint_sequence_equals_jax(runs, arch, knob):
+    want = runs["jax"]["constraints"][f"{arch}/{knob}"]
+    got = _port_calls(arch, KNOBS[knob])
+    assert got == want
+    if knob == "off":
+        assert len(got) == 2             # x after the embedding, the logits
+
+
+def test_constrainer_keeps_a_plain_tensor_and_its_mesh():
+    mesh = SH.Mesh(("data", "model"), (2, 2))
+    con = SH.make_constrainer(mesh)
+    x = torch.zeros(4, 8, 16)
+    assert con(x, ("data", None, None)) is x
+    assert con.mesh is mesh
+
+
+def test_constrainer_redistributes_a_dtensor_to_the_spec(runs):
+    for got, want, local, mesh_kept in runs["fake"]["constrain"]:
+        assert got == want and mesh_kept
+    assert [c[2] for c in runs["fake"]["constrain"]] == [
+        [2, 8, 16], [2, 8, 2, 16], [2, 8, 3, 16], [2, 8, 16]]
+
+
+@pytest.mark.parametrize("cell", ["train", "decode", "decode_seqshard"])
+def test_argument_bytes_equal_jax_memory_analysis(runs, cell):
+    assert runs["fake"]["arguments"][cell] == runs["jax"]["arguments"][cell]
+
+
+def test_fake_count_equals_a_real_gloo_run(runs):
+    fake = runs["fake"]["prefill"]
+    for rank in runs["gloo"]:
+        r = rank["prefill"]
+        assert r["counts"] == fake["counts"], rank["rank"]
+        assert r["comms"] == fake["comms"], rank["rank"]
+        assert r["shape"] == [4, 32, 256]
+        assert r["logits"] <= GLOO_TOL, r
+    assert sum(fake["counts"].values()) > 0
+
+
+@pytest.mark.parametrize("cell", [c[0] for c in GLOO_CELLS])
+def test_fake_count_equals_a_real_gloo_run_in_each_region(runs, cell):
+    fake = runs["fake"]["gloo"][cell]
+    for r in runs["gloo"]:
+        got = r[cell]
+        assert got["counts"] == fake["counts"], (cell, r["rank"])
+        assert got["comms"] == fake["comms"], (cell, r["rank"])
+        assert got["regions"] == fake["regions"], (cell, r["rank"])
+    assert sum(fake["counts"].values()) > 0
+
+
+@pytest.mark.parametrize("cell", [c[0] for c in GLOO_CELLS])
+def test_sharded_step_equals_the_unsharded_port(runs, cell):
+    kind = {c[0]: c[2] for c in GLOO_CELLS}[cell]
+    for r in runs["gloo"]:
+        got = r[cell]
+        if kind == "train":
+            assert got["step"], (cell, r["rank"])
+            for key in ("loss", "grad_norm", "params"):
+                assert got[key] <= GLOO_TOL, (cell, key, got)
+            assert max(got["state"].values()) <= GLOO_TOL, (cell, got)
+            # the update moved the parameters, and the state is not zero
+            assert got["moved"] > 10 * GLOO_TOL and got["state_max"] > 0
+        else:
+            assert got["logits"] <= GLOO_TOL, (cell, got)
+            assert got.get("cache", 0) <= GLOO_TOL, (cell, got)
+        if kind == "prefill" and cell != "moe_shmap":
+            # (JAX's shard_map returns data rank 0's aux: ROADMAP §3)
+            assert got["aux"] <= GLOO_TOL, (cell, got)
+
+
+def test_gloo_runs_take_every_region_and_copied_leaves(runs):
+    taken = {reg for r in runs["gloo"] for c in GLOO_CELLS
+             for reg in r[c[0]]["regions"]}
+    assert taken == set(DR.REGIONS)
+    train = runs["gloo"][0]["train"]      # stack_fsdp: every stacked leaf
+    lm = LM(reduced(get_config("yi-6b")), device="meta")
+    assert sorted(train["copies"]) == sorted(lm.stacked)
+    assert runs["gloo"][0]["moe"]["aux_abs"] > 0
+
+
+def test_recorder_count_equals_comm_debug_mode(runs):
+    assert all(runs["fake"]["recorder"].values()), runs["fake"]["recorder"]
+
+
+def test_moe_shmap_one_all_reduce_of_local_rows_per_sublayer(runs):
+    sm = runs["fake"]["shmap"]
+    assert sm["status"] == "ok"
+    assert sum(n == sm["want"] for n in sm["allreduce"]) == sm["sublayers"]
+    assert all(n in (sm["want"], 4) for n in sm["allreduce"])  # + aux
+    assert any("moe_ffn_shard_map" in r for r in sm["regions"])
+
+
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+def test_attention_fake_path_allocates_the_kernels_tensors(device):
+    B, Hq, Hkv, S, D = 2, 8, 2, 1024, 64
+    rec = DR.Recorder()
+    with FakeTensorMode(allow_non_fake_inputs=True) as mode:
+        q = torch.empty(B, Hq, S, D, dtype=torch.bfloat16, device=device)
+        k = torch.empty(B, Hkv, S, D, dtype=torch.bfloat16, device=device)
+        v = torch.empty_like(k)
+        before = dict(fa.LAUNCHES)
+        with rec.mode:
+            out, lse = fa.flash_attention(q, k, v, return_lse=True)
+            dq, dk, dv = fa.flash_attention_bwd(q, k, v, out, lse, out)
+    assert mode is not None and fa.LAUNCHES == before
+    assert (out.shape, out.dtype) == (q.shape, q.dtype)
+    assert (lse.shape, lse.dtype) == ((B, Hq, S), torch.float32)
+    assert [t.shape for t in (dq, dk, dv)] == [q.shape, k.shape, v.shape]
+    # the output, the statistic, dq, dk, dv and the backward's float32
+    # scratch, all live at once at the peak; nothing of (Sq x Skv)
+    bf16, f32 = 2, 4
+    assert rec.peak == (2 * B * Hq * S * D + 2 * B * Hkv * S * D) * bf16 \
+        + 2 * B * Hq * S * f32
+    assert rec.peak < B * Hq * S * S * f32
+
+
+def test_run_cell_writes_jax_keys_and_stems(runs):
+    rec = runs["fake"]["train_record"]
+    jax_keys = {"arch", "shape", "mesh", "variant", "status", "chips",
+                "lower_s", "compile_s", "flops_per_chip", "bytes_per_chip",
+                "raw_hlo_flops", "raw_hlo_bytes", "coll_bytes",
+                "coll_by_kind", "model_flops", "compute_s", "memory_s",
+                "collective_s", "bottleneck", "useful_ratio", "step_s",
+                "mfu", "memory_analysis"}
+    assert jax_keys <= set(rec)
+    assert set(rec["memory_analysis"]) == {
+        "argument_size_in_bytes", "output_size_in_bytes",
+        "temp_size_in_bytes", "generated_code_size_in_bytes"}
+    assert rec["collectives_from"] == "CommDebugMode"
+    assert rec["status"] == "ok" and rec["fits"] is True
+    stem = "yi-6b__train_4k__multi.json"
+    assert sorted(os.listdir(runs["records"])) == ["comms", stem]
+    assert os.listdir(runs["records"] / "comms") == [stem]
+    saved = json.loads((runs["records"] / stem).read_text())
+    assert saved["memory_analysis"] == rec["memory_analysis"]
+
+
+@pytest.mark.parametrize("arch", [a for a in ALIASES
+                                  if not get_config(a).subquadratic])
+def test_long_500k_skipped_with_jax_reason(arch, tmp_path):
+    from repro.configs import shapes as jax_shapes
+    rec = DR.run_cell(arch, "long_500k", False, str(tmp_path),
+                      device_type="cpu")
+    ok, why = jax_shapes.applicable(get_config(arch), "long_500k")
+    assert not ok
+    assert rec == {"arch": arch, "shape": "long_500k", "mesh": "single",
+                   "variant": "baseline", "status": "skipped",
+                   "reason": why}
+    name = f"{arch.replace('.', '_')}__long_500k__single.json"
+    assert json.loads((tmp_path / name).read_text()) == rec
+
+
+@pytest.mark.parametrize("variant", list(DR.VARIANTS))
+def test_fields_the_port_lacks_are_in_no_effect(variant):
+    change = DR.VARIANTS[variant].get("cfg", {})
+    cfg = dataclasses.replace(get_config("qwen3-moe-235b-a22b"), **change)
+    notes = DR.no_effect(cfg)
+    if change.get("attn_gqa_mode") == "repeat":
+        assert any(n.startswith("attn_gqa_mode=repeat") for n in notes)
+    mode = change.get("moe_buf_mode", "e_sharded")
+    assert any(n.startswith(f"moe_buf_mode={mode}") for n in notes) == \
+        (mode != "shard_map")
+    dense = dataclasses.replace(get_config("yi-6b"), **change)
+    assert not any(n.startswith("moe_buf_mode") for n in DR.no_effect(dense))
+
+
+def test_dryrun_modules_import_neither_jax_nor_repro():
+    for name in ("specs.py", "dryrun.py"):
+        path = os.path.join(SRC, "repro_torch", "launch", name)
+        tree = ast.parse(open(path).read())
+        mods = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+                for a in n.names] + [
+            n.module for n in ast.walk(tree)
+            if isinstance(n, ast.ImportFrom) and n.module and not n.level]
+        assert mods and not [m for m in mods if m.split(".")[0] in
+                             ("jax", "jaxlib", "repro")], (name, mods)
+
+
+def test_dryrun_refuses_a_card_that_is_not_there(monkeypatch):
+    import torch.distributed as dist
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        DR.run_cell("yi-6b", "train_4k", False, write=False)
+    assert not dist.is_initialized()

@@ -209,6 +209,9 @@ def test_ports_server_feeds_jax_fetcher(mnist):
         assert jtp.fetch_bytes(server.host, server.port) == blob
         jprog = jtp.fetch_program(server.host, server.port, jart,
                                   cache=False)
+        # a serve counts after its last byte is sent, on its own thread,
+        # which may not have run yet when the fetcher has every byte
+        server.await_serves(2, timeout_s=10.0)
     finally:
         server.stop()
     assert jprog.fingerprint == prog.fingerprint
