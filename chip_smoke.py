@@ -400,8 +400,10 @@ Phases (any failure exits non-zero; nothing is caught):
                the same collectives, op for op and byte for byte, as each
                gloo rank of phase 6e counted under CommDebugMode. (c)
                DRYRUN_CELLS at full width on the production meshes, each
-               ok, with its roofline row, fits, local_regions, no_effect and
-               build and run seconds. No kernel launches; the phase within
+               ok, with its roofline row, fits, collective bytes by kind
+               and wire bytes a rank, local_regions, no_effect and build
+               and run seconds (Mamba2-780M's train cell among them: the
+               tied embedding's two gradients). No kernel launches; the phase within
                DRYRUN_PHASE_S;
   7. times   — per kernel at the serving shape: its device time alone (CUDA
                events around 20 back-to-back launches queued behind a spin
@@ -726,7 +728,8 @@ DIST_LM_LAYERS, DIST_SPAWN_S = 2, 300
 #: phase 6f, the dry-run: the full-width cells on the production meshes
 #: (arch, shape, multi-pod, variant), and the phase's time limit
 DRYRUN_CELLS = (("qwen3-8b", "train_4k", False, "baseline"),
-                ("qwen3-moe-235b-a22b", "prefill_32k", True, "moe_shmap"))
+                ("qwen3-moe-235b-a22b", "prefill_32k", True, "moe_shmap"),
+                ("mamba2-780m", "train_4k", False, "baseline"))
 DRYRUN_PHASE_S = 180
 #: a measured prefill wall below this share of its roofline's step_s fails
 #: the record or the count (the roofline is the least time the work takes)
@@ -4763,7 +4766,8 @@ def main() -> int:
                   f"{m['temp_size_in_bytes']} B: {total / 1e9:.2f} GB a "
                   f"rank, fits {rec['fits']} (H100 record "
                   f"{H100.hbm_bytes} B); collectives "
-                  f"{json.dumps(rec['coll_by_kind'])} "
+                  f"{json.dumps(rec['coll_by_kind'])}, wire "
+                  f"{rec['coll_bytes']:.0f} B a rank "
                   f"({rec['collectives_from']}: "
                   f"{json.dumps(rec['comm_counts'])}); local_regions "
                   f"{[r.split(': ')[0] for r in rec['local_regions']]}; "

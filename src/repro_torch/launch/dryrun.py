@@ -33,9 +33,13 @@ under JAX's file stems and record keys:
   * ``fits``: argument + output + temp within ``core.hw.H100.hbm_bytes``.
   * ``local_regions``: the regions DTensor cannot propagate, run on each
     rank's shards under ``local_map`` with the placements JAX's
-    constraints give them (``REGIONS``). No region is skipped and no op is
-    dropped; each computes only what needs its collectives and calls the
-    model's own functions for the rest.
+    constraints give them, and those where its propagation would issue
+    collectives JAX's program does not (a partial sum reduced by each of
+    its readers, in float32), reduced once where JAX reduces (``REGIONS``).
+    No region is skipped and no op is dropped; each computes only what
+    needs its collectives and calls the model's own functions for the
+    rest. The tests hold the collective bytes of three reduced cells to
+    JAX's HLO count (``tests/test_torch_dryrun.py``).
   * ``no_effect``: each configuration field the port lacks.
   * ``lower_s``: the time to build the fake step; ``compile_s`` the time
     to run it.
@@ -177,7 +181,9 @@ _COLLECTIVE_NS = {"_c10d_functional": "c10d_functional",
                   "_c10d_functional_autograd": "c10d_functional",
                   "_dtensor": "_dtensor"}
 
-#: the regions DTensor cannot propagate, each run under ``local_map``
+#: the regions DTensor cannot propagate, or propagates into collectives
+#: JAX's partitioned program does not issue: each run under ``local_map``
+#: or a redistribution on JAX's placements
 REGIONS = {
     "moe_ffn": "models/moe.py::moe_ffn: the dispatch scatter "
                "(aten.index_add_) has no DTensor sharding strategy; each "
@@ -192,8 +198,9 @@ REGIONS = {
     "embed": "models/model.py::LM._lookup: the backward of DTensor's "
              "vocab-sharded lookup (MaskPartial) fails on (B, S) tokens; "
              "each rank looks its rows' tokens up in its vocab shard (the "
-             "table gathered over the data axes), a Partial sum over "
-             "'model'",
+             "table gathered over the data axes, its gradient left a "
+             "partial sum, as a tied head's is), the shards' rows summed "
+             "over 'model' once, in the table's dtype",
     "decode_attention": "models/layers.py::decode_attention: DTensor cannot "
                         "propagate the GQA regrouping of q over a sharded "
                         "head or head_dim; each rank attends over its shard "
@@ -202,23 +209,20 @@ REGIONS = {
                         "scores all-reduced over a sharded head_dim, the "
                         "softmax's max and sum and the output over a "
                         "sharded sequence",
-    "period_carry": "models/model.py::LM._period: JAX's scan keeps its "
-                    "carry's sharding from period to period; a Python loop "
-                    "does not, so x is redistributed to the placements it "
-                    "entered the period with (an all-reduce of the partial "
-                    "residual over 'model' in x's dtype)",
     "gelu_mlp": "models/layers.py::gelu_mlp: DTensor (torch 2.11) cannot "
                 "add a sharded bias to the partial product its propagation "
                 "picks after a sharded layernorm; each rank runs gelu_mlp "
                 "on the Megatron split with a zero b_out, its rows with the "
                 "hidden dim on 'model' (JAX's w_in / w_out specs), the "
                 "output all-reduced over 'model', then b_out added",
-    "split_heads": "models/model.py::LM._split_heads: DTensor refuses to "
-                   "split a projection's columns sharded over a mesh dim "
-                   "that does not divide its heads (XLA reshards without a "
-                   "word); the columns are gathered whole on that dim "
-                   "first, heads replicated there as JAX's q/k spec falls "
-                   "back",
+    "split_heads": "models/model.py::LM._split_heads, _merge_heads: "
+                   "DTensor refuses to split a projection's columns "
+                   "sharded over a mesh dim that does not divide its heads "
+                   "(XLA reshards without a word); the columns are "
+                   "gathered whole on that dim first, heads replicated "
+                   "there as JAX's q/k spec falls back, and so is the "
+                   "gradient of the merged attention output before the "
+                   "merge's backward splits it",
     "loss": "models/model.py::LM._nll: the gold logit's gather on "
             "vocab-sharded logits (MaskPartial) fails as the lookup's "
             "backward does; each rank takes its rows' log-sum-exp and gold "
@@ -235,6 +239,24 @@ REGIONS = {
                           "its batch rows with the sublayer's weights and "
                           "the state gathered over 'model' (the state goes "
                           "back to the cache's heads shard)",
+    "residual": "models/model.py::LM._residual: DTensor leaves a "
+                "row-parallel product's output Partial over 'model' and "
+                "each later reader reduces its own copy (the next norm "
+                "twice, in float32); the output is reduced once, in its "
+                "own dtype, to the placements the residual entered with, "
+                "as JAX's partitioner reduces it before the residual add",
+    "norm": "models/model.py::LM._norm: the backward of DTensor's norm "
+            "on a Partial gradient (the column-parallel products' input "
+            "gradient) reduces float32 intermediates; each rank normalises "
+            "its rows, and the output's gradient is reduced once over "
+            "'model' in its own dtype before the norm's backward, as JAX "
+            "all-reduces that gradient",
+    "grads": "training/lm_step.py::_grad: DTensor leaves a parameter's "
+             "gradient Partial over the mesh dims its work was split by "
+             "and every reader reduces it anew (the gradient norm and the "
+             "optimiser's float32 casts, three times a leaf); it is "
+             "reduced once, in its own dtype, to its parameter's "
+             "placements, as JAX's gradient takes its parameter's sharding",
     "ssd_chunked": "models/mamba2.py::ssd_chunked: DTensor does not finish "
                    "propagating its 5-D batched products; each rank runs it "
                    "on its batch rows and heads (JAX's ('data', None, None, "
@@ -440,6 +462,26 @@ def _split_by(*placements):
             for ps in zip(*placements)]
 
 
+class _Gather(torch.autograd.Function):
+    """A ``DTensor`` redistributed to ``placements`` (gathered over the
+    data dims); its gradient comes back unreduced, Partial where it is
+    Partial and the input's placements elsewhere. The two uses of a tied
+    embedding (the lookup, the head) then meet as partial sums, which
+    torch 2.11 cannot add to a sharded term, and are reduced once
+    (``_grad_region``)."""
+
+    @staticmethod
+    def forward(ctx, t, placements):
+        ctx.placements = tuple(t.placements)
+        return t.redistribute(t.device_mesh, placements)
+
+    @staticmethod
+    def backward(ctx, g):
+        pl = [p if p.is_partial() else q
+              for p, q in zip(g.placements, ctx.placements)]
+        return g.redistribute(g.device_mesh, pl), None
+
+
 def _moe_region(real, used):
     def moe_ffn(x, p, *, n_experts, top_k, capacity_factor=1.0,
                 constrain=None, buf_mode="e_sharded"):
@@ -587,10 +629,11 @@ def _lookup_region(real, used):
             return x * inside[..., None].to(x.dtype)
 
         ins = (rows, table)
-        return local_map(local, out_placements=out_pl, in_placements=ins,
-                         in_grad_placements=_grads(ins, rows),
-                         device_mesh=mesh, redistribute_inputs=True)(
-            tokens, emb)
+        x = local_map(local, out_placements=out_pl, in_placements=ins,
+                      in_grad_placements=_grads(ins, rows),
+                      device_mesh=mesh, redistribute_inputs=True)(
+            tokens, _Gather.apply(emb, table))
+        return x.redistribute(mesh, rows)   # the vocab shards' rows summed
     return _lookup
 
 
@@ -644,15 +687,47 @@ def _decode_attention_region(real, used):
     return decode_attention
 
 
-def _carry_region(real, used):
-    def _period(self, block, x, aux, positions, enc_out):
-        entry = x.placements if _is_dtensor(x) else None
-        x, aux = real(self, block, x, aux, positions, enc_out)
-        if entry is not None and tuple(x.placements) != tuple(entry):
-            used.add("period_carry")
-            x = x.redistribute(x.device_mesh, entry)
-        return x, aux
-    return _period
+def _residual_region(real, used):
+    def _residual(self, x, y):
+        if _is_dtensor(y) and tuple(y.placements) != tuple(x.placements):
+            used.add("residual")
+            y = y.redistribute(y.device_mesh, x.placements)
+        return real(self, x, y)
+    return _residual
+
+
+def _norm_region(real, used):
+    def _norm(self, x, p, name="ln"):
+        if not _is_dtensor(x):
+            return real(self, x, p, name)
+        from torch.distributed.tensor import Replicate
+        from torch.distributed.tensor.experimental import local_map
+        used.add("norm")
+        mesh = x.device_mesh
+        rows = _placements(mesh, x.shape,
+                           ("data",) + (None,) * (x.dim() - 1))
+        rep = [Replicate()] * mesh.ndim
+        names = [k for k in (name, f"{name}_b") if p.get(k) is not None]
+
+        def local(x, *w):
+            return real(self, x, dict(zip(names, w)), name)
+
+        ins = (rows,) + (rep,) * len(names)
+        return local_map(local, out_placements=rows, in_placements=ins,
+                         in_grad_placements=_grads(ins, rows),
+                         device_mesh=mesh, redistribute_inputs=True)(
+            x, *(p[k] for k in names))
+    return _norm
+
+
+def _grad_region(real, used):
+    def _grad(t):
+        g = real(t)
+        if _is_dtensor(g) and tuple(g.placements) != tuple(t.placements):
+            used.add("grads")
+            g = g.redistribute(g.device_mesh, t.placements)
+        return g
+    return _grad
 
 
 def _gelu_region(real, used):
@@ -687,18 +762,52 @@ def _gelu_region(real, used):
     return gelu_mlp
 
 
+def _whole_heads(t, heads):
+    """``t``'s placements (B, S, heads * d_head) with the columns gathered
+    on each mesh dim that does not divide ``heads``."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = t.device_mesh
+    return [Replicate() if p == Shard(2) and heads % mesh.size(i) else p
+            for i, p in enumerate(t.placements)]
+
+
+class _WholeHeadsGrad(torch.autograd.Function):
+    """The identity on a merged attention output (B, S, heads * d_head);
+    its gradient's columns gathered on each mesh dim that does not divide
+    the heads before the merge's backward splits them."""
+
+    @staticmethod
+    def forward(ctx, t, heads):
+        ctx.heads = heads
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.redistribute(g.device_mesh, _whole_heads(g, ctx.heads)), \
+            None
+
+
 def _heads_region(real, used):
     def _split_heads(self, t, heads):
         if _is_dtensor(t):
-            from torch.distributed.tensor import Replicate, Shard
-            mesh = t.device_mesh
-            pl = [Replicate() if p == Shard(2) and heads % mesh.size(i)
-                  else p for i, p in enumerate(t.placements)]
+            pl = _whole_heads(t, heads)
             if pl != list(t.placements):
                 used.add("split_heads")
-                t = t.redistribute(mesh, pl)
+                t = t.redistribute(t.device_mesh, pl)
         return real(self, t, heads)
     return _split_heads
+
+
+def _merge_region(real, used):
+    def _merge_heads(self, t):
+        out = real(self, t)
+        heads = t.shape[1]
+        if _is_dtensor(out) and out.requires_grad and any(
+                heads % n for n in out.device_mesh.shape):
+            used.add("split_heads")
+            out = _WholeHeadsGrad.apply(out, heads)
+        return out
+    return _merge_heads
 
 
 def _store_region(real, used):
@@ -791,7 +900,10 @@ _SITES = ((moe, "moe_ffn", _moe_region),
           (LM, "_nll", _nll_region),
           (LM, "_store", _store_region),
           (LM, "_split_heads", _heads_region),
-          (LM, "_period", _carry_region))
+          (LM, "_merge_heads", _merge_region),
+          (LM, "_residual", _residual_region),
+          (LM, "_norm", _norm_region),
+          (lm_step, "_grad", _grad_region))
 
 
 @contextlib.contextmanager

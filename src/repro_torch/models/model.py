@@ -34,10 +34,12 @@ tensor it returns the same object, so one card computes the same bits with
 or without it. The MoE and SSD calls never meet a ``DTensor``: the dry-run
 runs those functions in regions on each rank's plain shards
 (``launch/dryrun.py``), whose placements stand in for them. It also
-carries the mesh, ``constrain.mesh``. ``_lookup``, ``_nll``, ``_store`` and
-``_split_heads`` are the points where the dry-run's regions step in for
-DTensor (the sharded lookup, log-sum-exp, cache write and head split); on
-plain tensors they are the model's own arithmetic. With
+carries the mesh, ``constrain.mesh``. ``_lookup``, ``_nll``, ``_store``,
+``_split_heads``, ``_merge_heads``, ``_norm`` and ``_residual`` are the
+points where the dry-run's regions step in for DTensor (the sharded
+lookup, log-sum-exp, cache write, head split and merge, a norm's
+gradient, the residual add of a row-parallel product); on plain tensors
+they are the model's own arithmetic. With
 ``cfg.moe_buf_mode == "shard_map"`` and a mesh whose "model" dim divides E,
 each MoE sublayer runs ``moe.moe_ffn_shard_map`` over that mesh (expert
 parallel, one all-reduce); otherwise ``moe.moe_ffn``, with ``buf_mode``
@@ -378,9 +380,20 @@ class LM(nn.Module):
             return L.layernorm(x, p[name], p[f"{name}_b"], self.cfg.norm_eps)
         return L.rmsnorm(x, p[name], self.cfg.norm_eps)
 
+    def _residual(self, x, y):
+        """x plus a sublayer's output y, the product of its row-parallel
+        projection (``wo``, ``x_wo``, ``w_down``, ``w_out``, ``out_proj``)
+        or its MoE FFN: where a sharded y's partial sums are reduced."""
+        return x + y
+
     def _split_heads(self, t, heads):
         """(B, S, heads * d_head) -> (B, S, heads, d_head)."""
         return t.reshape(t.shape[0], t.shape[1], heads, self.cfg.d_head)
+
+    def _merge_heads(self, t):
+        """An attention output (B, heads, S, d_head) -> (B, S, heads *
+        d_head), the row-parallel projection's input."""
+        return t.movedim(1, 2).reshape(t.shape[0], t.shape[2], -1)
 
     def _qkv(self, h, p):
         c = self.cfg
@@ -414,8 +427,7 @@ class LM(nn.Module):
         out = L.chunked_attention(q.movedim(1, 2), k.movedim(1, 2),
                                   v.movedim(1, 2), causal=causal,
                                   window=self.cfg.attn_window)
-        out = out.movedim(1, 2).reshape(x.shape[0], x.shape[1], -1)
-        return x + out @ p["wo"]
+        return self._residual(x, self._merge_heads(out) @ p["wo"])
 
     def _cross_kv(self, enc_out, p):
         """The keys and values sublayer ``p`` attends to over the encoder's
@@ -433,11 +445,9 @@ class LM(nn.Module):
         qk-norm, as JAX's ``_cross_attn`` has none."""
         c = self.cfg
         h = self._norm(x, p, "x_ln")
-        B, S = h.shape[:2]
         q = self._split_heads(h @ p["x_wq"], c.n_heads)
         out = L.chunked_attention(q.movedim(1, 2), k, v, causal=False)
-        out = out.movedim(1, 2).reshape(B, S, -1)
-        return x + out @ p["x_wo"]
+        return self._residual(x, self._merge_heads(out) @ p["x_wo"])
 
     def _ffn(self, x, p, idx_in_period):
         """-> (x + the FFN's output, its aux loss, float32). A MoE sublayer
@@ -462,16 +472,17 @@ class LM(nn.Module):
                                      capacity_factor=c.capacity_factor,
                                      constrain=self.constrain_mid,
                                      buf_mode=bm)
-            return x + y, aux
+            return self._residual(x, y), aux
         zero = torch.zeros((), dtype=torch.float32, device=x.device)
         if "ln2" not in p:
             return x, zero
         h = self._norm(x, p, "ln2")
         if c.act == "gelu":
-            return x + L.gelu_mlp(h, p["w_in"], p["b_in"], p["w_out"],
-                                  p["b_out"]), zero
+            return self._residual(x, L.gelu_mlp(
+                h, p["w_in"], p["b_in"], p["w_out"], p["b_out"])), zero
         h = self.constrain_mid(h, ("data", None, None))
-        return x + L.swiglu(h, p["w_gate"], p["w_up"], p["w_down"]), zero
+        return self._residual(x, L.swiglu(h, p["w_gate"], p["w_up"],
+                                          p["w_down"])), zero
 
     def _head(self, x):
         top = self.top
@@ -508,8 +519,8 @@ class LM(nn.Module):
                 if enc_out is not None:
                     x = self._cross_attn(x, p, *self._cross_kv(enc_out, p))
             else:
-                x = x + mamba2.mamba2_mixer(self._norm(x, p), p, self.cfg,
-                                            self.constrain_mid)
+                x = self._residual(x, mamba2.mamba2_mixer(
+                    self._norm(x, p), p, self.cfg, self.constrain_mid))
             x, a = self._ffn(x, p, i)
             aux = aux + a
         return x, aux
@@ -670,13 +681,13 @@ class LM(nn.Module):
                                          cache_len=min(pos + 1, s_kv),
                                          window=c.attn_window,
                                          window_rotated=rotated)
-                x = x + out.movedim(1, 2).reshape(B, 1, -1) @ p["wo"]
+                x = self._residual(x, self._merge_heads(out) @ p["wo"])
                 if c.enc_layers:
                     x = self._cross_attn(x, p, pc["xk"][n], pc["xv"][n])
             else:
                 st = mamba2.SSMState(state=pc["state"][n], conv=pc["conv"][n])
                 y, st = mamba2.mamba2_decode_step(h, p, c, st)
-                x = x + y
+                x = self._residual(x, y)
                 pc["state"][n] = st.state
                 pc["conv"][n] = st.conv
             x, _ = self._ffn(x, p, i)

@@ -12,6 +12,8 @@ or to real gloo runs (``gloo``):
     cache of 64; ``baseline`` and ``kv_seqshard``) on (pod 2, data 2,
     model 2), bf16 as JAX's dry-run; the train cell's record written to
     OUT_DIR;
+  * ``collectives``: those cells' ``coll_by_kind`` and ``coll_bytes``
+    (wire bytes) from their records;
   * ``shmap``: the reduced Qwen3-MoE's bf16 prefill (8 x 32) on that mesh
     under ``moe_shmap``: each c10d all-reduce's bytes, the MoE sublayers
     and the bytes one a sublayer should be;
@@ -21,6 +23,9 @@ or to real gloo runs (``gloo``):
     the regions taken;
   * ``constrain``: ``make_constrainer`` on DTensors of that mesh, the
     placements it gave and those of ``to_placements(spec(...))``;
+  * ``uneven_heads``: the reduced Qwen2.5-32B's and Whisper-tiny's bf16
+    train cells on (data 2, model 3), whose model dim does not divide
+    their 4 heads: status, wire bytes and the regions taken;
   * ``recorder``: whether the recorder's count equals CommDebugMode's in
     every cell.
 """
@@ -44,6 +49,9 @@ TRAIN = ShapeCell("train_4k", 32, 8, "train")
 DECODE = ShapeCell("decode_32k", 64, 8, "decode")
 PREFILL = ShapeCell("prefill_32k", 32, 8, "prefill")
 MESH3 = (2, 2)                      # with multi_pod: (pod 2, data 2, model 2)
+#: train cells whose 4 heads the mesh's model dim (3) does not divide, as
+#: 40 heads over 16 ranks at full width
+UNEVEN_HEADS, UNEVEN_MESH = ("qwen2.5-32b", "whisper-tiny"), (2, 3)
 
 
 def cell(arch, shape, cell, *, multi_pod=True, mesh=MESH3, variant="baseline",
@@ -107,18 +115,21 @@ def main() -> None:
 
 
 def jax_cells(res, out_dir) -> None:
-    res["arguments"] = {}
+    res["arguments"], res["collectives"] = {}, {}
+
+    def keep(name, rec, run):
+        res["arguments"][name] = rec["memory_analysis"][
+            "argument_size_in_bytes"]
+        res["collectives"][name] = {k: rec[k] for k in ("coll_by_kind",
+                                                        "coll_bytes")}
+        res["recorder"][name] = agree(run)
     rec, run = cell("yi-6b", "train_4k", TRAIN, out_dir=out_dir)
-    res["arguments"]["train"] = rec["memory_analysis"][
-        "argument_size_in_bytes"]
+    keep("train", rec, run)
     res["train_record"] = rec
-    res["recorder"]["train"] = agree(run)
     for name, variant in (("decode", "baseline"),
                           ("decode_seqshard", "kv_seqshard")):
         rec, run = cell("yi-6b", "decode_32k", DECODE, variant=variant)
-        res["arguments"][name] = rec["memory_analysis"][
-            "argument_size_in_bytes"]
-        res["recorder"][name] = agree(run)
+        keep(name, rec, run)
     cfg = reduced(get_config("qwen3-moe-235b-a22b"))
     rec, run = cell("qwen3-moe-235b-a22b", "prefill_32k", PREFILL,
                     variant="moe_shmap")
@@ -131,6 +142,14 @@ def jax_cells(res, out_dir) -> None:
         "status": rec["status"]}
     res["recorder"]["shmap"] = agree(run)
     res["constrain"] = constrain_checks()
+    res["uneven_heads"] = {}
+    for arch in UNEVEN_HEADS:
+        rec, _ = cell(arch, "train_4k", TRAIN, multi_pod=False,
+                      mesh=UNEVEN_MESH)
+        res["uneven_heads"][arch] = {
+            "status": rec["status"], "coll_bytes": rec["coll_bytes"],
+            "regions": sorted(k for k, v in DR.REGIONS.items()
+                              if v in rec["local_regions"])}
 
 
 def gloo_cells(res) -> None:

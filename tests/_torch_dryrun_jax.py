@@ -8,7 +8,9 @@ specs; that module itself is never imported: it forces 512 devices) on
 the reduced Yi-6B: a train cell (8 x 32 tokens) and two decode cells (8
 rows against a cache of 64: ``cache_pspecs`` plain and sequence-sharded),
 bf16 parameters as JAX's dry-run holds them. It prints one JSON object:
-each cell's compiled ``memory_analysis().argument_size_in_bytes``; the
+each cell's compiled ``memory_analysis().argument_size_in_bytes`` and
+its collective bytes by kind (``hloparse.collective_bytes_scaled`` of the
+compiled text, the count JAX's dry-run record holds); the
 shapes and dtypes of ``launch/specs.py``'s train, prefill and decode specs
 of every registry arch at every shape, leaf by leaf; and the
 (shape, logical axes) sequence each reduced family's forward hands its
@@ -30,6 +32,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.configs.registry import get_config, reduced  # noqa: E402
 from repro.configs.registry import ALIASES  # noqa: E402
 from repro.configs.shapes import SHAPES  # noqa: E402
+from repro.distributed import hloparse as HP  # noqa: E402
 from repro.distributed import sharding as SH  # noqa: E402
 from repro.launch import specs as SP  # noqa: E402
 from repro.launch.mesh import make_test_mesh  # noqa: E402
@@ -62,8 +65,9 @@ def arguments() -> dict:
     fn = jax.jit(lm_step.make_train_step(lm, optimizer),
                  in_shardings=(p_sh, o_sh, b_sh), donate_argnums=(0, 1))
     with mesh:
-        mem = fn.lower(pspec, opt_spec, batch).compile().memory_analysis()
-    out["train"] = int(mem.argument_size_in_bytes)
+        compiled = fn.lower(pspec, opt_spec, batch).compile()
+    out["train"] = int(compiled.memory_analysis().argument_size_in_bytes)
+    colls = {"train": collectives(compiled)}
     for name, seq_shard in (("decode", False), ("decode_seqshard", True)):
         cache = lm.init_cache(B, S_DEC, dtype=jnp.bfloat16, abstract=True)
         tokens = jax.ShapeDtypeStruct((B, 1), jnp.int32)
@@ -73,9 +77,18 @@ def arguments() -> dict:
         fn = jax.jit(lm_step.make_serve_step(lm),
                      in_shardings=(p_sh, c_sh, t_sh), donate_argnums=(1,))
         with mesh:
-            mem = fn.lower(pspec, cache, tokens).compile().memory_analysis()
-        out[name] = int(mem.argument_size_in_bytes)
-    return out
+            compiled = fn.lower(pspec, cache, tokens).compile()
+        out[name] = int(compiled.memory_analysis().argument_size_in_bytes)
+        colls[name] = collectives(compiled)
+    return out, colls
+
+
+def collectives(compiled) -> dict:
+    """The compiled step's per-device collective bytes by kind, each while
+    body's times its trip count, as JAX's dry-run record takes them, and
+    their wire bytes (an all-reduce twice)."""
+    by_kind = HP.collective_bytes_scaled(compiled.as_text())
+    return {"coll_by_kind": by_kind, "coll_bytes": HP.wire_bytes(by_kind)}
 
 
 def flat(tree, path=()) -> dict:
@@ -129,5 +142,6 @@ def constraints() -> dict:
 
 
 if __name__ == "__main__":
-    print(json.dumps({"arguments": arguments(), "specs": specs(),
-                      "constraints": constraints()}))
+    args, colls = arguments()
+    print(json.dumps({"arguments": args, "collectives": colls,
+                      "specs": specs(), "constraints": constraints()}))

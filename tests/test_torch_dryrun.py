@@ -178,6 +178,40 @@ def test_argument_bytes_equal_jax_memory_analysis(runs, cell):
     assert runs["fake"]["arguments"][cell] == runs["jax"]["arguments"][cell]
 
 
+#: the most the port's collective bytes may be of JAX's HLO count, per
+#: cell: (all-reduce bytes, wire bytes); None where the cell holds no bound
+COLLECTIVE_BOUNDS = {"train": (1.5, 1.5), "decode": (None, 1.25),
+                     "decode_seqshard": (None, 1.25)}
+
+
+@pytest.mark.parametrize("cell", list(COLLECTIVE_BOUNDS))
+def test_collective_bytes_within_jax_hlo_count(runs, cell):
+    """The dry-run's collective term against JAX's partitioned program on
+    the same cell (``hloparse.collective_bytes_scaled``, the count JAX's
+    record holds): all-reduce and wire bytes (an all-reduce twice) a rank
+    at most the bound's multiple of JAX's."""
+    port = runs["fake"]["collectives"][cell]
+    jax = runs["jax"]["collectives"][cell]
+    ar_bound, wire_bound = COLLECTIVE_BOUNDS[cell]
+    msg = (f"{cell}: port {port['coll_by_kind']} wire {port['coll_bytes']}"
+           f"; JAX {jax['coll_by_kind']} wire {jax['coll_bytes']}")
+    assert jax["coll_bytes"] > 0 and port["coll_bytes"] > 0, msg
+    assert port["coll_bytes"] <= wire_bound * jax["coll_bytes"], msg
+    if ar_bound is not None:
+        assert port["coll_by_kind"].get("all-reduce", 0) <= \
+            ar_bound * jax["coll_by_kind"]["all-reduce"], msg
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-32b", "whisper-tiny"])
+def test_train_step_over_heads_the_model_dim_does_not_divide(runs, arch):
+    """The gradient of the merged attention output is split back into heads
+    a mesh dim does not divide (40 over 16 ranks at full width; 4 over 3
+    here): the ``split_heads`` region gathers its columns first."""
+    got = runs["fake"]["uneven_heads"][arch]
+    assert got["status"] == "ok" and got["coll_bytes"] > 0, got
+    assert "split_heads" in got["regions"], got
+
+
 def test_fake_count_equals_a_real_gloo_run(runs):
     fake = runs["fake"]["prefill"]
     for rank in runs["gloo"]:
