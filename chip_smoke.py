@@ -400,11 +400,24 @@ Phases (any failure exits non-zero; nothing is caught):
                the same collectives, op for op and byte for byte, as each
                gloo rank of phase 6e counted under CommDebugMode. (c)
                DRYRUN_CELLS at full width on the production meshes, each
-               ok, with its roofline row, fits, collective bytes by kind
-               and wire bytes a rank, local_regions, no_effect and build
-               and run seconds (Mamba2-780M's train cell among them: the
-               tied embedding's two gradients). No kernel launches; the phase within
-               DRYRUN_PHASE_S;
+               in a `python -m repro_torch.launch.dryrun` process of its own
+               started with the phase, each ok, with its roofline row,
+               fits, collective bytes by kind and wire bytes a rank,
+               local_regions, no_effect and build and run seconds
+               (Mamba2-780M's train cell among them: the tied embedding's
+               two gradients; Qwen3-MoE's train cell on two pods, which
+               must fit and read at most MOE_TRAIN_POD_RATIO of one pod's
+               temp, MOE_TRAIN_SINGLE_TEMP). No kernel launches; the phase
+               within DRYRUN_PHASE_S;
+  6g. examples — the port's five examples (examples/torch_*.py) at their
+               defaults through their main(), artifacts and checkpoints
+               in a temporary directory, each counted (its launches are
+               the main path's): quickstart (three-way bit-exact
+               agreement), train_ttfs_mnist at full scale (702 steps,
+               EXAMPLE_AGREEMENT / EXAMPLE_AGREEMENT agreement, 0
+               repeatability mismatches), serve_lm, train_lm and
+               elastic_restart (the resumed run bit-identical); any
+               failure fails the run;
   7. times   — per kernel at the serving shape: its device time alone (CUDA
                events around 20 back-to-back launches queued behind a spin
                kernel, so no host dispatch falls between them; median of 50
@@ -460,12 +473,14 @@ import math
 import os
 import queue
 import re
+import shutil
 import statistics
 import subprocess
 import sys
 import tempfile
 import threading
 import time
+import traceback
 import types
 import warnings
 
@@ -729,8 +744,24 @@ DIST_LM_LAYERS, DIST_SPAWN_S = 2, 300
 #: (arch, shape, multi-pod, variant), and the phase's time limit
 DRYRUN_CELLS = (("qwen3-8b", "train_4k", False, "baseline"),
                 ("qwen3-moe-235b-a22b", "prefill_32k", True, "moe_shmap"),
-                ("mamba2-780m", "train_4k", False, "baseline"))
+                ("mamba2-780m", "train_4k", False, "baseline"),
+                ("qwen3-moe-235b-a22b", "train_4k", True, "baseline"))
 DRYRUN_PHASE_S = 180
+#: Qwen3-MoE's train_4k cell on one pod (256 ranks): its per-rank temp
+#: bytes in the torch 2.11 sweep of record (`python3 -m
+#: repro_torch.launch.dryrun --all` on an H100 host, PERF.md §6); the
+#: same cell on two pods (512 ranks) must fit and read at most
+#: MOE_TRAIN_POD_RATIO of it, as each rank holds half the rows
+MOE_TRAIN_SINGLE_TEMP = 79_722_832_252
+MOE_TRAIN_POD_RATIO = 0.6
+#: phase 6g, the port's examples (``examples/torch_*.py``) at their
+#: defaults, each run through its ``main``; the paths (artifacts,
+#: checkpoints) go under a temporary directory
+EXAMPLES = ("torch_quickstart", "torch_train_ttfs_mnist", "torch_serve_lm",
+            "torch_train_lm", "torch_elastic_restart")
+#: the images the main experiment holds the reference and the three
+#: runtimes to, label for label and spike for spike
+EXAMPLE_AGREEMENT = 10_000
 #: a measured prefill wall below this share of its roofline's step_s fails
 #: the record or the count (the roofline is the least time the work takes)
 ROOFLINE_FLOOR = 0.95
@@ -4752,11 +4783,20 @@ def main() -> int:
         tag = "[dryrun]"
         t_phase = time.perf_counter()
         reset_launches()
+        # (c)'s full-width cells run in processes of their own from the
+        # start (each its own fake group; the host's cores in parallel)
+        cell_dir = tempfile.mkdtemp(prefix="dryrun_cells_")
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [SRC] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+        cells = {c: subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             c[0], "--shape", c[1], "--mesh", "multi" if c[2] else "single",
+             "--variant", c[3], "--out", cell_dir], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for c in DRYRUN_CELLS}
 
-        def cell(arch, shape, multi, variant="baseline", **kw):
-            t0 = time.perf_counter()
-            rec = DR.run_cell(arch, shape, multi, variant=variant,
-                              write=False, **kw)
+        def show(rec, t0):
+            arch, shape, variant = rec["arch"], rec["shape"], rec["variant"]
             m = rec["memory_analysis"]
             total = sum(m.values())
             print(f"{tag} {arch} {shape} {rec['mesh']} {variant}: "
@@ -4779,7 +4819,13 @@ def main() -> int:
             check(calls == rec["comm_counts"], f"{arch} {shape}: the "
                   f"recorder counted {calls}, CommDebugMode "
                   f"{rec['comm_counts']}")
-            return rec, total
+            return total
+
+        def cell(arch, shape, multi, variant="baseline", **kw):
+            t0 = time.perf_counter()
+            rec = DR.run_cell(arch, shape, multi, variant=variant,
+                              write=False, **kw)
+            return rec, show(rec, t0)
 
         # (a) world 1 against the card's own runs: phase 6d's Yi-6B step
         # (TRAIN_LAYERS of 32 layers, float32, AdamW at 3e-4, remat) and
@@ -4864,9 +4910,48 @@ def main() -> int:
                   and res["comms"] == fake_comms, f"gloo rank {r}'s "
                   f"collectives differ from the fake group's")
 
-        # (c) full width on the production meshes
-        for arch, shape, multi, variant in DRYRUN_CELLS:
-            cell(arch, shape, multi, variant)
+        # (c) full width on the production meshes, from their processes
+        try:
+            for (arch, shape, multi, variant), proc in cells.items():
+                t0 = time.perf_counter()
+                left = max(DRYRUN_PHASE_S - (t0 - t_phase), 1.0)
+                try:
+                    log, _ = proc.communicate(timeout=left)
+                except subprocess.TimeoutExpired:
+                    fail(f"phase 6f: {arch} {shape} did not end within "
+                         f"{DRYRUN_PHASE_S} s of the phase's start")
+                check(proc.returncode == 0, f"{arch} {shape} "
+                      f"{'multi' if multi else 'single'} {variant}: rc "
+                      f"{proc.returncode}: {log[-3000:]}")
+                stem = DR._stem(arch, shape, "multi" if multi else "single",
+                                variant)
+                with open(os.path.join(cell_dir, stem + ".json")) as f:
+                    rec = json.load(f)
+                print(f"{tag} {stem}: its process ended "
+                      f"{time.perf_counter() - t_phase:.1f} s into the "
+                      f"phase")
+                show(rec, t0)
+                if (arch, shape, multi) == ("qwen3-moe-235b-a22b",
+                                            "train_4k", True):
+                    temp = rec["memory_analysis"]["temp_size_in_bytes"]
+                    print(f"{tag} {arch} {shape} on two pods: temp {temp} B "
+                          f"a rank, {temp / MOE_TRAIN_SINGLE_TEMP:.3f} of "
+                          f"one pod's {MOE_TRAIN_SINGLE_TEMP} B (the torch "
+                          f"2.11 sweep of record; limit "
+                          f"{MOE_TRAIN_POD_RATIO})"
+                          f" — card: {card}")
+                    check(rec["fits"], f"{arch} {shape} multi does not "
+                          f"fit: {rec['memory_analysis']}")
+                    check(temp <= MOE_TRAIN_POD_RATIO * MOE_TRAIN_SINGLE_TEMP,
+                          f"{arch} {shape} multi: temp {temp} B is more "
+                          f"than {MOE_TRAIN_POD_RATIO} of one pod's "
+                          f"{MOE_TRAIN_SINGLE_TEMP} B")
+        finally:
+            for proc in cells.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+            shutil.rmtree(cell_dir, ignore_errors=True)
         counts = launch_counts()
         check(not any(counts.values()), f"the dry-run launched {counts}")
         print(f"{tag} phase wall {time.perf_counter() - t_phase:.3f} s "
@@ -4876,6 +4961,63 @@ def main() -> int:
               f"phase 6f took more than {DRYRUN_PHASE_S} s")
 
     dry_run()
+
+    # ------------------------------------------------------------ 6g examples
+    # the port's five examples, its entry points, at their defaults (the
+    # main experiment at full scale), each counted: every launch is the
+    # main path's
+    def examples() -> None:
+        import importlib.util
+        tag = "[examples]"
+        t_phase = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            paths = {"torch_quickstart": ["--out", tmp],
+                     "torch_train_ttfs_mnist": ["--out", tmp],
+                     "torch_serve_lm": [],
+                     "torch_train_lm": ["--ckpt-dir",
+                                        os.path.join(tmp, "lm")],
+                     "torch_elastic_restart": ["--ckpt-dir",
+                                               os.path.join(tmp, "el")]}
+            for name in EXAMPLES:
+                spec = importlib.util.spec_from_file_location(
+                    name, os.path.join(ROOT, "examples", f"{name}.py"))
+                mod = importlib.util.module_from_spec(spec)
+                spec.loader.exec_module(mod)
+                reset_launches()
+                t0 = time.perf_counter()
+                try:
+                    got = mod.main(paths[name])
+                except Exception as e:          # noqa: BLE001
+                    traceback.print_exc()
+                    fail(f"{tag} {name} failed: {type(e).__name__}: {e}")
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                counts = {k: n for k, n in launch_counts().items() if n}
+                for kname, n in counts.items():
+                    launches[kname] += n
+                print(f"{tag} {name}: ok in {wall:.3f} s; launches "
+                      f"{counts} — card: {card}")
+                if name == "torch_train_ttfs_mnist":
+                    rep = got["agreement"]
+                    print(f"{tag} {name}: agreement "
+                          f"{rep.n_images - max(rep.label_mismatches.values())}"
+                          f"/{rep.n_images} labels, spike-time mismatches "
+                          f"{rep.spike_time_mismatches}, repeatability "
+                          f"{got['repeatability']['mismatches']} mismatches "
+                          f"of {got['repeatability']['image_run_pairs']}, "
+                          f"{got['steps']} steps")
+                    check(rep.exact_match and
+                          rep.n_images == EXAMPLE_AGREEMENT,
+                          f"{name}: agreement {rep.summary()}")
+                    check(got["steps"] == 702, f"{name}: {got['steps']} "
+                          "steps, not the 702 of three epochs of 60,000")
+                if name == "torch_elastic_restart":
+                    check(got["bit_identical"], f"{name}: the resumed run "
+                          "differs from the uninterrupted one")
+        print(f"{tag} phase wall {time.perf_counter() - t_phase:.3f} s — "
+              f"card: {card}")
+
+    examples()
 
     # --------------------------------------------------------------- 7 times
     images = xte[:SERVE_BATCH]

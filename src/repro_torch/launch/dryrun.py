@@ -257,6 +257,18 @@ REGIONS = {
              "optimiser's float32 casts, three times a leaf); it is "
              "reduced once, in its own dtype, to its parameter's "
              "placements, as JAX's gradient takes its parameter's sharding",
+    "adafactor": "training/optim.py::factored_means, factored_scale: "
+                 "DTensor lays the row and column means of an expert "
+                 "leaf's squared gradient, and the outer product of its "
+                 "factored moments, out as the moments are laid out "
+                 "(experts on the data dims), not as the gradient is "
+                 "(experts on 'model'), and moves the leaf-sized float32 "
+                 "tensors between the two; each rank takes its shard's "
+                 "means (a partial sum where the gradient splits the "
+                 "reduced dim) and divides its shard of the gradient by "
+                 "its shard of the product, the moments' small factors "
+                 "moved to the gradient's layout, as JAX's partitioner "
+                 "computes the update in the gradient's sharding",
     "ssd_chunked": "models/mamba2.py::ssd_chunked: DTensor does not finish "
                    "propagating its 5-D batched products; each rank runs it "
                    "on its batch rows and heads (JAX's ('data', None, None, "
@@ -462,18 +474,97 @@ def _split_by(*placements):
             for ps in zip(*placements)]
 
 
-class _Gather(torch.autograd.Function):
-    """A ``DTensor`` redistributed to ``placements`` (gathered over the
-    data dims); its gradient comes back unreduced, Partial where it is
-    Partial and the input's placements elsewhere. The two uses of a tied
-    embedding (the lookup, the head) then meet as partial sums, which
-    torch 2.11 cannot add to a sharded term, and are reduced once
-    (``_grad_region``)."""
+def _flat_group(mesh, dims):
+    """The process group of ``mesh``'s dims ``dims`` flattened into one
+    (the mesh's arithmetic runs outside the fake mode and the counters).
+    DTensor's caches can hand a cell the equal mesh of an earlier cell,
+    whose flattened dim names a group of the fake group destroyed since:
+    that dim is flattened again in the group of this cell."""
+    from torch.distributed import device_mesh as dm
+    from torch.utils._python_dispatch import _disable_current_modes
+    with _disable_current_modes():
+        try:
+            return mesh[dims]._flatten().get_group()
+        except (RuntimeError, KeyError, ValueError):
+            # the root mesh keeps its flattened dims (torch 2.13), or the
+            # mesh environment does by root (earlier releases)
+            env = getattr(dm, "_mesh_resources", None)
+            root = mesh._get_root_mesh() if hasattr(
+                mesh, "_get_root_mesh") else env.get_root_mesh(mesh)
+            name = "_".join(dims)
+            getattr(root, "_flatten_mapping", {}).pop(name, None)
+            getattr(env, "root_to_flatten_mapping", {}).get(
+                root, {}).pop(name, None)
+            return mesh[dims]._flatten().get_group()
+
+
+def _redistribute(t, placements):
+    """``t.redistribute(mesh, placements)``, except where both data dims
+    ("pod", "data") move together from ``Shard(i)`` to ``Replicate()``,
+    from ``Partial()`` to ``Shard(i)`` or from ``Partial()`` to
+    ``Replicate()``: there one collective over the two flattened (pod
+    major, as the shards lie) gathers, reduce-scatters or all-reduces, as
+    JAX's partitioner does over ("pod", "data"), where DTensor issues one
+    a mesh dim (a gather of half the result before the whole, an
+    all-reduce of the whole before the scatter). The other mesh dims are
+    redistributed first, by DTensor."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = t.device_mesh
+    names = list(mesh.mesh_dim_names)
+    dp = [names.index(a) for a in SH.dp_axes(mesh)]
+    src, dst = list(t.placements), list(placements)
+    if len(dp) != 2 or src[dp[0]] != src[dp[1]] or \
+            dst[dp[0]] != dst[dp[1]] or src[dp[0]] == dst[dp[0]]:
+        return t.redistribute(mesh, dst)
+    a, b = src[dp[0]], dst[dp[0]]
+    n = mesh.size(dp[0]) * mesh.size(dp[1])
+    if type(a) is Shard and b == Replicate():
+        kind = "gather"
+    elif a == Partial() and type(b) is Shard and t.shape[b.dim] % n == 0:
+        kind = "scatter"
+    elif a == Partial() and b == Replicate():
+        kind = "reduce"
+    else:
+        return t.redistribute(mesh, dst)
+    mid = [src[i] if i in dp else dst[i] for i in range(len(names))]
+    if mid != src:
+        t = t.redistribute(mesh, mid)
+    group = _flat_group(mesh, tuple(names[i] for i in dp))
+    local = t.to_local()
+    if kind == "gather":
+        out = funcol.all_gather_tensor(local, a.dim, group)
+    elif kind == "scatter":
+        out = funcol.reduce_scatter_tensor(local, "sum", b.dim, group)
+    else:
+        out = funcol.all_reduce(local, "sum", group)
+    out = out.wait() if hasattr(out, "wait") else out
+    return DTensor.from_local(out, mesh, dst, run_check=False,
+                              shape=t.shape, stride=t.stride())
+
+
+class _DataGather(torch.autograd.Function):
+    """A ``DTensor`` gathered over the data dims to ``placements``
+    (``_dp_replicated``: an FSDP weight at use) by ``_redistribute``; its
+    gradient, partial over the data dims, reduced back to the input's
+    placements the same way."""
 
     @staticmethod
     def forward(ctx, t, placements):
         ctx.placements = tuple(t.placements)
-        return t.redistribute(t.device_mesh, placements)
+        return _redistribute(t, placements)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _redistribute(g, ctx.placements), None
+
+
+class _Gather(_DataGather):
+    """``_DataGather`` whose gradient comes back unreduced, Partial where
+    it is Partial and the input's placements elsewhere. The two uses of a
+    tied embedding (the lookup, the head) then meet as partial sums, which
+    torch 2.11 cannot add to a sharded term, and are reduced once
+    (``_grad_region``)."""
 
     @staticmethod
     def backward(ctx, g):
@@ -534,7 +625,8 @@ def _moe_region(real, used):
                          in_grad_placements=_grads(
                              ins, _split_by(rows, w["w_gate"])),
                          device_mesh=mesh, redistribute_inputs=True)(
-            x, p["router"], p["w_gate"], p["w_up"], p["w_down"])
+            x, p["router"], *(_DataGather.apply(p[k], w[k])
+                              for k in ("w_gate", "w_up", "w_down")))
     return moe_ffn
 
 
@@ -565,6 +657,65 @@ def _shard_map_region(real, used):
                          device_mesh=mesh, redistribute_inputs=True)(
             x, p["router"], p["w_gate"], p["w_up"], p["w_down"])
     return moe_ffn_shard_map
+
+
+def _drop_dim(placements, dim, split):
+    """The placements of a tensor laid out ``placements`` after its dim
+    ``dim`` is reduced away: ``split`` (``Partial()`` or ``Replicate()``)
+    on each mesh dim that sharded it, a later dim's shard one lower."""
+    from torch.distributed.tensor import Shard
+    return [split if isinstance(p, Shard) and p.dim == dim else
+            Shard(p.dim - 1) if isinstance(p, Shard) and p.dim > dim else p
+            for p in placements]
+
+
+def _whole(t) -> bool:
+    return _is_dtensor(t) and not any(p.is_partial() for p in t.placements)
+
+
+def _moments_region(real, used):
+    def factored_means(g2):
+        if not _whole(g2):
+            return real(g2)
+        from torch.distributed.tensor import Partial
+        from torch.distributed.tensor.experimental import local_map
+        used.add("adafactor")
+        nd, pl = g2.dim(), list(g2.placements)
+        n_cols, n_rows = g2.shape[-2:]
+
+        def local(g2):
+            # a mean where the dim is whole here, else this shard's part
+            rows = g2.mean(dim=-1) if g2.shape[-1] == n_rows else \
+                g2.sum(dim=-1) / n_rows
+            cols = g2.mean(dim=-2) if g2.shape[-2] == n_cols else \
+                g2.sum(dim=-2) / n_cols
+            return rows, cols
+
+        return local_map(local, out_placements=(
+            _drop_dim(pl, nd - 1, Partial()), _drop_dim(pl, nd - 2, Partial())),
+            in_placements=(pl,), device_mesh=g2.device_mesh)(g2)
+    return factored_means
+
+
+def _scale_region(real, used):
+    def factored_scale(g, vr, vc):
+        if not _whole(g):
+            return real(g, vr, vc)
+        from torch.distributed.tensor import Replicate
+        from torch.distributed.tensor.experimental import local_map
+        used.add("adafactor")
+        nd, pl = g.dim(), list(g.placements)
+        rden = torch.mean(vr, dim=-1, keepdim=True)
+        r, c = torch.sqrt(vr / rden), torch.sqrt(vc)
+
+        def local(g, r, c):
+            return g / (r[..., None] * c[..., None, :] + 1e-16)
+
+        return local_map(local, out_placements=pl, in_placements=(
+            pl, _drop_dim(pl, nd - 1, Replicate()),
+            _drop_dim(pl, nd - 2, Replicate())), device_mesh=g.device_mesh,
+            redistribute_inputs=True)(g, r, c)
+    return factored_scale
 
 
 def _ssd_region(real, used):
@@ -725,7 +876,7 @@ def _grad_region(real, used):
         g = real(t)
         if _is_dtensor(g) and tuple(g.placements) != tuple(t.placements):
             used.add("grads")
-            g = g.redistribute(g.device_mesh, t.placements)
+            g = _redistribute(g, t.placements)
         return g
     return _grad
 
@@ -787,14 +938,39 @@ class _WholeHeadsGrad(torch.autograd.Function):
             None
 
 
+class _UnitDimGrad(torch.autograd.Function):
+    """The identity on split heads (B, S, heads, d_head); its gradient's
+    heads dim replicated on each mesh dim of size 1 that shards it (no
+    collective: such a dim holds the whole tensor), since DTensor refuses
+    to merge a sharded dim of size 1 (one KV head) back into the
+    columns."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import Replicate, Shard
+        mesh = g.device_mesh
+        return g.redistribute(mesh, [
+            Replicate() if p == Shard(2) and mesh.size(i) == 1 else p
+            for i, p in enumerate(g.placements)])
+
+
 def _heads_region(real, used):
     def _split_heads(self, t, heads):
-        if _is_dtensor(t):
-            pl = _whole_heads(t, heads)
-            if pl != list(t.placements):
-                used.add("split_heads")
-                t = t.redistribute(t.device_mesh, pl)
-        return real(self, t, heads)
+        if not _is_dtensor(t):
+            return real(self, t, heads)
+        pl = _whole_heads(t, heads)
+        if pl != list(t.placements):
+            used.add("split_heads")
+            t = t.redistribute(t.device_mesh, pl)
+        out = real(self, t, heads)
+        if heads == 1 and out.requires_grad and 1 in t.device_mesh.shape:
+            used.add("split_heads")
+            out = _UnitDimGrad.apply(out)
+        return out
     return _split_heads
 
 
@@ -903,7 +1079,9 @@ _SITES = ((moe, "moe_ffn", _moe_region),
           (LM, "_merge_heads", _merge_region),
           (LM, "_residual", _residual_region),
           (LM, "_norm", _norm_region),
-          (lm_step, "_grad", _grad_region))
+          (lm_step, "_grad", _grad_region),
+          (O, "factored_means", _moments_region),
+          (O, "factored_scale", _scale_region))
 
 
 @contextlib.contextmanager

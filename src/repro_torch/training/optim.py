@@ -108,6 +108,21 @@ def adamw(lr: float = 3e-4, b1: float = 0.9, b2: float = 0.95,
     return _optimizer("adamw", init_leaf, update_leaf, elementwise=True)
 
 
+def factored_means(g2: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Adafactor's new row and column terms of a leaf's squared gradient:
+    its means over the last axis and over the second to last."""
+    return torch.mean(g2, dim=-1), torch.mean(g2, dim=-2)
+
+
+def factored_scale(g: torch.Tensor, vr: torch.Tensor,
+                   vc: torch.Tensor) -> torch.Tensor:
+    """g over the root of the factored second moment, ``vr / mean(vr)``
+    (rows) times ``vc`` (columns), in g's shape."""
+    rden = torch.mean(vr, dim=-1, keepdim=True)
+    return g / (torch.sqrt(vr / rden)[..., None]
+                * torch.sqrt(vc)[..., None, :] + 1e-16)
+
+
 def adafactor(lr: float = 3e-4, eps: float = 1e-30, clip: float = 1.0,
               decay: float = 0.8, weight_decay: float = 0.0) -> Optimizer:
     """Factored second moments (Shazeer & Stern 2018), no first moment. A
@@ -130,11 +145,10 @@ def adafactor(lr: float = 3e-4, eps: float = 1e-30, clip: float = 1.0,
         g2 = g * g + eps
         f = s["f"]
         if factored(p):
-            vr = f["vr"].mul_(beta).add_((1 - beta) * torch.mean(g2, dim=-1))
-            vc = f["vc"].mul_(beta).add_((1 - beta) * torch.mean(g2, dim=-2))
-            rden = torch.mean(vr, dim=-1, keepdim=True)
-            u = g / (torch.sqrt(vr / rden)[..., None]
-                     * torch.sqrt(vc)[..., None, :] + 1e-16)
+            rows, cols = factored_means(g2)
+            vr = f["vr"].mul_(beta).add_((1 - beta) * rows)
+            vc = f["vc"].mul_(beta).add_((1 - beta) * cols)
+            u = factored_scale(g, vr, vc)
         else:
             v = f["v"].mul_(beta).add_((1 - beta) * g2)
             u = g / (torch.sqrt(v) + 1e-16)

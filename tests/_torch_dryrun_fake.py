@@ -1,11 +1,11 @@
 """The port's dry-run on the fake process group, one process:
 
-    python tests/_torch_dryrun_fake.py OUT_DIR jax|gloo
+    python tests/_torch_dryrun_fake.py OUT_DIR jax|gloo|scale
 
 Every cell runs ``launch.dryrun.run_cell`` on ``"cpu"`` fake tensors, each
 creating and destroying its own fake group. It prints one JSON object, of
-the cells held to JAX's (``jax``: ``arguments``, ``shmap``, ``constrain``)
-or to real gloo runs (``gloo``):
+the cells held to JAX's (``jax``: ``arguments``, ``shmap``, ``constrain``),
+to real gloo runs (``gloo``) or to each other (``scale``):
 
   * ``arguments``: per-rank ``argument_size_in_bytes`` of the reduced
     Yi-6B's train cell (8 x 32 tokens) and its decode cells (8 rows, a
@@ -26,6 +26,11 @@ or to real gloo runs (``gloo``):
   * ``uneven_heads``: the reduced Qwen2.5-32B's and Whisper-tiny's bf16
     train cells on (data 2, model 3), whose model dim does not divide
     their 4 heads: status, wire bytes and the regions taken;
+  * ``scale``: the reduced Qwen3-MoE's bf16 train cell (8 x 32) on
+    (data 2, model 2) and on (pod 2, data 2, model 2), the same global
+    batch: each one's per-rank temp and wire bytes (the second also as
+    ``arguments`` and ``collectives``, held to JAX's); and the reduced
+    Yi-6B's train cell (one KV head) on (data 2, model 1): its status;
   * ``recorder``: whether the recorder's count equals CommDebugMode's in
     every cell.
 """
@@ -43,7 +48,7 @@ from repro_torch.distributed import sharding as SH
 from repro_torch.launch import dryrun as DR
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-from _torch_dryrun_gloo import CELLS  # noqa: E402
+from _torch_dryrun_gloo import CELLS, mesh_of  # noqa: E402
 
 TRAIN = ShapeCell("train_4k", 32, 8, "train")
 DECODE = ShapeCell("decode_32k", 64, 8, "decode")
@@ -52,6 +57,8 @@ MESH3 = (2, 2)                      # with multi_pod: (pod 2, data 2, model 2)
 #: train cells whose 4 heads the mesh's model dim (3) does not divide, as
 #: 40 heads over 16 ranks at full width
 UNEVEN_HEADS, UNEVEN_MESH = ("qwen2.5-32b", "whisper-tiny"), (2, 3)
+#: (data 2, model 1): the reduced Yi-6B's one KV head "split" over it
+ONE_KV_MESH = (2, 1)
 
 
 def cell(arch, shape, cell, *, multi_pod=True, mesh=MESH3, variant="baseline",
@@ -109,6 +116,8 @@ def main() -> None:
     res = {"recorder": {}}
     if part == "gloo":
         gloo_cells(res)
+    elif part == "scale":
+        scale_cells(res)
     else:
         jax_cells(res, out_dir)
     print("RESULT " + json.dumps(res, default=float))
@@ -152,13 +161,36 @@ def jax_cells(res, out_dir) -> None:
                               if v in rec["local_regions"])}
 
 
+def scale_cells(res) -> None:
+    res["scale"], res["arguments"], res["collectives"] = {}, {}, {}
+    for mesh_name, multi_pod in (("single", False), ("multi", True)):
+        rec, run = cell("qwen3-moe-235b-a22b", "train_4k", TRAIN,
+                        multi_pod=multi_pod)
+        res["scale"][mesh_name] = {
+            "temp": rec["memory_analysis"]["temp_size_in_bytes"],
+            "wire": rec["coll_bytes"], "coll_by_kind": rec["coll_by_kind"]}
+        res["recorder"][f"moe_train_{mesh_name}"] = agree(run)
+    res["arguments"]["moe_train"] = rec["memory_analysis"][
+        "argument_size_in_bytes"]
+    res["collectives"]["moe_train"] = {k: rec[k] for k in ("coll_by_kind",
+                                                           "coll_bytes")}
+    try:                       # one KV head, split over a model dim of 1
+        rec, _ = cell("yi-6b", "train_4k", TRAIN, multi_pod=False,
+                      mesh=ONE_KV_MESH)
+        res["one_kv"] = {"status": rec["status"],
+                         "coll_bytes": rec["coll_bytes"]}
+    except Exception as e:     # noqa: BLE001 - the test reads the failure
+        res["one_kv"] = {"status": f"failed: {type(e).__name__}: {e}"}
+
+
 def gloo_cells(res) -> None:
     res["gloo"] = {}
     names = {"train": "train_4k", "prefill": "prefill_32k",
              "decode": "decode_32k"}
     for name, arch, kind, variant, (B, S) in CELLS:
         rec, run = cell(arch, names[kind], ShapeCell(kind, S, B, kind),
-                        multi_pod=False, variant=variant, dtype=torch.float32)
+                        multi_pod=False, mesh=mesh_of(name), variant=variant,
+                        dtype=torch.float32)
         res["gloo"][name] = {
             "counts": run.comm_counts, "comms": run.comms,
             "regions": sorted(k for k, v in DR.REGIONS.items()

@@ -3,7 +3,9 @@
     python tests/_torch_dryrun_gloo.py DIR RANK WORLD
 
 Four ranks (WORLD 4) join a gloo group through a file in DIR and build the
-mesh (data 2, model 2) on the CPU. For each cell of ``CELLS`` every rank
+meshes (data 2, model 2) and (data 4, model 1) of the cells on the CPU,
+and (pod 2, data 2, model 1) for ``dryrun._redistribute``'s collectives
+over two data dims (``flat_collectives``). For each cell of ``CELLS`` every rank
 draws the reduced config in float32 from seed 0 and its inputs from
 ``RandomState(0)``, runs the unsharded port, then lays a second model of
 the same seed (the variant's configuration changes applied) and the same
@@ -49,7 +51,50 @@ CELLS = (("prefill", "yi-6b", "prefill", "baseline", (4, 32)),
          ("gelu", "whisper-tiny", "prefill", "baseline", (4, 32)),
          ("moe_train", "qwen3-moe-235b-a22b", "train", "baseline", (4, 32)),
          ("ssm_train", "mamba2-780m", "train", "baseline", (4, 32)),
-         ("gelu_train", "whisper-tiny", "train", "baseline", (4, 32)))
+         ("gelu_train", "whisper-tiny", "train", "baseline", (4, 32)),
+         ("one_kv_train", "yi-6b", "train", "baseline", (4, 32)))
+#: the (data, model) mesh of a cell, (2, 2) unless named here: (4, 1) for
+#: the reduced Yi-6B's one KV head "split" over a model dim of 1
+MESHES = {"one_kv_train": (4, 1)}
+
+
+def mesh_of(name) -> tuple:
+    return MESHES.get(name, (2, 2))
+
+
+def flat_collectives(mesh, rank) -> dict:
+    """``dryrun._redistribute`` on (pod 2, data 2, model 1) against
+    DTensor's own redistribution of the same tensor (a dim over "pod"
+    then "data"): the gather of a tensor sharded over both data dims (on
+    dim 0 and dim 1), the reduce-scatter of one partial over both (dim 0
+    and 1) and its all-reduce. -> {case: {"err": largest difference of
+    this rank's shard, "comms": the recorder's collectives of
+    ``_redistribute``, "placements": equal}}"""
+    from torch.distributed.tensor import (DTensor, Partial, Replicate,
+                                          Shard, distribute_tensor)
+    from repro_torch.launch import dryrun as DR
+    full = torch.from_numpy(np.random.RandomState(0).standard_normal(
+        (8, 12)).astype(np.float32))
+    rep = [Replicate()] * 3
+    out = {}
+    cases = [(f"gather{d}", [Shard(d), Shard(d), Replicate()], rep)
+             for d in (0, 1)]
+    cases += [(f"scatter{d}", [Partial(), Partial(), Replicate()],
+               [Shard(d), Shard(d), Replicate()]) for d in (0, 1)]
+    cases += [("reduce", [Partial(), Partial(), Replicate()], rep)]
+    for name, src, dst in cases:
+        if src[0] == Partial():         # each rank's term of the sum
+            t = DTensor.from_local(full * (rank + 1), mesh, src)
+        else:
+            t = distribute_tensor(full, mesh, src)
+        want = t.redistribute(mesh, dst)
+        rec = DR.Recorder()
+        with DR.counting(rec):
+            got = DR._redistribute(t, dst)
+        out[name] = {"err": _err(got.to_local(), want.to_local()),
+                     "comms": rec.comms,
+                     "placements": list(got.placements) == list(dst)}
+    return out
 #: the tokens a decode cell's cache holds before its step
 DECODE_LEN = 40
 
@@ -183,10 +228,14 @@ def main() -> None:
         "gloo", init_method="file://" + os.path.join(rdv, "gloo"),
         rank=rank, world_size=world, timeout=datetime.timedelta(seconds=60))
     try:
-        mesh = make_test_mesh((2, 2), ("data", "model"), device_type="cpu")
+        meshes = {shape: make_test_mesh(shape, ("data", "model"),
+                                        device_type="cpu")
+                  for shape in sorted({mesh_of(c[0]) for c in CELLS})}
         res = {"rank": rank}
         for name, *cell in CELLS:
-            res[name] = run(name, *cell, mesh)
+            res[name] = run(name, *cell, meshes[mesh_of(name)])
+        res["flat"] = flat_collectives(make_test_mesh(
+            (2, 2, 1), ("pod", "data", "model"), device_type="cpu"), rank)
         with open(os.path.join(rdv, f"rank{rank}.json"), "w") as fh:
             json.dump(res, fh)
     finally:

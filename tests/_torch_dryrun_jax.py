@@ -7,7 +7,8 @@ dry-run pipeline (``repro.launch.dryrun.build_cell``'s steps, shardings and
 specs; that module itself is never imported: it forces 512 devices) on
 the reduced Yi-6B: a train cell (8 x 32 tokens) and two decode cells (8
 rows against a cache of 64: ``cache_pspecs`` plain and sequence-sharded),
-bf16 parameters as JAX's dry-run holds them. It prints one JSON object:
+and the reduced Qwen3-MoE's train cell (8 x 32; its 4 experts on "model",
+Adafactor), bf16 parameters as JAX's dry-run holds them. It prints one JSON object:
 each cell's compiled ``memory_analysis().argument_size_in_bytes`` and
 its collective bytes by kind (``hloparse.collective_bytes_scaled`` of the
 compiled text, the count JAX's dry-run record holds); the
@@ -49,13 +50,12 @@ KNOBS = {"on": {}, "off": {"activation_constraints": False},
 B, S, S_DEC = 8, 32, 64
 
 
-def arguments() -> dict:
-    mesh = make_test_mesh((2, 2, 2), ("pod", "data", "model"))
-    cfg = reduced(get_config("yi-6b"))
+def train(mesh, arch):
+    """The reduced ``arch``'s compiled train step on ``mesh`` (8 x 32)."""
+    cfg = reduced(get_config(arch))
     lm = LM(cfg, constrain=SH.make_constrainer(mesh))
     pspec = lm.param_specs()
     p_sh = SH.to_shardings(mesh, SH.param_pspecs(mesh, pspec))
-    out = {}
     optimizer = O.get(cfg.optimizer, 3e-4)
     opt_spec = jax.eval_shape(optimizer.init, pspec)
     o_sh = SH.to_shardings(mesh, SH.param_pspecs(mesh, opt_spec))
@@ -65,9 +65,18 @@ def arguments() -> dict:
     fn = jax.jit(lm_step.make_train_step(lm, optimizer),
                  in_shardings=(p_sh, o_sh, b_sh), donate_argnums=(0, 1))
     with mesh:
-        compiled = fn.lower(pspec, opt_spec, batch).compile()
-    out["train"] = int(compiled.memory_analysis().argument_size_in_bytes)
-    colls = {"train": collectives(compiled)}
+        return lm, p_sh, fn.lower(pspec, opt_spec, batch).compile()
+
+
+def arguments() -> dict:
+    mesh = make_test_mesh((2, 2, 2), ("pod", "data", "model"))
+    out, colls = {}, {}
+    for name, arch in (("moe_train", "qwen3-moe-235b-a22b"),
+                       ("train", "yi-6b")):
+        lm, p_sh, compiled = train(mesh, arch)
+        out[name] = int(compiled.memory_analysis().argument_size_in_bytes)
+        colls[name] = collectives(compiled)
+    pspec = lm.param_specs()
     for name, seq_shard in (("decode", False), ("decode_seqshard", True)):
         cache = lm.init_cache(B, S_DEC, dtype=jnp.bfloat16, abstract=True)
         tokens = jax.ShapeDtypeStruct((B, 1), jnp.int32)

@@ -4,9 +4,9 @@ sharding constraints it runs on, held to JAX's.
 Process groups are global and xdist shares workers, so none is made here:
 JAX's side runs on 8 placeholder devices in ``_torch_dryrun_jax.py`` (JAX's
 ``dryrun.py`` is never imported: it forces 512 devices), the port's fake
-cells in two ``_torch_dryrun_fake.py`` processes and the same sharded steps
-run for real on four gloo ranks in ``_torch_dryrun_gloo.py``, all started
-at once under one limit.
+cells in three ``_torch_dryrun_fake.py`` processes and the same sharded
+steps run for real on four gloo ranks in ``_torch_dryrun_gloo.py``, all
+started at once under one limit.
 """
 
 import ast
@@ -30,6 +30,8 @@ from repro_torch.models.model import LM
 
 from _torch_dryrun_gloo import CELLS as GLOO_CELLS
 
+#: the parts of ``_torch_dryrun_fake.py``, each its own process
+FAKE_PARTS = ("jax", "gloo", "scale")
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
 SRC = os.path.join(ROOT, "src")
@@ -69,7 +71,7 @@ def runs(tmp_path_factory):
         **{f"fake_{part}": subprocess.Popen(
             [sys.executable, os.path.join(HERE, "_torch_dryrun_fake.py"),
              str(out), part], env=_env(), stdout=subprocess.PIPE,
-            stderr=subprocess.PIPE, text=True) for part in ("jax", "gloo")}}
+            stderr=subprocess.PIPE, text=True) for part in FAKE_PARTS}}
     for r in range(4):
         procs[f"gloo{r}"] = subprocess.Popen(
             [sys.executable, os.path.join(HERE, "_torch_dryrun_gloo.py"),
@@ -86,10 +88,11 @@ def runs(tmp_path_factory):
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
-    fake = {"recorder": {}}
-    for part in ("jax", "gloo"):
+    fake = {"recorder": {}, "gloo": {}, "arguments": {}, "collectives": {}}
+    for part in FAKE_PARTS:
         got = json.loads(texts[f"fake_{part}"].split("RESULT ", 1)[1])
-        fake["recorder"].update(got.pop("recorder"))
+        for key in ("recorder", "gloo", "arguments", "collectives"):
+            fake[key].update(got.pop(key, {}))
         fake.update(got)
     gloo = [json.loads((rdv / f"rank{r}.json").read_text())
             for r in range(4)]
@@ -173,7 +176,8 @@ def test_constrainer_redistributes_a_dtensor_to_the_spec(runs):
         [2, 8, 16], [2, 8, 2, 16], [2, 8, 3, 16], [2, 8, 16]]
 
 
-@pytest.mark.parametrize("cell", ["train", "decode", "decode_seqshard"])
+@pytest.mark.parametrize("cell", ["train", "decode", "decode_seqshard",
+                                  "moe_train"])
 def test_argument_bytes_equal_jax_memory_analysis(runs, cell):
     assert runs["fake"]["arguments"][cell] == runs["jax"]["arguments"][cell]
 
@@ -181,7 +185,13 @@ def test_argument_bytes_equal_jax_memory_analysis(runs, cell):
 #: the most the port's collective bytes may be of JAX's HLO count, per
 #: cell: (all-reduce bytes, wire bytes); None where the cell holds no bound
 COLLECTIVE_BOUNDS = {"train": (1.5, 1.5), "decode": (None, 1.25),
-                     "decode_seqshard": (None, 1.25)}
+                     "decode_seqshard": (None, 1.25),
+                     "moe_train": (1.5, 1.5)}
+#: the most the reduced Qwen3-MoE's train cell on (pod 2, data 2, model 2)
+#: may read of the same cell on (data 2, model 2) at the same global batch:
+#: per-rank temp bytes, and wire bytes (an FSDP weight's gather does not
+#: shrink with the data dims, in JAX's program either)
+POD_SCALING = {"temp": 0.6, "wire": 0.75}
 
 
 @pytest.mark.parametrize("cell", list(COLLECTIVE_BOUNDS))
@@ -200,6 +210,28 @@ def test_collective_bytes_within_jax_hlo_count(runs, cell):
     if ar_bound is not None:
         assert port["coll_by_kind"].get("all-reduce", 0) <= \
             ar_bound * jax["coll_by_kind"]["all-reduce"], msg
+
+
+@pytest.mark.parametrize("reading", list(POD_SCALING))
+def test_pod_axis_shrinks_the_moe_train_step_per_rank(runs, reading):
+    """Twice the data-parallel ranks hold half the rows each: the MoE train
+    step's per-rank temp and wire bytes fall with the pod axis (the
+    Adafactor update of the expert leaves in the gradient's layout, the
+    weights gathered and their gradients reduced over both data dims at
+    once)."""
+    single, multi = (runs["fake"]["scale"][m] for m in ("single", "multi"))
+    msg = f"(data 2, model 2) {single}; (pod 2, data 2, model 2) {multi}"
+    assert single[reading] > 0, msg
+    assert multi[reading] <= POD_SCALING[reading] * single[reading], msg
+
+
+def test_train_step_with_one_kv_head_at_a_model_dim_of_1(runs):
+    """The reduced Yi-6B's one KV head, "split" over a model dim of 1: the
+    backward merges a dim of size 1 sharded over a mesh dim of size 1,
+    which DTensor refuses to reshape; the ``split_heads`` region
+    replicates it there (no collective)."""
+    got = runs["fake"]["one_kv"]
+    assert got["status"] == "ok" and got["coll_bytes"] > 0, got
 
 
 @pytest.mark.parametrize("arch", ["qwen2.5-32b", "whisper-tiny"])
@@ -252,6 +284,23 @@ def test_sharded_step_equals_the_unsharded_port(runs, cell):
         if kind == "prefill" and cell != "moe_shmap":
             # (JAX's shard_map returns data rank 0's aux: ROADMAP §3)
             assert got["aux"] <= GLOO_TOL, (cell, got)
+
+
+@pytest.mark.parametrize("case", ["gather0", "gather1", "scatter0",
+                                  "scatter1", "reduce"])
+def test_flat_data_collective_equals_dtensors_redistribution(runs, case):
+    """On (pod 2, data 2, model 1), ``_redistribute`` gathers,
+    reduce-scatters or all-reduces over both data dims in one collective
+    and each rank ends with the shard DTensor's own redistribution gives
+    (summed in another order: 1e-5)."""
+    kind = {"gather": "all_gather_into_tensor",
+            "scatter": "reduce_scatter_tensor",
+            "reduce": "all_reduce"}[case.rstrip("01")]
+    for r in runs["gloo"]:
+        got = r["flat"][case]
+        assert got["err"] <= GLOO_TOL and got["placements"], (r["rank"], got)
+        assert [(k.split(".")[1], v[0]) for k, v in got["comms"].items()] \
+            == [(kind, 1)], (r["rank"], got)
 
 
 def test_gloo_runs_take_every_region_and_copied_leaves(runs):

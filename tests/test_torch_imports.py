@@ -1,6 +1,7 @@
-"""The port stands alone: no file of ``src/repro_torch`` and not
-``chip_smoke.py`` imports JAX or the JAX package, and nothing falls back to
-the CPU on its own when the card is missing."""
+"""The port stands alone: no file of ``src/repro_torch``, not
+``chip_smoke.py`` and none of the port's examples (``examples/torch_*.py``)
+imports JAX or the JAX package, and nothing falls back to the CPU on its
+own when the card is missing."""
 
 import ast
 import os
@@ -28,8 +29,14 @@ MNIST_ART = os.path.join(PORT, "assets", "mnist_ttfs.npz")
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
+EXAMPLES = os.path.join(ROOT, "examples")
+
+
 def _port_files():
     yield os.path.join(ROOT, "chip_smoke.py")
+    for name in sorted(os.listdir(EXAMPLES)):
+        if name.startswith("torch_") and name.endswith(".py"):
+            yield os.path.join(EXAMPLES, name)
     for root, _, files in os.walk(PORT):
         for name in files:
             if name.endswith(".py"):
@@ -96,6 +103,13 @@ AUTHORING = ("core/quant.py", "core/codesign.py", "core/snn.py",
              "training/ttfs_trainer.py", "conformance/__init__.py",
              "conformance/fuzz.py", "conformance/oracles.py",
              "conformance/golden.py", "telemetry/export.py")
+
+
+def test_walk_covers_the_ports_examples():
+    walked = {os.path.relpath(p, ROOT) for p in _port_files()}
+    assert {f"examples/torch_{n}.py" for n in (
+        "quickstart", "train_ttfs_mnist", "serve_lm", "train_lm",
+        "elastic_restart")} <= walked
 
 
 def test_walk_covers_the_authoring_modules():
