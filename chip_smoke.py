@@ -400,15 +400,25 @@ Phases (any failure exits non-zero; nothing is caught):
                the same collectives, op for op and byte for byte, as each
                gloo rank of phase 6e counted under CommDebugMode. (c)
                DRYRUN_CELLS at full width on the production meshes, each
-               in a `python -m repro_torch.launch.dryrun` process of its own
-               started with the phase, each ok, with its roofline row,
+               in a process of its own started with the phase
+               (`tests/_torch_dryrun_fake.py OUT sites ...`: the record,
+               and each collective tagged with its kind, mesh dims, call
+               site and direction), each ok, with its roofline row,
                fits, collective bytes by kind and wire bytes a rank,
-               local_regions, no_effect and build and run seconds
-               (Mamba2-780M's train cell among them: the tied embedding's
-               two gradients; Qwen3-MoE's train cell on two pods, which
-               must fit and read at most MOE_TRAIN_POD_RATIO of one pod's
-               temp, MOE_TRAIN_SINGLE_TEMP). No kernel launches; the phase
-               within DRYRUN_PHASE_S;
+               local_regions, no_effect and build and run seconds, the
+               sites' bytes the record's (Mamba2-780M's train cell among
+               them: the tied embedding's two gradients; Qwen3-MoE's
+               train cell on two pods, which must fit and read at most
+               MOE_TRAIN_POD_RATIO of one pod's temp,
+               MOE_TRAIN_SINGLE_TEMP). The Qwen3-8B, Qwen3-MoE and
+               Mamba2 train cells (DRYRUN_SITE_CELLS) print their
+               collectives by site, pass no shard between tensor dims (no
+               all-to-all); Qwen3-8B's and Mamba2's on one pod read torch
+               2.13's bytes by kind (DRYRUN_2_13) within
+               DRYRUN_RELEASE_TOL; no train
+               cell on two pods moves more than a scalar over one data dim
+               alone. No kernel launches; the phase within
+               DRYRUN_PHASE_S;
   6g. examples — the port's five examples (examples/torch_*.py) at their
                defaults through their main(), artifacts and checkpoints
                in a temporary directory, each counted (its launches are
@@ -745,8 +755,33 @@ DIST_LM_LAYERS, DIST_SPAWN_S = 2, 300
 DRYRUN_CELLS = (("qwen3-8b", "train_4k", False, "baseline"),
                 ("qwen3-moe-235b-a22b", "prefill_32k", True, "moe_shmap"),
                 ("mamba2-780m", "train_4k", False, "baseline"),
-                ("qwen3-moe-235b-a22b", "train_4k", True, "baseline"))
+                ("qwen3-moe-235b-a22b", "train_4k", True, "baseline"),
+                ("qwen3-8b", "train_4k", True, "baseline"),
+                ("qwen3-moe-235b-a22b", "train_4k", False, "baseline"))
 DRYRUN_PHASE_S = 180
+#: the cells whose collectives phase 6f prints by call site
+#: (tests/_torch_dryrun_fake.py's tagging: kind, mesh dims, site,
+#: direction)
+DRYRUN_SITE_CELLS = (("qwen3-8b", "train_4k"),
+                     ("qwen3-moe-235b-a22b", "train_4k"),
+                     ("mamba2-780m", "train_4k"))
+#: (arch, shape, mesh) -> per-rank collectives by kind, [calls, bytes], on
+#: torch 2.13 (a CPU build, the fake group on "cpu"; `python
+#: tests/_torch_dryrun_fake.py OUT sites ARCH SHAPE MESH baseline cpu`);
+#: the card's torch must read the same bytes by kind within
+#: DRYRUN_RELEASE_TOL: the record does not move with torch
+DRYRUN_2_13 = {
+    ("qwen3-8b", "train_4k", "single"): {
+        "all-gather": [1155, 21_940_113_408],
+        "all-reduce": [369, 102_543_747_088],
+        "reduce-scatter": [326, 365_978_176]},
+    ("mamba2-780m", "train_4k", "single"): {
+        "all-gather": [1493, 166_209_012_736],
+        "all-reduce": [677, 21_178_826_320],
+        "reduce-scatter": [97, 15_137_280]}}
+DRYRUN_RELEASE_TOL = 1e-3
+#: the rows of a DRYRUN_SITE_CELLS cell printed, largest bytes first
+DRYRUN_SITE_ROWS = 16
 #: Qwen3-MoE's train_4k cell on one pod (256 ranks): its per-rank temp
 #: bytes in the torch 2.11 sweep of record (`python3 -m
 #: repro_torch.launch.dryrun --all` on an H100 host, PERF.md §6); the
@@ -4785,14 +4820,16 @@ def main() -> int:
         reset_launches()
         # (c)'s full-width cells run in processes of their own from the
         # start (each its own fake group; the host's cores in parallel)
+        # (each tags its collectives by call site: the tests' helper)
         cell_dir = tempfile.mkdtemp(prefix="dryrun_cells_")
         env = dict(os.environ, PYTHONPATH=os.pathsep.join(
             [SRC] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
         cells = {c: subprocess.Popen(
-            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-             c[0], "--shape", c[1], "--mesh", "multi" if c[2] else "single",
-             "--variant", c[3], "--out", cell_dir], env=env,
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            [sys.executable, os.path.join(ROOT, "tests",
+                                          "_torch_dryrun_fake.py"),
+             cell_dir, "sites", c[0], c[1], "multi" if c[2] else "single",
+             c[3], "cuda"], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
             for c in DRYRUN_CELLS}
 
         def show(rec, t0):
@@ -4826,6 +4863,58 @@ def main() -> int:
             rec = DR.run_cell(arch, shape, multi, variant=variant,
                               write=False, **kw)
             return rec, show(rec, t0)
+
+        def dryrun_sites(rec, sites):
+            """A full-width cell's collectives by call site: the rows of
+            DRYRUN_SITE_CELLS printed; the cells of DRYRUN_2_13 held to
+            torch 2.13's bytes by kind; no cell of
+            DRYRUN_SITE_CELLS passes a shard between tensor dims (DTensor's
+            all-to-all); on two pods no train cell moves anything larger
+            than a scalar over one data dim alone."""
+            arch, shape, mesh_name = rec["arch"], rec["shape"], rec["mesh"]
+            by_kind = {}
+            for r in sites:
+                e = by_kind.setdefault(r["kind"], [0, 0])
+                e[0] += r["calls"]
+                e[1] += r["bytes"]
+            check(sum(n for _, n in by_kind.values()) == sum(
+                rec["coll_by_kind"].values()), f"{arch} {shape} "
+                f"{mesh_name}: the sites' bytes {by_kind} are not the "
+                f"record's {rec['coll_by_kind']}")
+            if (arch, shape) in DRYRUN_SITE_CELLS:
+                print(f"{tag} {arch} {shape} {mesh_name}: collectives by "
+                      f"kind [calls, bytes] {json.dumps(by_kind)} (torch "
+                      f"{torch.__version__}); by call site, largest first:")
+                for r in sites[:DRYRUN_SITE_ROWS]:
+                    print(f"{tag}   {r['kind']} over {r['dims']} "
+                          f"({r['group']} ranks) at {r['site']}, "
+                          f"{'backward' if r['bwd'] else 'forward'}"
+                          f"{', a shard moved' if r['shard_move'] else ''}, "
+                          f"{r['dtype']} {r['shape']}: {r['calls']} calls, "
+                          f"{r['bytes']} B")
+            ref = DRYRUN_2_13.get((arch, shape, mesh_name))
+            if ref is not None:
+                for kind in sorted(set(by_kind) | set(ref)):
+                    got = by_kind.get(kind, [0, 0])
+                    want = ref.get(kind, [0, 0])
+                    print(f"{tag} {arch} {shape} {mesh_name} {kind}: {got[0]} "
+                          f"calls, {got[1]} B here (torch "
+                          f"{torch.__version__}); torch 2.13 {want[0]} "
+                          f"calls, {want[1]} B")
+                    check(abs(got[1] - want[1]) <= DRYRUN_RELEASE_TOL *
+                          want[1], f"{arch} {shape} {mesh_name}: {kind} "
+                          f"{got[1]} B, torch 2.13 {want[1]} B (limit "
+                          f"{DRYRUN_RELEASE_TOL} of it)")
+            if (arch, shape) in DRYRUN_SITE_CELLS:
+                moved = [r for r in sites if r["shard_move"]
+                         or r["kind"] == "all-to-all"]
+                check(not moved, f"{arch} {shape} {mesh_name}: a shard "
+                      f"passed between tensor dims: {moved}")
+            if mesh_name == "multi" and shape.startswith("train"):
+                one = [r for r in sites if r["dims"] in ("pod", "data")
+                       and r["bytes"] > 8 * r["calls"]]
+                check(not one, f"{arch} {shape} multi: moved over one "
+                      f"data dim alone: {one}")
 
         # (a) world 1 against the card's own runs: phase 6d's Yi-6B step
         # (TRAIN_LAYERS of 32 layers, float32, AdamW at 3e-4, remat) and
@@ -4916,21 +5005,23 @@ def main() -> int:
                 t0 = time.perf_counter()
                 left = max(DRYRUN_PHASE_S - (t0 - t_phase), 1.0)
                 try:
-                    log, _ = proc.communicate(timeout=left)
+                    log, err = proc.communicate(timeout=left)
                 except subprocess.TimeoutExpired:
                     fail(f"phase 6f: {arch} {shape} did not end within "
                          f"{DRYRUN_PHASE_S} s of the phase's start")
-                check(proc.returncode == 0, f"{arch} {shape} "
-                      f"{'multi' if multi else 'single'} {variant}: rc "
-                      f"{proc.returncode}: {log[-3000:]}")
-                stem = DR._stem(arch, shape, "multi" if multi else "single",
-                                variant)
+                mesh_name = "multi" if multi else "single"
+                check(proc.returncode == 0 and "RESULT " in log,
+                      f"{arch} {shape} {mesh_name} {variant}: rc "
+                      f"{proc.returncode}: {err[-3000:]}")
+                stem = DR._stem(arch, shape, mesh_name, variant)
                 with open(os.path.join(cell_dir, stem + ".json")) as f:
                     rec = json.load(f)
+                sites = json.loads(log.split("RESULT ", 1)[1])["sites"]
                 print(f"{tag} {stem}: its process ended "
                       f"{time.perf_counter() - t_phase:.1f} s into the "
                       f"phase")
                 show(rec, t0)
+                dryrun_sites(rec, sites)
                 if (arch, shape, multi) == ("qwen3-moe-235b-a22b",
                                             "train_4k", True):
                     temp = rec["memory_analysis"]["temp_size_in_bytes"]

@@ -38,7 +38,9 @@ under JAX's file stems and record keys:
     its readers, in float32), reduced once where JAX reduces (``REGIONS``).
     No region is skipped and no op is dropped; each computes only what
     needs its collectives and calls the model's own functions for the
-    rest. The tests hold the collective bytes of three reduced cells to
+    rest. Their redistributions are explicit (``_redistribute``: no
+    all-to-all), so torch releases and devices issue the same collectives
+    there. The tests hold the collective bytes of four reduced cells to
     JAX's HLO count (``tests/test_torch_dryrun.py``).
   * ``no_effect``: each configuration field the port lacks.
   * ``lower_s``: the time to build the fake step; ``compile_s`` the time
@@ -191,7 +193,9 @@ REGIONS = {
                "(JAX's ('data', None, None) on x) and its experts' shards "
                "(E or f on 'model'), its part of the output a Partial sum "
                "over 'model'; the load-balance loss from moe.balance's "
-               "means summed over the data dims, as over the whole batch",
+               "means summed over the data dims (both in one all-reduce), "
+               "as over the whole batch, the same on every model rank and "
+               "its gradient carried by model rank 0",
     "moe_ffn_shard_map": "models/moe.py::moe_ffn_shard_map: JAX's "
                          "shard_map; each rank runs moe.shard_map_body on "
                          "its rows and its E / model experts (JAX's in_specs)",
@@ -257,18 +261,50 @@ REGIONS = {
              "optimiser's float32 casts, three times a leaf); it is "
              "reduced once, in its own dtype, to its parameter's "
              "placements, as JAX's gradient takes its parameter's sharding",
-    "adafactor": "training/optim.py::factored_means, factored_scale: "
-                 "DTensor lays the row and column means of an expert "
-                 "leaf's squared gradient, and the outer product of its "
-                 "factored moments, out as the moments are laid out "
+    "grad_norm": "training/lm_step.py::_add_sq, _grad_norm: DTensor "
+                 "reduces each gradient's sum of squares as it is added "
+                 "(torch 2.11: two all-reduces a leaf) or once at the end "
+                 "(2.13); each rank's sum of its shard (one copy on a "
+                 "replicated dim) is added as a partial sum, reduced once "
+                 "before the root, as JAX reduces the norm",
+    "adafactor": "training/optim.py::factored_means, factored_moment, "
+                 "factored_scale: DTensor lays the row and column means of "
+                 "an expert leaf's squared gradient, and the outer product "
+                 "of its factored moments, out as the moments are laid out "
                  "(experts on the data dims), not as the gradient is "
                  "(experts on 'model'), and moves the leaf-sized float32 "
                  "tensors between the two; each rank takes its shard's "
                  "means (a partial sum where the gradient splits the "
                  "reduced dim) and divides its shard of the gradient by "
-                 "its shard of the product, the moments' small factors "
-                 "moved to the gradient's layout, as JAX's partitioner "
-                 "computes the update in the gradient's sharding",
+                 "its shard of the product, as JAX's partitioner computes "
+                 "the update in the gradient's sharding. The small factors "
+                 "move between the two layouts gathered whole on the mesh "
+                 "dims that change and cut there (_redistribute): DTensor's "
+                 "all-to-all for a shard that changes dims is an "
+                 "all-gather on a CPU mesh and takes other steps on other "
+                 "torch releases",
+    "qk_norm": "models/model.py::LM._qk_norm: DTensor multiplies q or k, "
+               "whole on 'model' where the model dim does not divide its "
+               "heads, by the norm's scale sharded on 'model' into a "
+               "head_dim shard (torch 2.13), which the rope gathers back in "
+               "float32; the (d_head,) scale is gathered first, as JAX's "
+               "partitioner gathers it, so q and k keep their heads' "
+               "placements",
+    "wgather": "models/model.py::LM._gather_weights (cfg.fsdp_weight_gather): "
+               "DTensor's redistribution of an FSDP weight to its TP-only "
+               "spec reduces its gradient over each data dim in turn (an "
+               "all-reduce over 'data', a reduce-scatter over 'pod'); each "
+               "weight is gathered, and its gradient reduce-scattered, over "
+               "both data dims in one collective (_DataGather), as JAX's "
+               "partitioner does",
+    "ssm_mixer": "models/mamba2.py::mamba2_mixer, _split_columns: DTensor "
+                 "multiplies the whole activations by the mixer's "
+                 "per-channel leaves (conv_w, conv_b, A_log, D, dt_bias, "
+                 "norm), sharded on 'model', into shards it moves again "
+                 "later, and splits the in_proj product's sharded columns "
+                 "in steps that differ between torch releases; the leaves "
+                 "are gathered first and the columns gathered whole before "
+                 "the split, each by _DataGather",
     "ssd_chunked": "models/mamba2.py::ssd_chunked: DTensor does not finish "
                    "propagating its 5-D batched products; each rank runs it "
                    "on its batch rows and heads (JAX's ('data', None, None, "
@@ -499,38 +535,82 @@ def _flat_group(mesh, dims):
 
 
 def _redistribute(t, placements):
-    """``t.redistribute(mesh, placements)``, except where both data dims
-    ("pod", "data") move together from ``Shard(i)`` to ``Replicate()``,
-    from ``Partial()`` to ``Shard(i)`` or from ``Partial()`` to
-    ``Replicate()``: there one collective over the two flattened (pod
-    major, as the shards lie) gathers, reduce-scatters or all-reduces, as
-    JAX's partitioner does over ("pod", "data"), where DTensor issues one
-    a mesh dim (a gather of half the result before the whole, an
-    all-reduce of the whole before the scatter). The other mesh dims are
-    redistributed first, by DTensor."""
-    import torch.distributed._functional_collectives as funcol
-    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    """``t`` redistributed to ``placements`` a step at a time, each step
+    that moves data one explicit collective: a mesh dim (or both data dims
+    ("pod", "data") where they move together, as JAX's partitioner moves
+    them over the flattened pair, pod major as the shards lie) gathered
+    from ``Shard(i)`` or all-reduced from ``Partial()`` to
+    ``Replicate()``, innermost first; then, outermost first, each cut to
+    ``Shard(i)`` (locally, by DTensor) or reduce-scattered from
+    ``Partial()``. A shard that changes tensor dims is gathered and cut.
+    DTensor's own plan issues one collective a data dim (a gather of half
+    the result before the whole, an all-reduce of the whole before the
+    scatter), an all-to-all for a shard that changes dims (an all-gather on
+    a CPU mesh), and takes other steps on other torch releases; here every
+    release and device issues the same collectives. A step this cannot
+    take explicitly (a shard nested inside another on the same tensor
+    dim) is DTensor's."""
+    from torch.distributed.tensor import Replicate, Shard
     mesh = t.device_mesh
     names = list(mesh.mesh_dim_names)
     dp = [names.index(a) for a in SH.dp_axes(mesh)]
-    src, dst = list(t.placements), list(placements)
-    if len(dp) != 2 or src[dp[0]] != src[dp[1]] or \
-            dst[dp[0]] != dst[dp[1]] or src[dp[0]] == dst[dp[0]]:
-        return t.redistribute(mesh, dst)
-    a, b = src[dp[0]], dst[dp[0]]
-    n = mesh.size(dp[0]) * mesh.size(dp[1])
-    if type(a) is Shard and b == Replicate():
+    dst = list(placements)
+    cur = list(t.placements)
+    if cur == dst:
+        return t
+    units = [[i] for i in range(len(names))]
+    if len(dp) == 2 and cur[dp[0]] == cur[dp[1]] and \
+            dst[dp[0]] == dst[dp[1]] and cur[dp[0]] != dst[dp[0]]:
+        units = [dp] + [[i] for i in range(len(names)) if i not in dp]
+    # gathers and reductions to Replicate(), innermost unit first
+    for u in sorted(units, key=max, reverse=True):
+        a, b = cur[u[0]], dst[u[0]]
+        if a != b and not a.is_replicate() and (
+                b.is_replicate() or (isinstance(a, Shard) and
+                                     isinstance(b, Shard))):
+            t = _step(t, u, Replicate())
+            cur = list(t.placements)
+    # cuts and reduce-scatters, outermost unit first
+    for u in sorted(units, key=min):
+        if cur[u[0]] != dst[u[0]]:
+            t = _step(t, u, dst[u[0]])
+            cur = list(t.placements)
+    return t
+
+
+def _step(t, unit, b):
+    """``t`` with the mesh dims ``unit`` (one, or the two data dims, which
+    share a placement) moved to ``b``: one collective over their
+    (flattened) group where data moves, none over a group of one rank,
+    else DTensor's local step."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = t.device_mesh
+    src = list(t.placements)
+    a = src[unit[0]]
+    dst = [b if i in unit else p for i, p in enumerate(src)]
+    inner = [p for i, p in enumerate(src) if i > max(unit)]
+    if math.prod(mesh.size(i) for i in unit) == 1:   # nothing moves
+        return DTensor.from_local(t.to_local(), mesh, dst, run_check=False,
+                                  shape=t.shape, stride=t.stride())
+
+    def even(dim, placements):        # equal shards on every rank
+        return t.shape[dim] % math.prod(
+            mesh.size(i) for i, p in enumerate(placements)
+            if p == Shard(dim)) == 0
+    if isinstance(a, Shard) and b == Replicate() and a not in inner and \
+            even(a.dim, src):
         kind = "gather"
-    elif a == Partial() and type(b) is Shard and t.shape[b.dim] % n == 0:
+    elif a == Partial() and isinstance(b, Shard) and b not in inner and \
+            even(b.dim, dst):
         kind = "scatter"
     elif a == Partial() and b == Replicate():
         kind = "reduce"
     else:
         return t.redistribute(mesh, dst)
-    mid = [src[i] if i in dp else dst[i] for i in range(len(names))]
-    if mid != src:
-        t = t.redistribute(mesh, mid)
-    group = _flat_group(mesh, tuple(names[i] for i in dp))
+    names = mesh.mesh_dim_names
+    group = _flat_group(mesh, tuple(names[i] for i in unit)) \
+        if len(unit) > 1 else (mesh, unit[0])
     local = t.to_local()
     if kind == "gather":
         out = funcol.all_gather_tensor(local, a.dim, group)
@@ -544,10 +624,10 @@ def _redistribute(t, placements):
 
 
 class _DataGather(torch.autograd.Function):
-    """A ``DTensor`` gathered over the data dims to ``placements``
-    (``_dp_replicated``: an FSDP weight at use) by ``_redistribute``; its
-    gradient, partial over the data dims, reduced back to the input's
-    placements the same way."""
+    """A ``DTensor`` moved to ``placements`` by ``_redistribute`` (an FSDP
+    weight gathered over the data dims at use, ``_dp_replicated``; columns
+    gathered whole); its gradient, partial where the work was split, moved
+    back to the input's placements the same way."""
 
     @staticmethod
     def forward(ctx, t, placements):
@@ -573,6 +653,21 @@ class _Gather(_DataGather):
         return g.redistribute(g.device_mesh, pl), None
 
 
+class _GradOnFirst(torch.autograd.Function):
+    """The identity on a value every rank of a mesh dim computes alike; its
+    gradient zero on all but the first (``first``), so that the inputs'
+    gradients, summed over that dim, count it once."""
+
+    @staticmethod
+    def forward(ctx, t, first):
+        ctx.first = first
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g if ctx.first else torch.zeros_like(g)), None
+
+
 def _moe_region(real, used):
     def moe_ffn(x, p, *, n_experts, top_k, capacity_factor=1.0,
                 constrain=None, buf_mode="e_sharded"):
@@ -593,9 +688,12 @@ def _moe_region(real, used):
         split = m is not None and w["w_gate"][m] != Replicate()
         data = [i for i, pl in enumerate(rows) if pl != Replicate()]
         n_rows = math.prod(mesh.size(i) for i in data)
+        # the data dims' group: both flattened into one where there are two
+        data_groups = [_flat_group(mesh, tuple(names[i] for i in data))] \
+            if len(data) > 1 else [mesh.get_group(i) for i in data]
         out_pl, aux_pl = list(rows), list(rep)
         if split:                     # each model rank a part of the sum
-            out_pl[m] = aux_pl[m] = Partial()
+            out_pl[m] = Partial()
         kw = dict(n_experts=n_experts, top_k=top_k,
                   capacity_factor=capacity_factor)
 
@@ -612,11 +710,12 @@ def _moe_region(real, used):
             probs = moe._probs(x, router)
             me, ce = moe.balance(probs, moe.topk(probs, top_k)[1],
                                  n_experts)
-            for i in data:
-                me, ce = _sum(me, mesh, i), _sum(ce, mesh, i)
+            for group in data_groups:
+                me = moe._AllReduce.apply(me, group)
+                ce = moe._AllReduce.apply(ce, group)
             aux = moe.balance_loss(me / n_rows, ce / n_rows)
-            if split and mesh.get_local_rank(m) != 0:
-                aux = aux * 0                 # model rank 0's term alone
+            if split:            # the same on every model rank: one carries
+                aux = _GradOnFirst.apply(aux, mesh.get_local_rank(m) == 0)
             return out, aux
 
         ins = (rows, rep, w["w_gate"], w["w_up"], w["w_down"])
@@ -697,25 +796,129 @@ def _moments_region(real, used):
     return factored_means
 
 
+def _moment_region(real, used):
+    def factored_moment(v, beta, new):
+        if not (_whole(v) and _is_dtensor(new)) or \
+                tuple(new.placements) == tuple(v.placements):
+            return real(v, beta, new)
+        used.add("adafactor")
+        return real(v, beta, _redistribute(new, v.placements))
+    return factored_moment
+
+
 def _scale_region(real, used):
     def factored_scale(g, vr, vc):
         if not _whole(g):
             return real(g, vr, vc)
-        from torch.distributed.tensor import Replicate
+        import torch.distributed._functional_collectives as funcol
+        from torch.distributed.tensor import Replicate, Shard
         from torch.distributed.tensor.experimental import local_map
         used.add("adafactor")
-        nd, pl = g.dim(), list(g.placements)
-        rden = torch.mean(vr, dim=-1, keepdim=True)
-        r, c = torch.sqrt(vr / rden), torch.sqrt(vc)
+        nd, pl, mesh = g.dim(), list(g.placements), g.device_mesh
+        n = vr.shape[-1]
+        on = [i for i, p in enumerate(vr.placements)
+              if p == Shard(vr.dim() - 1)]
+
+        def roots(vr):                  # sqrt(vr / mean(vr)), in vr's layout
+            den = vr.sum(dim=-1, keepdim=True)
+            for i in on:
+                den = funcol.all_reduce(den, "sum", (mesh, i))
+            return torch.sqrt(vr / (den / n))
+
+        vr_pl = list(vr.placements)
+        r = local_map(roots, out_placements=vr_pl, in_placements=(vr_pl,),
+                      device_mesh=mesh)(vr)
+        r_pl = _drop_dim(pl, nd - 1, Replicate())
+        c_pl = _drop_dim(pl, nd - 2, Replicate())
+        r, c = _redistribute(r, r_pl), _redistribute(torch.sqrt(vc), c_pl)
 
         def local(g, r, c):
             return g / (r[..., None] * c[..., None, :] + 1e-16)
 
-        return local_map(local, out_placements=pl, in_placements=(
-            pl, _drop_dim(pl, nd - 1, Replicate()),
-            _drop_dim(pl, nd - 2, Replicate())), device_mesh=g.device_mesh,
-            redistribute_inputs=True)(g, r, c)
+        return local_map(local, out_placements=pl,
+                         in_placements=(pl, r_pl, c_pl),
+                         device_mesh=mesh)(g, r, c)
     return factored_scale
+
+
+#: the Mamba-2 mixer's per-channel and per-head leaves
+_SSM_LEAVES = ("conv_w", "conv_b", "A_log", "D", "dt_bias", "norm")
+
+
+def _mixer_region(real, used):
+    def mamba2_mixer(x, p, cfg, constrain=None, state=None,
+                     return_state=False):
+        if _is_dtensor(x):
+            from torch.distributed.tensor import Replicate
+            rep = [Replicate()] * x.device_mesh.ndim
+            leaves = [k for k in _SSM_LEAVES if _is_dtensor(p.get(k))
+                      and list(p[k].placements) != rep]
+            if leaves:
+                used.add("ssm_mixer")
+                p = {**p, **{k: _DataGather.apply(p[k], rep)
+                             for k in leaves}}
+        return real(x, p, cfg, constrain, state=state,
+                    return_state=return_state)
+    return mamba2_mixer
+
+
+def _columns_region(real, used):
+    def _split_columns(t, sizes):
+        if _is_dtensor(t):
+            from torch.distributed.tensor import Replicate, Shard
+            last = Shard(t.dim() - 1)
+            pl = [Replicate() if p == last else p for p in t.placements]
+            if pl != list(t.placements):
+                used.add("ssm_mixer")
+                t = _DataGather.apply(t, pl)
+        return real(t, sizes)
+    return _split_columns
+
+
+class _Reduced(torch.autograd.Function):
+    """``t``'s partial sums reduced by ``_redistribute``; its gradient's
+    too, since each rank's part takes the whole sum's gradient."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return _redistribute(t, _reduced(t.placements))
+
+    @staticmethod
+    def backward(ctx, g):
+        return _redistribute(g, _reduced(g.placements))
+
+
+def _reduced(placements):
+    from torch.distributed.tensor import Replicate
+    return [Replicate() if p.is_partial() else p for p in placements]
+
+
+def _skip_region(real, used):
+    def _skip(y, D, x_in):
+        if _is_dtensor(y) and list(x_in.placements) != list(y.placements):
+            used.add("ssm_mixer")
+            x_in = _DataGather.apply(x_in, list(y.placements))
+        return real(y, D, x_in)
+    return _skip
+
+
+def _gated_norm_region(real, used):
+    def _gated_norm_out(y, z, p, eps):
+        if _is_dtensor(y) and list(z.placements) != list(y.placements):
+            used.add("ssm_mixer")
+            z = _DataGather.apply(z, list(y.placements))
+        return real(y, z, p, eps)
+    return _gated_norm_out
+
+
+def _mean_last_region(real, used):
+    def _mean_last(t):
+        m = real(t)
+        if _is_dtensor(m) and any(p.is_partial() for p in m.placements):
+            used.add("ssm_mixer")
+            m = _Reduced.apply(m)
+        return m
+    return _mean_last
 
 
 def _ssd_region(real, used):
@@ -748,10 +951,13 @@ def _ssd_region(real, used):
         args = (x, a, B_, C_)
         if init_state is not None:
             ins, args = ins + (state,), args + (init_state,)
+        # each input cut to its placements here, its gradient moved back by
+        # _redistribute
+        args = [_DataGather.apply(t, pl) for t, pl in zip(args, ins)]
         return local_map(local, out_placements=(heads, state),
                          in_placements=ins,
                          in_grad_placements=_grads(ins, heads),
-                         device_mesh=mesh, redistribute_inputs=True)(*args)
+                         device_mesh=mesh)(*args)
     return ssd_chunked
 
 
@@ -871,6 +1077,67 @@ def _norm_region(real, used):
     return _norm
 
 
+def _qk_norm_region(real, used):
+    def _qk_norm(self, t, scale):
+        if not _is_dtensor(scale) or all(p.is_replicate()
+                                         for p in scale.placements):
+            return real(self, t, scale)
+        from torch.distributed.tensor import Replicate
+        used.add("qk_norm")
+        return real(self, t, _DataGather.apply(
+            scale, [Replicate()] * scale.device_mesh.ndim))
+    return _qk_norm
+
+
+def _wgather_region(real, used):
+    def _gather_weights(self, sub):
+        con = self.constrain
+        if con is None or not self.cfg.fsdp_weight_gather or \
+                not any(_is_dtensor(v) for v in sub.values()):
+            return real(self, sub)
+        used.add("wgather")
+
+        def gather(x, axes):               # to the TP-only spec, as con
+            if not _is_dtensor(x):
+                return con(x, axes)
+            return _DataGather.apply(x, _placements(x.device_mesh, x.shape,
+                                                    axes))
+        gather.mesh = con.mesh
+        self.constrain = gather
+        try:
+            return real(self, sub)
+        finally:
+            self.constrain = con
+    return _gather_weights
+
+
+def _add_sq_region(real, used):
+    def _add_sq(sq, g):
+        if not _is_dtensor(g):
+            return real(sq, g)
+        from torch.distributed.tensor import DTensor, Partial
+        used.add("grad_norm")
+        mesh = g.device_mesh
+        local = torch.sum(torch.square(g.to_local().to(torch.float32)))
+        for i, p in enumerate(g.placements):
+            if p.is_replicate() and mesh.get_local_rank(i) != 0:
+                local = local * 0     # one copy counts on a replicated dim
+        s = DTensor.from_local(local, mesh, [Partial()] * mesh.ndim,
+                               run_check=False)
+        return s if sq is None else sq + s
+    return _add_sq
+
+
+def _grad_norm_region(real, used):
+    def _grad_norm(sq):
+        if not _is_dtensor(sq):
+            return real(sq)
+        from torch.distributed.tensor import Replicate
+        used.add("grad_norm")
+        return real(_redistribute(sq, [Replicate()] * sq.device_mesh.ndim))
+    return _grad_norm
+
+
 def _grad_region(real, used):
     def _grad(t):
         g = real(t)
@@ -934,8 +1201,7 @@ class _WholeHeadsGrad(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return g.redistribute(g.device_mesh, _whole_heads(g, ctx.heads)), \
-            None
+        return _redistribute(g, _whole_heads(g, ctx.heads)), None
 
 
 class _UnitDimGrad(torch.autograd.Function):
@@ -958,6 +1224,32 @@ class _UnitDimGrad(torch.autograd.Function):
             for i, p in enumerate(g.placements)])
 
 
+class _SplitHeads(torch.autograd.Function):
+    """``split(t, heads)``, the model's head split of ``t`` (B, S, heads *
+    d_head), whose columns are whole or a whole number of heads a shard;
+    its gradient merged back on each rank's shard, its partial sums kept
+    for the columns' own reduction (``_DataGather``). DTensor's view of a
+    partial gradient reduce-scatters it over the batch and gathers it back
+    (torch 2.13), where 2.11 keeps it partial."""
+
+    @staticmethod
+    def forward(ctx, t, heads, split):
+        ctx.pl, ctx.shape, ctx.stride = list(t.placements), t.shape, \
+            t.stride()
+        return split(t, heads)
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import DTensor
+        want = [p if p.is_partial() else q
+                for p, q in zip(g.placements, ctx.pl)]
+        g = _redistribute(g, want)
+        local = g.to_local()
+        return DTensor.from_local(
+            local.reshape(*local.shape[:2], -1), g.device_mesh, want,
+            run_check=False, shape=ctx.shape, stride=ctx.stride), None, None
+
+
 def _heads_region(real, used):
     def _split_heads(self, t, heads):
         if not _is_dtensor(t):
@@ -965,8 +1257,8 @@ def _heads_region(real, used):
         pl = _whole_heads(t, heads)
         if pl != list(t.placements):
             used.add("split_heads")
-            t = t.redistribute(t.device_mesh, pl)
-        out = real(self, t, heads)
+            t = _DataGather.apply(t, pl)
+        out = _SplitHeads.apply(t, heads, functools.partial(real, self))
         if heads == 1 and out.requires_grad and 1 in t.device_mesh.shape:
             used.add("split_heads")
             out = _UnitDimGrad.apply(out)
@@ -1068,6 +1360,11 @@ def _ssm_decode_region(real, used):
 #: where each region stands in: (module or class, attribute, region)
 _SITES = ((moe, "moe_ffn", _moe_region),
           (moe, "moe_ffn_shard_map", _shard_map_region),
+          (mamba2, "mamba2_mixer", _mixer_region),
+          (mamba2, "_split_columns", _columns_region),
+          (mamba2, "_skip", _skip_region),
+          (mamba2, "_gated_norm_out", _gated_norm_region),
+          (mamba2, "_mean_last", _mean_last_region),
           (mamba2, "ssd_chunked", _ssd_region),
           (mamba2, "mamba2_decode_step", _ssm_decode_region),
           (L, "decode_attention", _decode_attention_region),
@@ -1079,8 +1376,13 @@ _SITES = ((moe, "moe_ffn", _moe_region),
           (LM, "_merge_heads", _merge_region),
           (LM, "_residual", _residual_region),
           (LM, "_norm", _norm_region),
+          (LM, "_qk_norm", _qk_norm_region),
+          (LM, "_gather_weights", _wgather_region),
           (lm_step, "_grad", _grad_region),
+          (lm_step, "_add_sq", _add_sq_region),
+          (lm_step, "_grad_norm", _grad_norm_region),
           (O, "factored_means", _moments_region),
+          (O, "factored_moment", _moment_region),
           (O, "factored_scale", _scale_region))
 
 

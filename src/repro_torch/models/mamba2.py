@@ -130,7 +130,7 @@ def mamba2_mixer(x: torch.Tensor, p, cfg, constrain: Constrain | None = None,
     conv_ch = d_in + 2 * G * N
 
     zxbcdt = x @ p["in_proj"]                    # (B, S, 2*d_in + 2GN + H)
-    z, xBC, dt = torch.split(zxbcdt, [d_in, conv_ch, H], dim=-1)
+    z, xBC, dt = _split_columns(zxbcdt, [d_in, conv_ch, H])
 
     # causal depthwise conv over xBC (window K), then SiLU; the sum starts
     # from the first term, in x's dtype, as JAX's Python sum does
@@ -146,7 +146,7 @@ def mamba2_mixer(x: torch.Tensor, p, cfg, constrain: Constrain | None = None,
     xBC = F.silu(conv + p["conv_b"])
     new_conv = xp[:, S:, :]                      # the last K-1 raw inputs
 
-    x_in, B_, C_ = torch.split(xBC, [d_in, G * N, G * N], dim=-1)
+    x_in, B_, C_ = _split_columns(xBC, [d_in, G * N, G * N])
     x_in = x_in.reshape(B, S, H, P)
     B_ = B_.reshape(B, S, G, N)
     C_ = C_.reshape(B, S, G, N)
@@ -158,7 +158,7 @@ def mamba2_mixer(x: torch.Tensor, p, cfg, constrain: Constrain | None = None,
 
     y, fstate = ssd_chunked(x_dt, a, B_, C_, cfg.ssm_chunk, constrain,
                             init_state=None if state is None else state.state)
-    y = y + p["D"][:, None] * x_in.float()
+    y = _skip(y, p["D"], x_in)
     y = y.reshape(B, S, d_in).to(x.dtype)
     out = _gated_norm_out(y, z, p, cfg.norm_eps)
     if return_state:
@@ -166,11 +166,26 @@ def mamba2_mixer(x: torch.Tensor, p, cfg, constrain: Constrain | None = None,
     return out
 
 
+def _split_columns(t: torch.Tensor, sizes: list) -> tuple:
+    """``t``'s last dim split into parts of ``sizes`` columns."""
+    return torch.split(t, sizes, dim=-1)
+
+
+def _skip(y: torch.Tensor, D: torch.Tensor, x_in: torch.Tensor):
+    """The SSD's output y (B, S, H, P) plus the skip ``D * x_in``."""
+    return y + D[:, None] * x_in.float()
+
+
+def _mean_last(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s mean over its last dim, kept."""
+    return torch.mean(t, dim=-1, keepdim=True)
+
+
 def _gated_norm_out(y, z, p, eps):
     """Mamba-2's gated RMSNorm, then the output projection."""
     g = y * F.silu(z)
     g32 = g.float()
-    var = torch.mean(g32 * g32, dim=-1, keepdim=True)
+    var = _mean_last(g32 * g32)
     g = (g32 * torch.rsqrt(var + eps)).to(y.dtype)
     return (g * p["norm"]) @ p["out_proj"]
 

@@ -35,11 +35,12 @@ or without it. The MoE and SSD calls never meet a ``DTensor``: the dry-run
 runs those functions in regions on each rank's plain shards
 (``launch/dryrun.py``), whose placements stand in for them. It also
 carries the mesh, ``constrain.mesh``. ``_lookup``, ``_nll``, ``_store``,
-``_split_heads``, ``_merge_heads``, ``_norm`` and ``_residual`` are the
-points where the dry-run's regions step in for DTensor (the sharded
-lookup, log-sum-exp, cache write, head split and merge, a norm's
-gradient, the residual add of a row-parallel product); on plain tensors
-they are the model's own arithmetic. With
+``_split_heads``, ``_merge_heads``, ``_norm``, ``_qk_norm``,
+``_residual`` and ``_gather_weights`` are the points where the dry-run's
+regions step in for DTensor (the sharded lookup, log-sum-exp, cache
+write, head split and merge, a norm's gradient, q's and k's norm scale,
+the residual add of a row-parallel product, the weights gathered at use);
+on plain tensors they are the model's own arithmetic. With
 ``cfg.moe_buf_mode == "shard_map"`` and a mesh whose "model" dim divides E,
 each MoE sublayer runs ``moe.moe_ffn_shard_map`` over that mesh (expert
 parallel, one all-reduce); otherwise ``moe.moe_ffn``, with ``buf_mode``
@@ -404,9 +405,14 @@ class LM(nn.Module):
         k = self._split_heads(k, c.n_kv_heads)
         v = self._split_heads(v, c.n_kv_heads)
         if c.qk_norm:
-            q = L.rmsnorm(q, p["q_norm"], c.norm_eps)
-            k = L.rmsnorm(k, p["k_norm"], c.norm_eps)
+            q = self._qk_norm(q, p["q_norm"])
+            k = self._qk_norm(k, p["k_norm"])
         return q, k, v
+
+    def _qk_norm(self, t, scale):
+        """The per-head RMS norm of q or k (B, S, heads, d_head) with its
+        (d_head,) scale."""
+        return L.rmsnorm(t, scale, self.cfg.norm_eps)
 
     def _rope(self, q, k, positions):
         theta = self.cfg.rope_theta

@@ -92,7 +92,7 @@ def make_train_step(lm: LM, optimizer: O.Optimizer, *, grad_accum: int = 1,
         inner = opt_state["opt"] if compress_grads else opt_state
         step = inner["step"] + 1
         slots = [s for s in inner if s != "step"]
-        sq = torch.zeros((), dtype=torch.float32, device=lm.device)
+        sq = None                       # the gradients' sum of squares
         at = 0
         with torch.no_grad():
             for grp in groups:
@@ -104,7 +104,7 @@ def make_train_step(lm: LM, optimizer: O.Optimizer, *, grad_accum: int = 1,
                         grp.views:
                     # a period at a time, on slices of the leaf and state
                     for i, (g, p) in enumerate(zip(gs, grp.tensors)):
-                        sq = sq + torch.sum(torch.square(g.to(torch.float32)))
+                        sq = _add_sq(sq, g)
                         optimizer.update_leaf(
                             g, {s: v[i] if grp.stacked else v
                                 for s, v in state.items()}, p, step)
@@ -115,13 +115,25 @@ def make_train_step(lm: LM, optimizer: O.Optimizer, *, grad_accum: int = 1,
                     q, scale, opt_state["residual"][grp.path] = \
                         C.compress_leaf(g, opt_state["residual"][grp.path])
                     g = C.decompress_leaf(q, scale)
-                sq = sq + torch.sum(torch.square(g.to(torch.float32)))
+                sq = _add_sq(sq, g)
                 optimizer.update_leaf(g, state, grp.leaf, step)
         inner["step"] = step
         return opt_state, {"loss": loss.to(torch.float32),
-                           "grad_norm": torch.sqrt(sq), **metrics}
+                           "grad_norm": _grad_norm(sq), **metrics}
 
     return train_step
+
+
+def _add_sq(sq: torch.Tensor | None, g: torch.Tensor) -> torch.Tensor:
+    """``sq`` (None before the first) plus the float32 sum of ``g``'s
+    squares."""
+    s = torch.sum(torch.square(g.to(torch.float32)))
+    return s if sq is None else sq + s
+
+
+def _grad_norm(sq: torch.Tensor) -> torch.Tensor:
+    """The gradient norm from the gradients' sum of squares."""
+    return torch.sqrt(sq)
 
 
 def _grad(t: torch.Tensor) -> torch.Tensor:

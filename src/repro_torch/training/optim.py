@@ -114,6 +114,14 @@ def factored_means(g2: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return torch.mean(g2, dim=-1), torch.mean(g2, dim=-2)
 
 
+def factored_moment(v: torch.Tensor, beta: torch.Tensor,
+                    new: torch.Tensor) -> torch.Tensor:
+    """A factored moment ``v`` (``vr`` or ``vc``) updated in place:
+    ``beta * v + (1 - beta) * new``, ``new`` the matching mean of
+    ``factored_means``."""
+    return v.mul_(beta).add_((1 - beta) * new)
+
+
 def factored_scale(g: torch.Tensor, vr: torch.Tensor,
                    vc: torch.Tensor) -> torch.Tensor:
     """g over the root of the factored second moment, ``vr / mean(vr)``
@@ -146,8 +154,8 @@ def adafactor(lr: float = 3e-4, eps: float = 1e-30, clip: float = 1.0,
         f = s["f"]
         if factored(p):
             rows, cols = factored_means(g2)
-            vr = f["vr"].mul_(beta).add_((1 - beta) * rows)
-            vc = f["vc"].mul_(beta).add_((1 - beta) * cols)
+            vr = factored_moment(f["vr"], beta, rows)
+            vc = factored_moment(f["vc"], beta, cols)
             u = factored_scale(g, vr, vc)
         else:
             v = f["v"].mul_(beta).add_((1 - beta) * g2)

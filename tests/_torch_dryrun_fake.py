@@ -1,6 +1,8 @@
 """The port's dry-run on the fake process group, one process:
 
     python tests/_torch_dryrun_fake.py OUT_DIR jax|gloo|scale
+    python tests/_torch_dryrun_fake.py OUT_DIR sites ARCH SHAPE single|multi \
+        VARIANT [cpu|cuda]
 
 Every cell runs ``launch.dryrun.run_cell`` on ``"cpu"`` fake tensors, each
 creating and destroying its own fake group. It prints one JSON object, of
@@ -32,9 +34,19 @@ to real gloo runs (``gloo``) or to each other (``scale``):
     ``arguments`` and ``collectives``, held to JAX's); and the reduced
     Yi-6B's train cell (one KV head) on (data 2, model 1): its status;
   * ``recorder``: whether the recorder's count equals CommDebugMode's in
-    every cell.
+    every cell;
+  * ``sites``: the collectives of the tiny ``train`` (``baseline`` and
+    ``wgather``), ``decode``, ``decode_seqshard`` and ``moe_train`` cells
+    and of each gloo cell (``gloo_<name>``) by call site (``Sites``).
+
+The ``sites`` part runs one full-width cell on its production mesh and
+writes its record to OUT_DIR; it prints the record's stem and the cell's
+collectives by call site, as ``chip_smoke.py`` phase 6f reads them on the
+card.
 """
 
+import collections
+import contextlib
 import json
 import os
 import sys
@@ -61,9 +73,136 @@ UNEVEN_HEADS, UNEVEN_MESH = ("qwen2.5-32b", "whisper-tiny"), (2, 3)
 ONE_KV_MESH = (2, 1)
 
 
+#: the port's package: a collective's site is its innermost frame there
+#: outside the dry-run itself
+PORT = os.path.dirname(os.path.dirname(os.path.abspath(DR.__file__)))
+DRYRUN = os.path.abspath(DR.__file__)
+
+
+def _group(args) -> list:
+    """The ranks of a collective's process group: a c10d op's group object,
+    a functional op's group name (its last string argument)."""
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    for a in args:
+        if isinstance(a, torch.ScriptObject):
+            pg = torch._C._distributed_c10d.ProcessGroup.unbox(a)
+            break
+    else:
+        pg = _resolve_process_group([a for a in args
+                                     if isinstance(a, str)][-1])
+    return dist.get_process_group_ranks(pg)
+
+
+def _site() -> str:
+    """``file:function`` of the innermost frame in the port's package
+    outside ``launch/dryrun.py``; "-" for the autograd engine's own ops
+    (a backward formula: torch 2.13 runs them under the frame that called
+    ``backward()``, 2.11 on a thread with no Python frame)."""
+    f = sys._getframe(2)
+    while f is not None:
+        name = os.path.abspath(f.f_code.co_filename)
+        if name.startswith(PORT + os.sep) and name != DRYRUN:
+            return f"{os.path.relpath(name, PORT)}:{f.f_code.co_name}"
+        if f.f_code.co_name == "_engine_run_backward":
+            break
+        f = f.f_back
+    return "-"
+
+
+class Sites:
+    """Tags each collective the dry-run's ``Recorder`` counts, while
+    installed (``with Sites() as s:``): its JAX kind, the mesh dims its
+    group spans ("pod+data" for the two data dims flattened), its group
+    size, its call site (``_site``), whether the backward issued it,
+    whether DTensor issued it to pass a shard from one tensor dim to
+    another (``shard_dim_alltoall``: an all-to-all on a card's mesh, an
+    all-gather on a CPU mesh, so its kind reads "all-to-all" on both), its
+    result's dtype and local shape, and its bytes. ``rows`` sums them by
+    all of that but the bytes."""
+
+    def __init__(self):
+        self.tags: list = []
+        self.mesh = None
+        self._moving = 0
+
+    def __enter__(self):
+        from torch.distributed.tensor import _collective_utils as CU
+        from torch.distributed.tensor import placement_types as PT
+        real_op, real_step, sites = DR.Recorder._op, DR.run_step, self
+        real_a2a = CU.shard_dim_alltoall
+
+        def op(rec, func, args, out):
+            n = len(rec.calls)
+            real_op(rec, func, args, out)
+            if len(rec.calls) > n:
+                key, nbytes = rec.calls[-1]
+                t = DR._local(out if isinstance(out, torch.Tensor)
+                              else args[0][0] if isinstance(
+                                  args[0], (list, tuple)) else args[0])
+                sites.tags.append((
+                    "all-to-all" if sites._moving else
+                    DR.KINDS[key.split(".", 1)[1]], tuple(_group(args)),
+                    _site(), torch._C._current_graph_task_id() != -1,
+                    bool(sites._moving),
+                    str(t.dtype).replace("torch.", ""), tuple(t.shape),
+                    nbytes))
+
+        def a2a(*args, **kw):
+            sites._moving += 1
+            try:
+                return real_a2a(*args, **kw)
+            finally:
+                sites._moving -= 1
+
+        def step(c):
+            sites.mesh = c.mesh
+            return real_step(c)
+        self._real = real_op, real_step, real_a2a, PT.__dict__.get(
+            "shard_dim_alltoall")
+        DR.Recorder._op, DR.run_step = op, step
+        CU.shard_dim_alltoall = a2a
+        if self._real[3] is not None:
+            PT.shard_dim_alltoall = a2a
+        return self
+
+    def __exit__(self, *exc):
+        from torch.distributed.tensor import _collective_utils as CU
+        from torch.distributed.tensor import placement_types as PT
+        DR.Recorder._op, DR.run_step, CU.shard_dim_alltoall, pt = self._real
+        if pt is not None:
+            PT.shard_dim_alltoall = pt
+
+    def dims(self, ranks) -> str:
+        """The mesh dims a group of ``ranks`` spans, major first."""
+        mesh = self.mesh
+        coords = [(mesh.mesh == r).nonzero()[0].tolist() for r in ranks]
+        return "+".join(n for i, n in enumerate(mesh.mesh_dim_names)
+                        if len({c[i] for c in coords}) > 1)
+
+    def rows(self) -> list:
+        """[{kind, dims, group, site, bwd, shard_move, dtype, shape, calls,
+        bytes}], largest bytes first."""
+        agg = collections.defaultdict(lambda: [0, 0])
+        dims = {}
+        for kind, ranks, site, bwd, moving, dtype, shape, n in self.tags:
+            if ranks not in dims:
+                dims[ranks] = self.dims(ranks)
+            e = agg[(kind, dims[ranks], len(ranks), site, bwd, moving,
+                     dtype, shape)]
+            e[0] += 1
+            e[1] += n
+        keys = ("kind", "dims", "group", "site", "bwd", "shard_move",
+                "dtype", "shape")
+        return sorted(({**dict(zip(keys, k)), "shape": list(k[7]),
+                        "calls": c, "bytes": b}
+                       for k, (c, b) in agg.items()),
+                      key=lambda r: (-r["bytes"], r["kind"], r["site"]))
+
+
 def cell(arch, shape, cell, *, multi_pod=True, mesh=MESH3, variant="baseline",
-         dtype=torch.bfloat16, out_dir=None):
-    """``run_step``'s reading of a cell, with the record when ``out_dir``."""
+         dtype=torch.bfloat16, out_dir=None, sites=None):
+    """``run_step``'s reading of a cell, with the record when ``out_dir``;
+    ``sites`` (a ``Sites``) tags its collectives."""
     rec, runs = None, []
     real = DR.run_step
 
@@ -73,13 +212,23 @@ def cell(arch, shape, cell, *, multi_pod=True, mesh=MESH3, variant="baseline",
         return r
     DR.run_step = keep
     try:
-        rec = DR.run_cell(arch, shape, multi_pod, out_dir or "", variant,
-                          cfg=reduced(get_config(arch)), cell=cell,
-                          device_type="cpu", mesh_shape=mesh, dtype=dtype,
-                          write=out_dir is not None)
+        with sites or contextlib.nullcontext():
+            rec = DR.run_cell(arch, shape, multi_pod, out_dir or "", variant,
+                              cfg=reduced(get_config(arch)), cell=cell,
+                              device_type="cpu", mesh_shape=mesh, dtype=dtype,
+                              write=out_dir is not None)
     finally:
         DR.run_step = real
     return rec, runs[0]
+
+
+def tagged(res, name, *args, **kw):
+    """``cell`` with its collectives by call site in ``res["sites"][name]``
+    -> (record, run)."""
+    s = Sites()
+    rec, run = cell(*args, sites=s, **kw)
+    res.setdefault("sites", {})[name] = s.rows()
+    return rec, run
 
 
 def constrain_checks() -> list:
@@ -114,6 +263,9 @@ def agree(run) -> bool:
 def main() -> None:
     out_dir, part = sys.argv[1], sys.argv[2]
     res = {"recorder": {}}
+    if part == "sites":
+        full_width_sites(out_dir, *sys.argv[3:])
+        return
     if part == "gloo":
         gloo_cells(res)
     elif part == "scale":
@@ -132,12 +284,19 @@ def jax_cells(res, out_dir) -> None:
         res["collectives"][name] = {k: rec[k] for k in ("coll_by_kind",
                                                         "coll_bytes")}
         res["recorder"][name] = agree(run)
-    rec, run = cell("yi-6b", "train_4k", TRAIN, out_dir=out_dir)
+    rec, run = tagged(res, "train", "yi-6b", "train_4k", TRAIN,
+                      out_dir=out_dir)
     keep("train", rec, run)
     res["train_record"] = rec
+    # the same cell under JAX's "wgather" variant (the dense weights
+    # constrained to their TP-only specs at use): read by call site only
+    rec, run = tagged(res, "train_wgather", "yi-6b", "train_4k", TRAIN,
+                      variant="wgather")
+    res["recorder"]["train_wgather"] = agree(run)
     for name, variant in (("decode", "baseline"),
                           ("decode_seqshard", "kv_seqshard")):
-        rec, run = cell("yi-6b", "decode_32k", DECODE, variant=variant)
+        rec, run = tagged(res, name, "yi-6b", "decode_32k", DECODE,
+                          variant=variant)
         keep(name, rec, run)
     cfg = reduced(get_config("qwen3-moe-235b-a22b"))
     rec, run = cell("qwen3-moe-235b-a22b", "prefill_32k", PREFILL,
@@ -164,8 +323,10 @@ def jax_cells(res, out_dir) -> None:
 def scale_cells(res) -> None:
     res["scale"], res["arguments"], res["collectives"] = {}, {}, {}
     for mesh_name, multi_pod in (("single", False), ("multi", True)):
-        rec, run = cell("qwen3-moe-235b-a22b", "train_4k", TRAIN,
-                        multi_pod=multi_pod)
+        rec, run = (tagged(res, "moe_train", "qwen3-moe-235b-a22b",
+                           "train_4k", TRAIN) if multi_pod else
+                    cell("qwen3-moe-235b-a22b", "train_4k", TRAIN,
+                         multi_pod=False))
         res["scale"][mesh_name] = {
             "temp": rec["memory_analysis"]["temp_size_in_bytes"],
             "wire": rec["coll_bytes"], "coll_by_kind": rec["coll_by_kind"]}
@@ -188,15 +349,29 @@ def gloo_cells(res) -> None:
     names = {"train": "train_4k", "prefill": "prefill_32k",
              "decode": "decode_32k"}
     for name, arch, kind, variant, (B, S) in CELLS:
-        rec, run = cell(arch, names[kind], ShapeCell(kind, S, B, kind),
-                        multi_pod=False, mesh=mesh_of(name), variant=variant,
-                        dtype=torch.float32)
+        rec, run = tagged(res, f"gloo_{name}", arch, names[kind],
+                          ShapeCell(kind, S, B, kind), multi_pod=False,
+                          mesh=mesh_of(name), variant=variant,
+                          dtype=torch.float32)
         res["gloo"][name] = {
             "counts": run.comm_counts, "comms": run.comms,
             "regions": sorted(k for k, v in DR.REGIONS.items()
                               if v in run.local_regions)}
         res["recorder"][name] = agree(run)
     res["prefill"] = res["gloo"]["prefill"]
+
+
+def full_width_sites(out_dir, arch, shape, mesh_name, variant,
+                     device_type="cpu") -> None:
+    """One full-width cell on its production mesh, its record written to
+    ``out_dir``: prints ``RESULT`` and {"stem", "sites"}."""
+    s = Sites()
+    with s:
+        DR.run_cell(arch, shape, mesh_name == "multi", out_dir, variant,
+                    device_type=device_type)
+    print("RESULT " + json.dumps({
+        "stem": DR._stem(arch, shape, mesh_name, variant),
+        "sites": s.rows()}))
 
 
 if __name__ == "__main__":

@@ -18,8 +18,9 @@ the regions taken and the largest differences from the unsharded run to
 ``DIR/rank{RANK}.json``:
 
   * prefill cells: the gathered logits, and the forward's aux loss;
-  * the train cell (``stack_fsdp``: every stacked leaf's periods are
-    copies) and one of each other family: the loss, the gradient norm,
+  * the train cell (``stack_wgather``: every stacked leaf's periods are
+    copies, each sublayer's weights gathered at use) and one of each other
+    family: the loss, the gradient norm,
     every parameter leaf and every tensor of the optimiser's state after
     the step;
   * decode cells (a cache of 64 filled to ``DECODE_LEN`` by the unsharded
@@ -40,7 +41,7 @@ import torch.distributed as dist
 #: (name, arch, kind, variant, (B, S)): the cells, each also in
 #: ``_torch_dryrun_fake.py``
 CELLS = (("prefill", "yi-6b", "prefill", "baseline", (4, 32)),
-         ("train", "yi-6b", "train", "stack_fsdp", (4, 32)),
+         ("train", "yi-6b", "train", "stack_wgather", (4, 32)),
          ("decode", "yi-6b", "decode", "baseline", (4, 64)),
          ("decode_seqshard", "yi-6b", "decode", "kv_seqshard", (4, 64)),
          ("moe", "qwen3-moe-235b-a22b", "prefill", "baseline", (4, 32)),
@@ -67,7 +68,8 @@ def flat_collectives(mesh, rank) -> dict:
     DTensor's own redistribution of the same tensor (a dim over "pod"
     then "data"): the gather of a tensor sharded over both data dims (on
     dim 0 and dim 1), the reduce-scatter of one partial over both (dim 0
-    and 1) and its all-reduce. -> {case: {"err": largest difference of
+    and 1) and its all-reduce; and the gather of a shard over "model", a
+    dim of one rank. -> {case: {"err": largest difference of
     this rank's shard, "comms": the recorder's collectives of
     ``_redistribute``, "placements": equal}}"""
     from torch.distributed.tensor import (DTensor, Partial, Replicate,
@@ -82,6 +84,8 @@ def flat_collectives(mesh, rank) -> dict:
     cases += [(f"scatter{d}", [Partial(), Partial(), Replicate()],
                [Shard(d), Shard(d), Replicate()]) for d in (0, 1)]
     cases += [("reduce", [Partial(), Partial(), Replicate()], rep)]
+    # over "model", one rank: the whole tensor is there, nothing moves
+    cases += [("one_rank", [Replicate(), Replicate(), Shard(1)], rep)]
     for name, src, dst in cases:
         if src[0] == Partial():         # each rank's term of the sum
             t = DTensor.from_local(full * (rank + 1), mesh, src)
