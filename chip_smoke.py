@@ -411,11 +411,15 @@ Phases (any failure exits non-zero; nothing is caught):
                train cell on two pods, which must fit and read at most
                MOE_TRAIN_POD_RATIO of one pod's temp,
                MOE_TRAIN_SINGLE_TEMP). The Qwen3-8B, Qwen3-MoE and
-               Mamba2 train cells (DRYRUN_SITE_CELLS) print their
-               collectives by site, pass no shard between tensor dims (no
-               all-to-all); Qwen3-8B's and Mamba2's on one pod read torch
-               2.13's bytes by kind (DRYRUN_2_13) within
-               DRYRUN_RELEASE_TOL; no train
+               Mamba2 train cells and the five decode cells (Jamba,
+               Mamba2 and Mixtral long_500k, one row over 16 data ranks;
+               Qwen3-8B and Qwen3-MoE decode_32k) (DRYRUN_SITE_CELLS)
+               print their collectives by site, pass no shard between
+               tensor dims (no all-to-all); Qwen3-8B's and Mamba2's train
+               cells and the decode cells on one pod read torch 2.13's
+               bytes by kind (DRYRUN_2_13) within DRYRUN_RELEASE_TOL; each
+               decode cell's wire and temp bytes at most JAX's record
+               (DRYRUN_JAX_DECODE); no train
                cell on two pods moves more than a scalar over one data dim
                alone. No kernel launches; the phase within
                DRYRUN_PHASE_S;
@@ -757,18 +761,28 @@ DRYRUN_CELLS = (("qwen3-8b", "train_4k", False, "baseline"),
                 ("mamba2-780m", "train_4k", False, "baseline"),
                 ("qwen3-moe-235b-a22b", "train_4k", True, "baseline"),
                 ("qwen3-8b", "train_4k", True, "baseline"),
-                ("qwen3-moe-235b-a22b", "train_4k", False, "baseline"))
+                ("qwen3-moe-235b-a22b", "train_4k", False, "baseline"),
+                ("jamba-1.5-large-398b", "long_500k", False, "baseline"),
+                ("mamba2-780m", "long_500k", False, "baseline"),
+                ("mixtral-8x7b", "long_500k", False, "baseline"),
+                ("qwen3-8b", "decode_32k", False, "baseline"),
+                ("qwen3-moe-235b-a22b", "decode_32k", False, "baseline"))
 DRYRUN_PHASE_S = 180
 #: the cells whose collectives phase 6f prints by call site
 #: (tests/_torch_dryrun_fake.py's tagging: kind, mesh dims, site,
 #: direction)
 DRYRUN_SITE_CELLS = (("qwen3-8b", "train_4k"),
                      ("qwen3-moe-235b-a22b", "train_4k"),
-                     ("mamba2-780m", "train_4k"))
+                     ("mamba2-780m", "train_4k"),
+                     ("jamba-1.5-large-398b", "long_500k"),
+                     ("mamba2-780m", "long_500k"),
+                     ("mixtral-8x7b", "long_500k"),
+                     ("qwen3-8b", "decode_32k"),
+                     ("qwen3-moe-235b-a22b", "decode_32k"))
 #: (arch, shape, mesh) -> per-rank collectives by kind, [calls, bytes], on
 #: torch 2.13 (a CPU build, the fake group on "cpu"; `python
 #: tests/_torch_dryrun_fake.py OUT sites ARCH SHAPE MESH baseline cpu`);
-#: the card's torch must read the same bytes by kind within
+#: the card's torch must read the same calls and bytes by kind within
 #: DRYRUN_RELEASE_TOL: the record does not move with torch
 DRYRUN_2_13 = {
     ("qwen3-8b", "train_4k", "single"): {
@@ -778,8 +792,42 @@ DRYRUN_2_13 = {
     ("mamba2-780m", "train_4k", "single"): {
         "all-gather": [1493, 166_209_012_736],
         "all-reduce": [677, 21_178_826_320],
-        "reduce-scatter": [97, 15_137_280]}}
+        "reduce-scatter": [97, 15_137_280]},
+    ("jamba-1.5-large-398b", "long_500k", "single"): {
+        "all-gather": [198, 7_211_520],
+        "all-reduce": [660, 104_486_656],
+        "collective-permute": [144, 147_456]},
+    ("mamba2-780m", "long_500k", "single"): {
+        "all-gather": [102, 987_840],
+        "all-reduce": [194, 148_852],
+        "collective-permute": [48, 9_216]},
+    ("mixtral-8x7b", "long_500k", "single"): {
+        "all-gather": [130, 688_128],
+        "all-reduce": [451, 8_492_708],
+        "collective-permute": [64, 32_768]},
+    ("qwen3-8b", "decode_32k", "single"): {
+        "all-gather": [507, 169_036_288],
+        "all-reduce": [109, 1_212_743_680],
+        "reduce-scatter": [181, 1_257_856]},
+    ("qwen3-moe-235b-a22b", "decode_32k", "single"): {
+        "all-gather": [1225, 436_452_864],
+        "all-reduce": [565, 11_057_954_816],
+        "reduce-scatter": [283, 1_018_240]}}
 DRYRUN_RELEASE_TOL = 1e-3
+#: (arch, shape, mesh) -> JAX's record of a decode cell, per rank: (wire
+#: bytes, temp bytes), read on this repo's CPU (`PYTHONPATH=src
+#: JAX_PLATFORMS=cpu python -c "from repro.launch import dryrun as D;
+#: D.run_cell(ARCH, SHAPE, False, OUT)"`: coll_bytes and memory_analysis'
+#: temp_size_in_bytes); the port's decode step, which keeps every weight in
+#: its stored shard, must read at most these
+DRYRUN_JAX_DECODE = {
+    ("jamba-1.5-large-398b", "long_500k", "single"):
+        (1_424_375_424, 7_159_086_272),
+    ("mamba2-780m", "long_500k", "single"): (1_305_224, 16_098_688),
+    ("mixtral-8x7b", "long_500k", "single"): (220_953_736, 754_127_024),
+    ("qwen3-8b", "decode_32k", "single"): (41_935_244_768, 6_547_305_688),
+    ("qwen3-moe-235b-a22b", "decode_32k", "single"):
+        (124_238_809_120, 11_829_113_600)}
 #: the rows of a DRYRUN_SITE_CELLS cell printed, largest bytes first
 DRYRUN_SITE_ROWS = 16
 #: Qwen3-MoE's train_4k cell on one pod (256 ranks): its per-rank temp
@@ -4902,9 +4950,10 @@ def main() -> int:
                           f"{torch.__version__}); torch 2.13 {want[0]} "
                           f"calls, {want[1]} B")
                     check(abs(got[1] - want[1]) <= DRYRUN_RELEASE_TOL *
-                          want[1], f"{arch} {shape} {mesh_name}: {kind} "
-                          f"{got[1]} B, torch 2.13 {want[1]} B (limit "
-                          f"{DRYRUN_RELEASE_TOL} of it)")
+                          want[1] and got[0] == want[0], f"{arch} {shape} "
+                          f"{mesh_name}: {kind} {got[0]} calls, {got[1]} B, "
+                          f"torch 2.13 {want[0]} calls, {want[1]} B (limit "
+                          f"{DRYRUN_RELEASE_TOL} of the bytes)")
             if (arch, shape) in DRYRUN_SITE_CELLS:
                 moved = [r for r in sites if r["shard_move"]
                          or r["kind"] == "all-to-all"]
@@ -4915,6 +4964,19 @@ def main() -> int:
                        and r["bytes"] > 8 * r["calls"]]
                 check(not one, f"{arch} {shape} multi: moved over one "
                       f"data dim alone: {one}")
+            jax = DRYRUN_JAX_DECODE.get((arch, shape, mesh_name))
+            if jax is not None:
+                wire, temp = rec["coll_bytes"], rec["memory_analysis"][
+                    "temp_size_in_bytes"]
+                print(f"{tag} {arch} {shape} {mesh_name} decode: wire "
+                      f"{wire:.0f} B a rank, {wire / jax[0]:.4f} of JAX's "
+                      f"record {jax[0]} B; temp {temp} B, "
+                      f"{temp / jax[1]:.4f} of JAX's {jax[1]} B; step "
+                      f"{rec['step_s']:.6g} s by the roofline")
+                check(wire <= jax[0], f"{arch} {shape} {mesh_name}: wire "
+                      f"{wire:.0f} B a rank, more than JAX's {jax[0]} B")
+                check(temp <= jax[1], f"{arch} {shape} {mesh_name}: temp "
+                      f"{temp} B a rank, more than JAX's {jax[1]} B")
 
         # (a) world 1 against the card's own runs: phase 6d's Yi-6B step
         # (TRAIN_LAYERS of 32 layers, float32, AdamW at 3e-4, remat) and

@@ -40,8 +40,11 @@ under JAX's file stems and record keys:
     needs its collectives and calls the model's own functions for the
     rest. Their redistributions are explicit (``_redistribute``: no
     all-to-all), so torch releases and devices issue the same collectives
-    there. The tests hold the collective bytes of four reduced cells to
-    JAX's HLO count (``tests/test_torch_dryrun.py``).
+    there. A decode step runs under the ``decode`` policy: every weight
+    stays in its stored shard and only the token's activations, the cache
+    and the state move, each by one explicit collective, so no decode
+    collective is DTensor's. The tests hold the collective bytes of seven
+    reduced cells to JAX's HLO count (``tests/test_torch_dryrun.py``).
   * ``no_effect``: each configuration field the port lacks.
   * ``lower_s``: the time to build the fake step; ``compile_s`` the time
     to run it.
@@ -88,6 +91,7 @@ from repro_torch.configs.registry import ALIASES, get_config
 from repro_torch.core.hw import H100
 from repro_torch.distributed import roofline as RL
 from repro_torch.distributed import sharding as SH
+from repro_torch.kernels.flash_attention import ops as fa
 from repro_torch.launch import specs as SP
 from repro_torch.launch.mesh import build_mesh
 from repro_torch.models import layers as L, mamba2, moe
@@ -203,8 +207,10 @@ REGIONS = {
              "vocab-sharded lookup (MaskPartial) fails on (B, S) tokens; "
              "each rank looks its rows' tokens up in its vocab shard (the "
              "table gathered over the data axes, its gradient left a "
-             "partial sum, as a tied head's is), the shards' rows summed "
-             "over 'model' once, in the table's dtype",
+             "partial sum, as a tied head's is; in a decode step the "
+             "tokens gathered instead and looked up in the table's stored "
+             "d shard), the shards' rows summed over 'model' once, in the "
+             "table's dtype",
     "decode_attention": "models/layers.py::decode_attention: DTensor cannot "
                         "propagate the GQA regrouping of q over a sharded "
                         "head or head_dim; each rank attends over its shard "
@@ -235,20 +241,45 @@ REGIONS = {
     "cache_store": "models/model.py::LM._store: DTensor's select of one "
                    "position of a cache sharded over its sequence gathers "
                    "a copy, and the decode step's write into it is lost; "
-                   "the rank that holds the position writes it into its "
-                   "shard",
+                   "the new K or V is laid out as the cache (by "
+                   "_redistribute) and the rank that holds the position "
+                   "writes it into its shard",
     "mamba2_decode_step": "models/mamba2.py::mamba2_decode_step: DTensor "
                           "cannot propagate the (B, H) batched product of "
                           "the state over sharded heads; each rank steps "
-                          "its batch rows with the sublayer's weights and "
-                          "the state gathered over 'model' (the state goes "
-                          "back to the cache's heads shard)",
+                          "the cache's heads with the mixer's weights in "
+                          "their stored shards (in_proj's partial columns "
+                          "reduced once and gathered, the conv on the "
+                          "rank's channels, out_proj row-parallel), the "
+                          "state and window left in the cache's layout",
+    "decode": "models/model.py::LM.decode_step, _proj, _out, "
+              "models/layers.py::swiglu, chunked_attention: the decode "
+              "policy. DTensor's products of a decode step gather whole "
+              "FSDP weights where B is smaller than the data ranks, and "
+              "pass the activations between tensor dims (an all-to-all on "
+              "a card, an all-gather on a CPU mesh) in steps that move with "
+              "torch; every weight stays in its stored shard and only the "
+              "token's activations, the cache and the state move, each by "
+              "one explicit collective (_redistribute): the residual "
+              "stream's rows on the data dims, or its d where the rows do "
+              "not divide them, each input cut to its weight's "
+              "contraction shard and each partial product reduced once, "
+              "JAX's constraints and the copied periods' gathers "
+              "explicit",
+    "fsdp_gather": "models/model.py::LM._proj: on a mesh with a dim of "
+                   "one rank (a model dim of 1) DTensor's head product "
+                   "passes the rows' batch shard to the contraction dim, "
+                   "and back in the backward; the head's FSDP weight is "
+                   "gathered over the data dims at use instead, its "
+                   "gradient left a partial sum for the grads region, as "
+                   "JAX's partitioner gathers it",
     "residual": "models/model.py::LM._residual: DTensor leaves a "
                 "row-parallel product's output Partial over 'model' and "
                 "each later reader reduces its own copy (the next norm "
                 "twice, in float32); the output is reduced once, in its "
-                "own dtype, to the placements the residual entered with, "
-                "as JAX's partitioner reduces it before the residual add",
+                "own dtype, to the placements the residual entered with "
+                "(_redistribute), as JAX's partitioner reduces it before "
+                "the residual add",
     "norm": "models/model.py::LM._norm: the backward of DTensor's norm "
             "on a Partial gradient (the column-parallel products' input "
             "gradient) reduces float32 intermediates; each rank normalises "
@@ -668,6 +699,161 @@ class _GradOnFirst(torch.autograd.Function):
         return (g if ctx.first else torch.zeros_like(g)), None
 
 
+# --------------------------------------------------------- decode policy
+class _DecodeState:
+    """The decode policy's state while a decode step runs (set by the
+    ``decode_step`` region): whether it is on, and the inputs already moved
+    to meet a weight (``_meet``'s memo: q's, k's and v's projections, or
+    an FFN's gate and up, move their input once)."""
+    on = False
+    memo: dict = {}
+
+
+_DECODE = _DecodeState()
+
+
+def _decoding(t) -> bool:
+    return _DECODE.on and _is_dtensor(t)
+
+
+def _group(mesh, dims):
+    """The process group of ``mesh``'s dims ``dims``: one dim's, or the
+    dims flattened into one (a collective over both data dims at once)."""
+    names = mesh.mesh_dim_names
+    return _flat_group(mesh, tuple(names[i] for i in sorted(dims))) \
+        if len(dims) > 1 else (mesh, dims[0])
+
+
+def _psum(t, mesh, dims):
+    """``t``, a local tensor, all-reduced (summed) over ``mesh``'s dims
+    ``dims`` in one collective (none where there are none)."""
+    import torch.distributed._functional_collectives as funcol
+    if not dims:
+        return t
+    out = funcol.all_reduce(t, "sum", _group(mesh, dims))
+    return out.wait() if hasattr(out, "wait") else out
+
+
+def _residual_layout(mesh, shape):
+    """The decode step's residual stream (B, 1, d): the rows on the data
+    dims where they divide them, else d on the data dims, as the FSDP
+    weights hold it (one row against the weights' d shards: JAX's
+    partitioner lays a single token out so)."""
+    return _placements(mesh, shape, ("data", None, "data"))
+
+
+def _cut_first(t, want):
+    """``t`` with the cuts of ``want`` (a replicated mesh dim to a shard,
+    local) taken first, where no other mesh dim shards that tensor dim:
+    a gather on another mesh dim then moves the cut tensor, not the
+    whole."""
+    from torch.distributed.tensor import Shard
+    cur = list(t.placements)
+    mid = list(cur)
+    for i, (a, b) in enumerate(zip(cur, want)):
+        if a.is_replicate() and isinstance(b, Shard) and not any(
+                j != i and b in (cur[j], want[j]) for j in range(len(cur))):
+            mid[i] = b
+    return _redistribute(t, mid) if mid != cur else t
+
+
+def _meet(x, w, k_dim=0):
+    """``x`` (..., K) moved (``_redistribute``) to meet the weight ``w``
+    where it lies, its contraction dim ``k_dim`` (K): x's last dim cut as
+    w's K is on each mesh dim that shards K, x whole on each mesh dim that
+    shards another dim of w, and elsewhere x's rows as they lie. Memoised
+    for the decode step: one move an input."""
+    from torch.distributed.tensor import Replicate, Shard
+    last = x.dim() - 1
+    want = []
+    for a, b in zip(x.placements, w.placements):
+        if b == Shard(k_dim):
+            want.append(Shard(last))
+        elif isinstance(b, Shard) or a != Shard(0):
+            want.append(Replicate())
+        else:
+            want.append(a)                        # the rows
+    key = (id(x), tuple(want))
+    if key not in _DECODE.memo:
+        _DECODE.memo[key] = (x, _redistribute(_cut_first(x, want), want))
+    return _DECODE.memo[key][1]
+
+
+def _dot(x, w):
+    """x (..., K) @ w (K, N) on w's stored shard (``_meet``): ``Partial()``
+    on each mesh dim that splits K, N's shard where w's N is sharded,
+    x's rows elsewhere."""
+    from torch.distributed.tensor import Partial, Shard
+    from torch.distributed.tensor.experimental import local_map
+    x = _meet(x, w)
+    last = x.dim() - 1
+    out = [Partial() if b == Shard(0) else Shard(last) if b == Shard(1)
+           else a for a, b in zip(x.placements, w.placements)]
+    return local_map(torch.matmul, out_placements=out,
+                     in_placements=(list(x.placements), list(w.placements)),
+                     device_mesh=x.device_mesh)(x, w)
+
+
+def _settle(y, want):
+    """``y``, a product's partial sums (``Partial()`` on the mesh dims that
+    split its contraction) and its columns' shards, moved to ``want``: the
+    sums reduced first (all-reduced, or reduce-scattered onto the rows),
+    while the tensor is smallest, then the columns gathered. Where the sums
+    end replicated and the columns are gathered over one mesh dim, one
+    all-reduce over the sums' dims and that dim of the columns placed in
+    zeros of the whole width replaces the two where it moves no more on
+    the wire (an all-reduce counts twice; at a dim of two ranks the gather
+    of the reduced half moves what the second half of the all-reduce
+    does): one collective, as JAX's partitioner merges them."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import DTensor, Shard
+    mesh, cur = y.device_mesh, list(y.placements)
+    last = y.dim() - 1
+    part = [i for i, a in enumerate(cur) if a.is_partial()]
+    cols = [i for i, (a, b) in enumerate(zip(cur, want))
+            if a == Shard(last) and b.is_replicate()]
+    if part and len(cols) == 1 and all(want[i].is_replicate() for i in part):
+        m = mesh.size(cols[0])
+        if 2 * m <= 2 + m:          # one all-reduce's wire <= reduce + gather
+            local = y.to_local()
+            n = local.shape[-1]
+            whole = local.new_zeros(local.shape[:-1] + (n * m,))
+            at = mesh.get_local_rank(cols[0]) * n
+            whole[..., at:at + n] = local
+            out = funcol.all_reduce(whole, "sum", _group(mesh, part + cols))
+            out = out.wait() if hasattr(out, "wait") else out
+            return DTensor.from_local(out, mesh, want, run_check=False,
+                                      shape=y.shape, stride=y.stride())
+    mid = [want[i] if a.is_partial() else a for i, a in enumerate(cur)]
+    return _redistribute(_redistribute(y, mid), want)
+
+
+def _columns(h, y, heads=None):
+    """Where a column-parallel product ``y`` of ``h`` goes: on each mesh dim
+    that split its contraction, h's rows (a reduce-scatter onto them) or
+    the whole (an all-reduce); its columns' shard kept where it holds whole
+    heads (``heads`` None: any), else gathered."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh, last = y.device_mesh, y.dim() - 1
+    out = []
+    for i, (a, b) in enumerate(zip(h.placements, y.placements)):
+        if b.is_partial():
+            out.append(Shard(0) if a == Shard(0) else Replicate())
+        elif b == Shard(last) and heads is not None and \
+                heads % mesh.size(i):
+            out.append(Replicate())
+        else:
+            out.append(b)
+    return out
+
+
+def _column_product(h, w, heads=None):
+    """h @ w on w's stored shard, reduced: ``_dot``, then ``_settle`` to
+    ``_columns``."""
+    y = _dot(h, w)
+    return _settle(y, _columns(h, y, heads))
+
+
 def _moe_region(real, used):
     def moe_ffn(x, p, *, n_experts, top_k, capacity_factor=1.0,
                 constrain=None, buf_mode="e_sharded"):
@@ -678,6 +864,8 @@ def _moe_region(real, used):
         from torch.distributed.tensor import Partial, Replicate, Shard
         from torch.distributed.tensor.experimental import local_map
         used.add("moe_ffn")
+        if _decoding(x):
+            return _moe_decode(x, p, n_experts, top_k, capacity_factor)
         mesh = x.device_mesh
         names = tuple(mesh.mesh_dim_names)
         rows = _placements(mesh, x.shape, ("data", None, None))
@@ -727,6 +915,47 @@ def _moe_region(real, used):
             x, p["router"], *(_DataGather.apply(p[k], w[k])
                               for k in ("w_gate", "w_up", "w_down")))
     return moe_ffn
+
+
+def _moe_decode(x, p, n_experts, top_k, capacity_factor):
+    """The MoE FFN of a decode step on the experts' stored shards: x cut to
+    their d shard (``_meet``; rows gathered where they lie on the same
+    dims), each rank's experts (E on "model") or their f shard, the
+    router's logits and the gate and up activations summed over the d
+    shards (``local_experts``' ``psum``) -> (the output, Partial over
+    "model" and its d shard on the data dims, the aux over every row)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    wg = p["w_gate"]
+    mesh = wg.device_mesh
+    x = _meet(x, wg, k_dim=1)
+    d_dims = [i for i, b in enumerate(wg.placements) if b == Shard(1)]
+    rows = [i for i, a in enumerate(x.placements) if a == Shard(0)]
+    e_dims = [i for i, b in enumerate(wg.placements) if b == Shard(0)]
+    split = [i for i, b in enumerate(wg.placements)
+             if isinstance(b, Shard) and b != Shard(1)]
+    out_pl = [Shard(2) if i in d_dims else Partial() if i in split else a
+              for i, a in enumerate(x.placements)]
+
+    def local(x, router, wg, wu, wd):
+        lo = _offset(mesh, e_dims, wg.shape[0])
+        out, r = moe.local_experts(
+            x, router, wg, wu, wd, lo, n_experts=n_experts, top_k=top_k,
+            capacity_factor=capacity_factor,
+            psum=lambda t: _psum(t, mesh, d_dims))
+        if not rows:                     # every row here: the batch's aux
+            return out, r.aux.float()
+        me, ce = moe.balance(moe._probs(x, router, lambda t: _psum(
+            t, mesh, d_dims)), r.top_i, n_experts)
+        me, ce = _psum(me, mesh, rows), _psum(ce, mesh, rows)
+        n = math.prod(mesh.size(i) for i in rows)
+        return out, moe.balance_loss(me / n, ce / n)
+
+    ws = [p[k] for k in ("router", "w_gate", "w_up", "w_down")]
+    return local_map(local, out_placements=(out_pl, [Replicate()] * mesh.ndim),
+                     in_placements=tuple(list(t.placements)
+                                         for t in [x] + ws),
+                     device_mesh=mesh)(x, *ws)
 
 
 def _shard_map_region(real, used):
@@ -893,6 +1122,34 @@ def _reduced(placements):
     return [Replicate() if p.is_partial() else p for p in placements]
 
 
+class _Moved(torch.autograd.Function):
+    """``t`` moved to ``placements`` by ``_redistribute``; its gradient
+    moved back to t's placements, but left replicated where it is and t
+    was a partial sum (the placements DTensor's own redistribution gives
+    the gradient), by ``_redistribute``."""
+
+    @staticmethod
+    def forward(ctx, t, placements):
+        ctx.placements = list(t.placements)
+        return _redistribute(t, placements)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _redistribute(g, [b if b.is_replicate() and a.is_partial()
+                                 else a for a, b in zip(ctx.placements,
+                                                        g.placements)]), None
+
+
+def _move(used, region, t, like):
+    """``t`` moved to the placements of ``like`` (``_Moved``) where they
+    differ, the move recorded as ``region``'s: the one redistribution of
+    the ``residual`` and ``grads`` regions."""
+    if _is_dtensor(t) and tuple(t.placements) != tuple(like.placements):
+        used.add(region)
+        t = _Moved.apply(t, like.placements)
+    return t
+
+
 def _skip_region(real, used):
     def _skip(y, D, x_in):
         if _is_dtensor(y) and list(x_in.placements) != list(y.placements):
@@ -971,6 +1228,8 @@ def _lookup_region(real, used):
         from torch.distributed.tensor.experimental import local_map
         used.add("embed")
         mesh = emb.device_mesh
+        if _decoding(tokens):
+            return _lookup_decode(tokens, emb)
         rows = _placements(mesh, tokens.shape, ("data", None))
         table = _dp_replicated(mesh, emb.placements)
         vocab = [i for i, pl in enumerate(table) if pl == Shard(0)]
@@ -990,8 +1249,37 @@ def _lookup_region(real, used):
                       in_grad_placements=_grads(ins, rows),
                       device_mesh=mesh, redistribute_inputs=True)(
             tokens, _Gather.apply(emb, table))
-        return x.redistribute(mesh, rows)   # the vocab shards' rows summed
+        return _Moved.apply(x, rows)        # the vocab shards' rows summed
     return _lookup
+
+
+def _lookup_decode(tokens, emb):
+    """A decode step's lookup in the table's stored shard: the B tokens
+    gathered where the table is cut (int32), each looked up in this
+    rank's vocab and d shards, the vocab shards' rows summed and the rows
+    laid out as the residual stream (``_residual_layout``)."""
+    import torch.nn.functional as F
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = emb.device_mesh
+    tok_pl = [Replicate() if isinstance(b, Shard) else a
+              for a, b in zip(tokens.placements, emb.placements)]
+    vocab = [i for i, b in enumerate(emb.placements) if b == Shard(0)]
+    out_pl = [Partial() if b == Shard(0) else Shard(2) if b == Shard(1)
+              else a for a, b in zip(tok_pl, emb.placements)]
+
+    def local(tok, w):                # the lookup in this vocab shard
+        V = w.shape[0]
+        idx = tok.long() - _offset(mesh, vocab, V)
+        inside = (idx >= 0) & (idx < V)
+        x = F.embedding(idx.clamp(0, V - 1), w)
+        return x * inside[..., None].to(x.dtype)
+
+    x = local_map(local, out_placements=out_pl,
+                  in_placements=(tok_pl, list(emb.placements)),
+                  device_mesh=mesh)(_redistribute(tokens, tok_pl), emb)
+    return _redistribute(x, _residual_layout(
+        mesh, tuple(tokens.shape) + (emb.shape[1],)))
 
 
 def _decode_attention_region(real, used):
@@ -1036,20 +1324,17 @@ def _decode_attention_region(real, used):
                                -1).to(q.dtype)
 
         out = local_map(local, out_placements=qpl,
-                        in_placements=(qpl, cpl, cpl), device_mesh=mesh,
-                        redistribute_inputs=True)(q, k_cache, v_cache)
+                        in_placements=(qpl, cpl, cpl), device_mesh=mesh)(
+            _redistribute(q, qpl), k_cache, v_cache)
         # whole heads again before the (B, 1, Hq * D) flatten
-        return out.redistribute(mesh, [Replicate() if pl == Shard(3)
-                                       else pl for pl in qpl])
+        return _redistribute(out, [Replicate() if pl == Shard(3) else pl
+                                   for pl in qpl])
     return decode_attention
 
 
 def _residual_region(real, used):
     def _residual(self, x, y):
-        if _is_dtensor(y) and tuple(y.placements) != tuple(x.placements):
-            used.add("residual")
-            y = y.redistribute(y.device_mesh, x.placements)
-        return real(self, x, y)
+        return real(self, x, _move(used, "residual", y, x))
     return _residual
 
 
@@ -1061,6 +1346,8 @@ def _norm_region(real, used):
         from torch.distributed.tensor.experimental import local_map
         used.add("norm")
         mesh = x.device_mesh
+        if _decoding(x):
+            return _norm_decode(self, x, p, name, real)
         rows = _placements(mesh, x.shape,
                            ("data",) + (None,) * (x.dim() - 1))
         rep = [Replicate()] * mesh.ndim
@@ -1075,6 +1362,70 @@ def _norm_region(real, used):
                          device_mesh=mesh, redistribute_inputs=True)(
             x, *(p[k] for k in names))
     return _norm
+
+
+def _norm_decode(lm, x, p, name, real):
+    """A decode step's norm of x where it lies (``_residual_layout``): its
+    scale (and bias) cut as x's last dim is, and where that dim is
+    sharded its float32 sums over it all-reduced over the dims that shard
+    it; the model's own norm where it is whole."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh, last = x.device_mesh, x.dim() - 1
+    dims = [i for i, a in enumerate(x.placements) if a == Shard(last)]
+    pl = [Shard(0) if i in dims else Replicate() for i in range(mesh.ndim)]
+    names = [k for k in (name, f"{name}_b") if p.get(k) is not None]
+    d, eps = x.shape[-1], lm.cfg.norm_eps
+
+    def local(x, *w):
+        if not dims:
+            return real(lm, x, dict(zip(names, w)), name)
+        x32 = x.float()
+        if lm.cfg.norm == "layernorm":
+            mu = _psum(x32.sum(dim=-1, keepdim=True), mesh, dims) / d
+            var = _psum(torch.square(x32 - mu).sum(dim=-1, keepdim=True),
+                        mesh, dims) / d
+            y = (x32 - mu) * torch.rsqrt(var + eps)
+            return y.to(x.dtype) * w[0] + w[1]
+        var = _psum((x32 * x32).sum(dim=-1, keepdim=True), mesh, dims) / d
+        return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * w[0]
+
+    ws = [_fetch(p[k], pl) for k in names]
+    return local_map(local, out_placements=list(x.placements),
+                     in_placements=(list(x.placements),) + (pl,) * len(ws),
+                     device_mesh=mesh)(x, *ws)
+
+
+def _fetch(t, want):
+    """``t`` (1-D) moved to ``want``, its blocks over other mesh dims:
+    where ``t`` is cut over one mesh dim and each rank's wanted block lies
+    in the stored block of one rank of that dim's group (a norm scale cut
+    over "model", wanted in the residual's d shard over the data dims),
+    that rank broadcasts the block over the group (one collective, JAX's
+    collective-permute of it); else ``_redistribute``."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import DTensor, Shard
+    mesh, n = t.device_mesh, t.shape[0]
+    src = [i for i, a in enumerate(t.placements) if a == Shard(0)]
+    dst = [i for i, b in enumerate(want) if b == Shard(0)]
+    rest = [i for i, b in enumerate(want) if i not in dst]
+    if len(src) != 1 or set(src) & set(dst) or not dst or \
+            any(not t.placements[i].is_replicate() for i in rest
+                if i not in src):
+        return _redistribute(t, want)
+    held = n // mesh.size(src[0])
+    size = n // math.prod(mesh.size(i) for i in dst)
+    if held % size or n % held or n % size:
+        return _redistribute(t, want)
+    off = _offset(mesh, dst, size)
+    holder, at = divmod(off, held)
+    local = t.to_local()
+    block = local[at:at + size].contiguous() \
+        if mesh.get_local_rank(src[0]) == holder else local.new_empty(size)
+    out = funcol.broadcast(block, holder, (mesh, src[0]))
+    out = out.wait() if hasattr(out, "wait") else out
+    return DTensor.from_local(out, mesh, want, run_check=False,
+                              shape=t.shape, stride=t.stride())
 
 
 def _qk_norm_region(real, used):
@@ -1140,11 +1491,7 @@ def _grad_norm_region(real, used):
 
 def _grad_region(real, used):
     def _grad(t):
-        g = real(t)
-        if _is_dtensor(g) and tuple(g.placements) != tuple(t.placements):
-            used.add("grads")
-            g = _redistribute(g, t.placements)
-        return g
+        return _move(used, "grads", real(t), t)
     return _grad
 
 
@@ -1152,9 +1499,13 @@ def _gelu_region(real, used):
     def gelu_mlp(x, w_in, b_in, w_out, b_out):
         if not _is_dtensor(x):
             return real(x, w_in, b_in, w_out, b_out)
+        import torch.nn.functional as F
         from torch.distributed.tensor import Replicate, Shard
         from torch.distributed.tensor.experimental import local_map
         used.add("gelu_mlp")
+        if _decoding(x):            # the stored shards, b_out added once
+            h = F.gelu(_column_product(x, w_in) + b_in, approximate="tanh")
+            return _redistribute(_dot(h, w_out), x.placements) + b_out
         mesh = x.device_mesh
         rows = _placements(mesh, x.shape, ("data", None, None))
         rep = [Replicate()] * mesh.ndim
@@ -1178,6 +1529,85 @@ def _gelu_region(real, used):
             x, w_in, b_in, w_out)
         return y + b_out.redistribute(mesh, rep)
     return gelu_mlp
+
+
+def _proj_region(real, used):
+    def _proj(self, h, w, heads=None):
+        if _decoding(h):
+            used.add("decode")
+            return _column_product(h, w, heads)
+        if heads is None and _is_dtensor(h) and _is_dtensor(w) and \
+                1 in tuple(w.device_mesh.shape) and _fsdp_rows(h, w):
+            # the head's FSDP gather at use, as JAX's partitioner makes it:
+            # on a mesh dim of one rank DTensor passes the rows' batch
+            # shard to the contraction instead
+            used.add("fsdp_gather")
+            w = _Gather.apply(w, _dp_replicated(w.device_mesh, w.placements))
+        return real(self, h, w, heads)
+    return _proj
+
+
+def _fsdp_rows(h, w) -> bool:
+    """Whether ``h``'s rows lie on a mesh dim that shards ``w``'s
+    contraction dim (an FSDP weight met by data-parallel rows)."""
+    from torch.distributed.tensor import Shard
+    return any(a == Shard(0) and b == Shard(0)
+               for a, b in zip(h.placements, w.placements))
+
+
+def _out_region(real, used):
+    def _out(self, t, w):
+        if not _decoding(t):
+            return real(self, t, w)
+        used.add("decode")
+        return _dot(t, w)
+    return _out
+
+
+def _swiglu_region(real, used):
+    def swiglu(x, w_gate, w_up, w_down):
+        if not _decoding(x):
+            return real(x, w_gate, w_up, w_down)
+        import torch.nn.functional as F
+        used.add("decode")
+        return _dot(F.silu(_column_product(x, w_gate))
+                    * _column_product(x, w_up), w_down)
+    return swiglu
+
+
+def _chunked_region(real, used):
+    def chunked_attention(q, k, v, **kw):
+        if _decoding(q):     # attention's placements reached explicitly
+            qpl, kpl, _ = fa.shard_rule(q, k)
+            used.add("decode")
+            q, k, v = (_redistribute(t, pl)
+                       for t, pl in ((q, qpl), (k, kpl), (v, kpl)))
+        return real(q, k, v, **kw)
+    return chunked_attention
+
+
+def _decode_region(real, used):
+    def decode_step(self, cache, tokens):
+        if not _is_dtensor(tokens):
+            return real(self, cache, tokens)
+        used.add("decode")
+        con = self.constrain
+        if con is not None:          # JAX's constraints, explicitly
+
+            def explicit(x, axes):
+                if not _is_dtensor(x):
+                    return con(x, axes)
+                return _redistribute(x, _placements(x.device_mesh, x.shape,
+                                                    axes))
+            explicit.mesh = con.mesh
+            self.constrain = explicit
+        _DECODE.on, _DECODE.memo = True, {}
+        try:
+            return real(self, cache, tokens)
+        finally:
+            _DECODE.on, _DECODE.memo = False, {}
+            self.constrain = con
+    return decode_step
 
 
 def _whole_heads(t, heads):
@@ -1281,16 +1711,16 @@ def _merge_region(real, used):
 def _store_region(real, used):
     def _store(self, cache, slot, new):
         from torch.distributed.tensor import Replicate, Shard
-        seq = [i for i, pl in enumerate(getattr(cache, "placements", ()))
-               if pl == Shard(2)]
-        if not seq:
+        if not _is_dtensor(cache):
             return real(self, cache, slot, new)
         used.add("cache_store")
         mesh = cache.device_mesh
+        seq = [i for i, pl in enumerate(cache.placements) if pl == Shard(2)]
         # new (B, Hkv, D) laid out as the cache's batch, heads and head_dim
         pl = [Replicate() if p == Shard(2) else Shard(2) if p == Shard(3)
               else p for p in cache.placements]
-        local, val = cache.to_local(), new.redistribute(mesh, pl).to_local()
+        local = cache.to_local()
+        val = _redistribute(_cut_first(new, pl), pl).to_local()
         at = slot - _offset(mesh, seq, local.shape[2])
         if 0 <= at < local.shape[2]:          # the rank that holds the slot
             real(self, local, at, val)
@@ -1335,26 +1765,93 @@ def _ssm_decode_region(real, used):
     def mamba2_decode_step(x_t, p, cfg, state):
         if not _is_dtensor(x_t):
             return real(x_t, p, cfg, state)
-        from torch.distributed.tensor import Replicate
-        from torch.distributed.tensor.experimental import local_map
         used.add("mamba2_decode_step")
-        mesh = x_t.device_mesh
-        rows = _placements(mesh, x_t.shape, ("data", None, None))
-        rep = [Replicate()] * mesh.ndim
-        names = sorted(p)
-
-        def local(x, st, conv, *weights):
-            y, new = real(x, dict(zip(names, weights)), cfg,
-                          mamba2.SSMState(state=st, conv=conv))
-            return y, new.state, new.conv
-
-        y, st, conv = local_map(
-            local, out_placements=(rows, rows, rows),
-            in_placements=(rows, rows, rows) + (rep,) * len(names),
-            device_mesh=mesh, redistribute_inputs=True)(
-            x_t, state.state, state.conv, *(p[n] for n in names))
-        return y, mamba2.SSMState(state=st, conv=conv)
+        return _ssm_decode(x_t, p, cfg, state)
     return mamba2_decode_step
+
+
+def _ssm_decode(x_t, p, cfg, state):
+    """``mamba2_decode_step`` with the mixer's weights in their stored
+    shards: ``in_proj``'s contraction split over the data dims (x_t's d
+    shard, ``_meet``), its partial columns reduced once and gathered whole
+    (``_settle``); the conv on this rank's channels of ``conv_w`` and of
+    the cache's window, its outputs gathered whole over "model"; the state
+    stepped on the cache's heads (``cache_pspecs``), the gated norm's mean
+    over those heads' channels summed over "model"; ``out_proj``
+    row-parallel, its output a partial sum for ``_residual`` to reduce.
+    The state and window come back in the cache's layout. The arithmetic
+    is ``mamba2_decode_step``'s, each step on the rank's slice."""
+    import torch.nn.functional as F
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    H, P, N, G = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_d_state, \
+        cfg.ssm_n_groups
+    d_in = cfg.d_inner
+    conv_ch = d_in + 2 * G * N
+    zx = _dot(x_t, p["in_proj"])              # (B, 1, 2 d_in + 2 G N + H)
+    mesh = zx.device_mesh
+    zx = _settle(zx, [Replicate() if a == Shard(2) else a
+                      for a in _columns(x_t, zx)])
+    ch = [i for i, a in enumerate(p["conv_w"].placements) if a == Shard(1)]
+    heads = [i for i, a in enumerate(state.state.placements) if a == Shard(1)]
+    ch_pl = [Shard(0) if i in ch else Replicate() for i in range(mesh.ndim)]
+    h_pl = [Shard(0) if i in heads else Replicate()
+            for i in range(mesh.ndim)]
+    y_pl = [Shard(2) if i in heads else a if a == Shard(0) else Replicate()
+            for i, a in enumerate(zx.placements)]
+    small = {"conv_b": ch_pl, "A_log": h_pl, "D": h_pl, "dt_bias": h_pl,
+             "norm": h_pl}
+    ws = {k: _redistribute(p[k], pl) for k, pl in small.items()}
+
+    def local(zx, conv_w, conv_b, A_log, D, dt_bias, norm, st, conv):
+        B, dtype = zx.shape[0], zx.dtype
+        z, xBC, dt = torch.split(zx[:, 0], [d_in, conv_ch, H], dim=-1)
+        c0 = _offset(mesh, ch, conv_w.shape[1])
+        xBC = xBC[:, c0:c0 + conv_w.shape[1]]
+        win = torch.cat([conv.to(dtype), xBC[:, None, :]], dim=1)
+        xBC = F.silu(torch.einsum("bkc,kc->bc", win, conv_w) + conv_b)
+        if ch:                      # every channel's conv output, whole
+            xBC = _gather_last(xBC, mesh, ch)
+        x_in, B_, C_ = torch.split(xBC, [d_in, G * N, G * N], dim=-1)
+        Hl = st.shape[1]
+        h0 = _offset(mesh, heads, Hl)
+        x_in = x_in.reshape(B, H, P)[:, h0:h0 + Hl]
+        B_ = mamba2._expand_groups(B_.reshape(B, 1, G, N), H)[:, 0,
+                                                                h0:h0 + Hl]
+        C_ = mamba2._expand_groups(C_.reshape(B, 1, G, N), H)[:, 0,
+                                                                h0:h0 + Hl]
+        dt = mamba2._softplus(dt.float()[:, h0:h0 + Hl] + dt_bias)
+        decay = torch.exp(-torch.exp(A_log.float()) * dt)
+        x_dt = x_in.float() * dt[..., None]
+        s = st * decay[:, :, None, None] \
+            + B_.float()[..., :, None] * x_dt[..., None, :]
+        y = (C_.float()[..., None, :] @ s)[..., 0, :]
+        y = (y + D[:, None] * x_in.float()).reshape(B, Hl * P).to(dtype)
+        # the gated norm over the heads' channels here, its mean's sum
+        # over the heads' shards
+        g = y * F.silu(z[:, h0 * P:(h0 + Hl) * P])
+        g32 = g.float()
+        var = _psum((g32 * g32).sum(dim=-1, keepdim=True), mesh, heads) \
+            / d_in
+        g = (g32 * torch.rsqrt(var + cfg.norm_eps)).to(dtype) * norm
+        return g[:, None, :], s, win[:, 1:, :]
+
+    st_pl, cv_pl = list(state.state.placements), list(state.conv.placements)
+    g, st, conv = local_map(
+        local, out_placements=(y_pl, st_pl, cv_pl),
+        in_placements=(list(zx.placements), list(p["conv_w"].placements))
+        + tuple(small.values()) + (st_pl, cv_pl), device_mesh=mesh)(
+        zx, p["conv_w"], *ws.values(), state.state, state.conv)
+    return _dot(g, p["out_proj"]), mamba2.SSMState(state=st, conv=conv)
+
+
+def _gather_last(t, mesh, dims):
+    """``t``, a local tensor, gathered whole along its last dim over
+    ``mesh``'s dims ``dims`` (major first), one collective."""
+    import torch.distributed._functional_collectives as funcol
+    out = funcol.all_gather_tensor(t.contiguous(), t.dim() - 1,
+                                   _group(mesh, dims))
+    return out.wait() if hasattr(out, "wait") else out
 
 
 #: where each region stands in: (module or class, attribute, region)
@@ -1369,12 +1866,17 @@ _SITES = ((moe, "moe_ffn", _moe_region),
           (mamba2, "mamba2_decode_step", _ssm_decode_region),
           (L, "decode_attention", _decode_attention_region),
           (L, "gelu_mlp", _gelu_region),
+          (L, "swiglu", _swiglu_region),
+          (L, "chunked_attention", _chunked_region),
           (LM, "_lookup", _lookup_region),
           (LM, "_nll", _nll_region),
           (LM, "_store", _store_region),
           (LM, "_split_heads", _heads_region),
           (LM, "_merge_heads", _merge_region),
           (LM, "_residual", _residual_region),
+          (LM, "_proj", _proj_region),
+          (LM, "_out", _out_region),
+          (LM, "decode_step", _decode_region),
           (LM, "_norm", _norm_region),
           (LM, "_qk_norm", _qk_norm_region),
           (LM, "_gather_weights", _wgather_region),
@@ -1483,19 +1985,26 @@ def copied_leaves(lm: LM) -> list:
     return [g for g in leaf_groups(lm) if g.stacked and not g.views]
 
 
-def with_copies(step, copies):
+def with_copies(step, copies, once: bool = False):
     """``step`` after the gathers of the copied periods from their stacked
     leaves (``copied_leaves``): the collectives JAX's scan over a sharded
     stack pays inside its step. A train step updates the stacked leaf
-    itself, so each call reads the periods of the last update."""
+    itself, so each call reads the periods of the last update; each
+    period's select gathers the leaf. With ``once`` (a decode step) each
+    leaf is gathered once, over the data dims (``_redistribute``), and its
+    periods are cut from it, as JAX gathers the stacked leaf once."""
     if not copies:
         return step
 
     def run(*args, **kw):
         with torch.no_grad():
             for g in copies:
+                leaf = g.leaf
+                if once:
+                    leaf = _redistribute(leaf, _dp_replicated(
+                        leaf.device_mesh, leaf.placements))
                 for i, t in enumerate(g.tensors):
-                    t.copy_(g.leaf[i])
+                    t.copy_(leaf[i])
         return step(*args, **kw)
     return run
 
@@ -1543,7 +2052,7 @@ def place_step(lm: LM, mesh, kind: str, trees: dict, make: Callable,
     cache = lay(trees["cache"], SH.flatten(SH.cache_pspecs(
         mesh, trees["cache"], seq_shard=var.get("kv_seq_shard", False))))
     tokens = batch_of({"tokens": trees["tokens"]})["tokens"]
-    serve = with_copies(lm_step.make_serve_step(lm), copies)
+    serve = with_copies(lm_step.make_serve_step(lm), copies, once=True)
     # the cache's length runs as the host int the port reads (0 for the
     # int32 scalar JAX passes, which is what is counted)
     length = cache["len"]

@@ -35,12 +35,14 @@ or without it. The MoE and SSD calls never meet a ``DTensor``: the dry-run
 runs those functions in regions on each rank's plain shards
 (``launch/dryrun.py``), whose placements stand in for them. It also
 carries the mesh, ``constrain.mesh``. ``_lookup``, ``_nll``, ``_store``,
-``_split_heads``, ``_merge_heads``, ``_norm``, ``_qk_norm``,
-``_residual`` and ``_gather_weights`` are the points where the dry-run's
-regions step in for DTensor (the sharded lookup, log-sum-exp, cache
-write, head split and merge, a norm's gradient, q's and k's norm scale,
-the residual add of a row-parallel product, the weights gathered at use);
-on plain tensors they are the model's own arithmetic. With
+``_split_heads``, ``_merge_heads``, ``_norm``, ``_qk_norm``, ``_proj``,
+``_out``, ``_residual``, ``_gather_weights`` and ``decode_step`` are the
+points where the dry-run's regions step in for DTensor (the sharded
+lookup, log-sum-exp, cache write, head split and merge, a norm's gradient,
+q's and k's norm scale, a column- and a row-parallel product on the
+weight's stored shard, the residual add of a row-parallel product, the
+weights gathered at use, the decode step's policy); on plain tensors they
+are the model's own arithmetic. With
 ``cfg.moe_buf_mode == "shard_map"`` and a mesh whose "model" dim divides E,
 each MoE sublayer runs ``moe.moe_ffn_shard_map`` over that mesh (expert
 parallel, one all-reduce); otherwise ``moe.moe_ffn``, with ``buf_mode``
@@ -387,6 +389,17 @@ class LM(nn.Module):
         or its MoE FFN: where a sharded y's partial sums are reduced."""
         return x + y
 
+    def _proj(self, h, w, heads=None):
+        """h @ w, a column-parallel product (``wq``, ``wk``, ``wv``,
+        ``x_wq``, ``x_wk``, ``x_wv``, the head), whose columns split into
+        ``heads`` heads (None: any split)."""
+        return h @ w
+
+    def _out(self, t, w):
+        """t @ w, a row-parallel product (``wo``, ``x_wo``), whose partial
+        sums ``_residual`` reduces where t's columns are sharded."""
+        return t @ w
+
     def _split_heads(self, t, heads):
         """(B, S, heads * d_head) -> (B, S, heads, d_head)."""
         return t.reshape(t.shape[0], t.shape[1], heads, self.cfg.d_head)
@@ -398,7 +411,9 @@ class LM(nn.Module):
 
     def _qkv(self, h, p):
         c = self.cfg
-        q, k, v = h @ p["wq"], h @ p["wk"], h @ p["wv"]
+        q = self._proj(h, p["wq"], c.n_heads)
+        k = self._proj(h, p["wk"], c.n_kv_heads)
+        v = self._proj(h, p["wv"], c.n_kv_heads)
         if c.qkv_bias:
             q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
         q = self._split_heads(q, c.n_heads)
@@ -433,7 +448,7 @@ class LM(nn.Module):
         out = L.chunked_attention(q.movedim(1, 2), k.movedim(1, 2),
                                   v.movedim(1, 2), causal=causal,
                                   window=self.cfg.attn_window)
-        return self._residual(x, self._merge_heads(out) @ p["wo"])
+        return self._residual(x, self._out(self._merge_heads(out), p["wo"]))
 
     def _cross_kv(self, enc_out, p):
         """The keys and values sublayer ``p`` attends to over the encoder's
@@ -441,8 +456,10 @@ class LM(nn.Module):
         projections, the forward's cross-attention inputs and what a filled
         decode cache holds as ``xk``, ``xv``."""
         c = self.cfg
-        k = self._split_heads(enc_out @ p["x_wk"], c.n_kv_heads)
-        v = self._split_heads(enc_out @ p["x_wv"], c.n_kv_heads)
+        k = self._split_heads(self._proj(enc_out, p["x_wk"], c.n_kv_heads),
+                              c.n_kv_heads)
+        v = self._split_heads(self._proj(enc_out, p["x_wv"], c.n_kv_heads),
+                              c.n_kv_heads)
         return k.movedim(1, 2), v.movedim(1, 2)
 
     def _cross_attn(self, x, p, k, v):
@@ -451,9 +468,9 @@ class LM(nn.Module):
         qk-norm, as JAX's ``_cross_attn`` has none."""
         c = self.cfg
         h = self._norm(x, p, "x_ln")
-        q = self._split_heads(h @ p["x_wq"], c.n_heads)
+        q = self._split_heads(self._proj(h, p["x_wq"], c.n_heads), c.n_heads)
         out = L.chunked_attention(q.movedim(1, 2), k, v, causal=False)
-        return self._residual(x, self._merge_heads(out) @ p["x_wo"])
+        return self._residual(x, self._out(self._merge_heads(out), p["x_wo"]))
 
     def _ffn(self, x, p, idx_in_period):
         """-> (x + the FFN's output, its aux loss, float32). A MoE sublayer
@@ -496,7 +513,7 @@ class LM(nn.Module):
                            "ln_b": top["final_norm_b"]
                            if "final_norm_b" in top else None})
         head = top["embed"].T if self.cfg.tie_embeddings else top["lm_head"]
-        return x @ head
+        return self._proj(x, head)
 
     # ================================================================ forward
     def _lookup(self, tokens):
@@ -687,7 +704,8 @@ class LM(nn.Module):
                                          cache_len=min(pos + 1, s_kv),
                                          window=c.attn_window,
                                          window_rotated=rotated)
-                x = self._residual(x, self._merge_heads(out) @ p["wo"])
+                x = self._residual(x, self._out(self._merge_heads(out),
+                                                p["wo"]))
                 if c.enc_layers:
                     x = self._cross_attn(x, p, pc["xk"][n], pc["xv"][n])
             else:

@@ -62,8 +62,12 @@ class Routing(NamedTuple):
     capacity: int           # C
 
 
-def _probs(x: torch.Tensor, router: torch.Tensor) -> torch.Tensor:
-    return torch.softmax(x.float() @ router.float(), dim=-1)     # (B, S, E)
+def _probs(x: torch.Tensor, router: torch.Tensor,
+           psum: Callable | None = None) -> torch.Tensor:
+    """The router's softmax over the E experts (B, S, E), float32; ``psum``
+    sums the logits where each rank holds a shard of d (``local_experts``)."""
+    logits = x.float() @ router.float()
+    return torch.softmax(logits if psum is None else psum(logits), dim=-1)
 
 
 def balance(probs: torch.Tensor, top_i: torch.Tensor,
@@ -83,13 +87,15 @@ def balance_loss(me: torch.Tensor, ce: torch.Tensor) -> torch.Tensor:
 
 def route(x: torch.Tensor, router: torch.Tensor, *, n_experts: int,
           top_k: int, capacity_factor: float = 1.0,
-          constrain: Constrain | None = None) -> Routing:
+          constrain: Constrain | None = None,
+          psum: Callable | None = None) -> Routing:
     """``moe_ffn``'s routing and dispatch coordinates on x (B, S, d);
-    ``constrain`` takes the one-hot in JAX's (B, S*k, E) layout."""
+    ``constrain`` takes the one-hot in JAX's (B, S*k, E) layout, ``psum``
+    the router's logits (``_probs``)."""
     B, S, _ = x.shape
     E, k = n_experts, top_k
     C = capacity(S, k, E, capacity_factor)
-    probs = _probs(x, router)
+    probs = _probs(x, router, psum)
     top_w, top_i = topk(probs, k)
     top_w = top_w / top_w.sum(dim=-1, keepdim=True)
     aux = balance_loss(*balance(probs, top_i, E))
@@ -317,7 +323,8 @@ def shard_map_body(x: torch.Tensor, router: torch.Tensor, wg: torch.Tensor,
 
 def local_experts(x: torch.Tensor, router: torch.Tensor, wg: torch.Tensor,
                   wu: torch.Tensor, wd: torch.Tensor, lo: int, *,
-                  n_experts: int, top_k: int, capacity_factor: float
+                  n_experts: int, top_k: int, capacity_factor: float,
+                  psum: Callable | None = None
                   ) -> tuple[torch.Tensor, Routing]:
     """Experts ``lo`` .. ``lo + E_loc`` of all E on x (B, S, d), E_loc =
     ``wg.shape[0]``: ``route``'s routing over all E with the whole
@@ -325,11 +332,16 @@ def local_experts(x: torch.Tensor, router: torch.Tensor, wg: torch.Tensor,
     local and masked to these experts (foreign assignments land on local
     expert 0 and add exact zeros) -> (this part of the output, the
     routing). The parts summed over a partition of the experts are
-    ``moe_ffn``'s output."""
+    ``moe_ffn``'s output. Where x, the router and the experts hold one
+    shard of d each (the dry-run's decode step), ``psum`` sums the
+    products over d (the router's logits, the gate and up activations)
+    across the ranks that hold the other shards, and the output is this
+    shard of d."""
     B, S, d = x.shape
     k, E_loc = top_k, wg.shape[0]
+    psum = psum or (lambda t: t)
     r = route(x, router, n_experts=n_experts, top_k=k,
-              capacity_factor=capacity_factor)
+              capacity_factor=capacity_factor, psum=psum)
     C = r.capacity
     flat_e = r.top_i.reshape(B, S * k)
     mine = (flat_e >= lo) & (flat_e < lo + E_loc)
@@ -347,8 +359,8 @@ def local_experts(x: torch.Tensor, router: torch.Tensor, wg: torch.Tensor,
 
     # ---- these experts (SwiGLU), one batched product over E_loc
     buf = buf.view(E_loc, B * C, d)
-    h = torch.matmul(buf, wg)
-    u = torch.matmul(buf, wu)
+    h = psum(torch.matmul(buf, wg))
+    u = psum(torch.matmul(buf, wu))
     y = torch.matmul(F.silu(h) * u, wd)                          # (E_loc, B*C, d)
 
     # ---- combine, local

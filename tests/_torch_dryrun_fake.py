@@ -1,13 +1,13 @@
 """The port's dry-run on the fake process group, one process:
 
-    python tests/_torch_dryrun_fake.py OUT_DIR jax|gloo|scale
+    python tests/_torch_dryrun_fake.py OUT_DIR jax|gloo|scale|b1
     python tests/_torch_dryrun_fake.py OUT_DIR sites ARCH SHAPE single|multi \
         VARIANT [cpu|cuda]
 
 Every cell runs ``launch.dryrun.run_cell`` on ``"cpu"`` fake tensors, each
 creating and destroying its own fake group. It prints one JSON object, of
-the cells held to JAX's (``jax``: ``arguments``, ``shmap``, ``constrain``),
-to real gloo runs (``gloo``) or to each other (``scale``):
+the cells held to JAX's (``jax``: ``arguments``, ``shmap``, ``constrain``;
+``b1``), to real gloo runs (``gloo``) or to each other (``scale``):
 
   * ``arguments``: per-rank ``argument_size_in_bytes`` of the reduced
     Yi-6B's train cell (8 x 32 tokens) and its decode cells (8 rows, a
@@ -28,16 +28,22 @@ to real gloo runs (``gloo``) or to each other (``scale``):
   * ``uneven_heads``: the reduced Qwen2.5-32B's and Whisper-tiny's bf16
     train cells on (data 2, model 3), whose model dim does not divide
     their 4 heads: status, wire bytes and the regions taken;
+  * ``b1``: the decode cells of one row (``B1_CELLS``: the reduced Jamba,
+    Mamba2 and Mixtral, one token against a cache of 64) on (pod 2,
+    data 2, model 2), fewer rows than the data ranks: their
+    ``arguments`` and ``collectives``, held to JAX's;
   * ``scale``: the reduced Qwen3-MoE's bf16 train cell (8 x 32) on
     (data 2, model 2) and on (pod 2, data 2, model 2), the same global
     batch: each one's per-rank temp and wire bytes (the second also as
     ``arguments`` and ``collectives``, held to JAX's); and the reduced
-    Yi-6B's train cell (one KV head) on (data 2, model 1): its status;
+    Yi-6B's train cell (one KV head) on (data 2, model 1): its status
+    and its collectives by call site (``one_kv``);
   * ``recorder``: whether the recorder's count equals CommDebugMode's in
     every cell;
   * ``sites``: the collectives of the tiny ``train`` (``baseline`` and
-    ``wgather``), ``decode``, ``decode_seqshard`` and ``moe_train`` cells
-    and of each gloo cell (``gloo_<name>``) by call site (``Sites``).
+    ``wgather``), ``decode``, ``decode_seqshard``, ``moe_train``,
+    ``one_kv`` and one-row decode cells and of each gloo cell
+    (``gloo_<name>``) by call site (``Sites``).
 
 The ``sites`` part runs one full-width cell on its production mesh and
 writes its record to OUT_DIR; it prints the record's stem and the cell's
@@ -71,6 +77,12 @@ MESH3 = (2, 2)                      # with multi_pod: (pod 2, data 2, model 2)
 UNEVEN_HEADS, UNEVEN_MESH = ("qwen2.5-32b", "whisper-tiny"), (2, 3)
 #: (data 2, model 1): the reduced Yi-6B's one KV head "split" over it
 ONE_KV_MESH = (2, 1)
+#: the decode cells of one row: name -> arch, each one token against a
+#: cache of 64 (``_torch_dryrun_jax.py``'s ``B1_ARCHS``)
+B1_CELLS = {"decode_b1_hybrid": "jamba-1.5-large-398b",
+            "decode_b1_ssm": "mamba2-780m",
+            "decode_b1_moe": "mixtral-8x7b"}
+DECODE_B1 = ShapeCell("long_500k", 64, 1, "decode")
 
 
 #: the port's package: a collective's site is its innermost frame there
@@ -270,6 +282,8 @@ def main() -> None:
         gloo_cells(res)
     elif part == "scale":
         scale_cells(res)
+    elif part == "b1":
+        b1_cells(res)
     else:
         jax_cells(res, out_dir)
     print("RESULT " + json.dumps(res, default=float))
@@ -336,12 +350,23 @@ def scale_cells(res) -> None:
     res["collectives"]["moe_train"] = {k: rec[k] for k in ("coll_by_kind",
                                                            "coll_bytes")}
     try:                       # one KV head, split over a model dim of 1
-        rec, _ = cell("yi-6b", "train_4k", TRAIN, multi_pod=False,
-                      mesh=ONE_KV_MESH)
+        rec, _ = tagged(res, "one_kv", "yi-6b", "train_4k", TRAIN,
+                        multi_pod=False, mesh=ONE_KV_MESH)
         res["one_kv"] = {"status": rec["status"],
                          "coll_bytes": rec["coll_bytes"]}
     except Exception as e:     # noqa: BLE001 - the test reads the failure
         res["one_kv"] = {"status": f"failed: {type(e).__name__}: {e}"}
+
+
+def b1_cells(res) -> None:
+    res["arguments"], res["collectives"] = {}, {}
+    for name, arch in B1_CELLS.items():
+        rec, run = tagged(res, name, arch, "long_500k", DECODE_B1)
+        res["arguments"][name] = rec["memory_analysis"][
+            "argument_size_in_bytes"]
+        res["collectives"][name] = {k: rec[k] for k in ("coll_by_kind",
+                                                        "coll_bytes")}
+        res["recorder"][name] = agree(run)
 
 
 def gloo_cells(res) -> None:

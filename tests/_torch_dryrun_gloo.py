@@ -53,7 +53,9 @@ CELLS = (("prefill", "yi-6b", "prefill", "baseline", (4, 32)),
          ("moe_train", "qwen3-moe-235b-a22b", "train", "baseline", (4, 32)),
          ("ssm_train", "mamba2-780m", "train", "baseline", (4, 32)),
          ("gelu_train", "whisper-tiny", "train", "baseline", (4, 32)),
-         ("one_kv_train", "yi-6b", "train", "baseline", (4, 32)))
+         ("one_kv_train", "yi-6b", "train", "baseline", (4, 32)),
+         ("hybrid_decode", "jamba-1.5-large-398b", "decode", "baseline",
+          (1, 64)))
 #: the (data, model) mesh of a cell, (2, 2) unless named here: (4, 1) for
 #: the reduced Yi-6B's one KV head "split" over a model dim of 1
 MESHES = {"one_kv_train": (4, 1)}

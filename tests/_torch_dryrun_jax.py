@@ -1,6 +1,7 @@
 """JAX's side of ``tests/test_torch_dryrun.py``, one process:
 
     python tests/_torch_dryrun_jax.py
+    python tests/_torch_dryrun_jax.py b1
 
 On 8 placeholder CPU devices, mesh (pod 2, data 2, model 2), JAX's
 dry-run pipeline (``repro.launch.dryrun.build_cell``'s steps, shardings and
@@ -18,6 +19,11 @@ of every registry arch at every shape, leaf by leaf; and the
 ``constrain`` callback, with ``activation_constraints`` on and off and with
 ``fsdp_weight_gather``, at one period (and one encoder layer): JAX's
 scans trace their body once, the port's loops run it once a period.
+
+With ``b1`` it reads, in a process of its own, only the decode cells of
+one row (``B1_ARCHS``: the reduced Jamba, Mamba2 and Mixtral, one token
+against a cache of 64, fewer rows than the data ranks) on the same mesh:
+each one's argument bytes and collective bytes by kind.
 """
 
 import os
@@ -26,6 +32,7 @@ os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
 
 import dataclasses  # noqa: E402
 import json  # noqa: E402
+import sys  # noqa: E402
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -48,6 +55,10 @@ FAMILIES = ("yi-6b", "qwen3-moe-235b-a22b", "mamba2-780m",
 KNOBS = {"on": {}, "off": {"activation_constraints": False},
          "wgather": {"fsdp_weight_gather": True}}
 B, S, S_DEC = 8, 32, 64
+#: the decode cells of one row, by name
+B1_ARCHS = {"decode_b1_hybrid": "jamba-1.5-large-398b",
+            "decode_b1_ssm": "mamba2-780m",
+            "decode_b1_moe": "mixtral-8x7b"}
 
 
 def train(mesh, arch):
@@ -76,17 +87,36 @@ def arguments() -> dict:
         lm, p_sh, compiled = train(mesh, arch)
         out[name] = int(compiled.memory_analysis().argument_size_in_bytes)
         colls[name] = collectives(compiled)
-    pspec = lm.param_specs()
     for name, seq_shard in (("decode", False), ("decode_seqshard", True)):
-        cache = lm.init_cache(B, S_DEC, dtype=jnp.bfloat16, abstract=True)
-        tokens = jax.ShapeDtypeStruct((B, 1), jnp.int32)
-        c_sh = SH.to_shardings(mesh, SH.cache_pspecs(mesh, cache,
-                                                     seq_shard=seq_shard))
-        t_sh = SH.to_shardings(mesh, SH.batch_pspec(mesh, tokens))
-        fn = jax.jit(lm_step.make_serve_step(lm),
-                     in_shardings=(p_sh, c_sh, t_sh), donate_argnums=(1,))
-        with mesh:
-            compiled = fn.lower(pspec, cache, tokens).compile()
+        compiled = decode(mesh, lm, p_sh, B, seq_shard)
+        out[name] = int(compiled.memory_analysis().argument_size_in_bytes)
+        colls[name] = collectives(compiled)
+    return out, colls
+
+
+def decode(mesh, lm, p_sh, rows, seq_shard=False):
+    """``lm``'s compiled serve step on ``mesh``: ``rows`` tokens against a
+    cache of S_DEC."""
+    cache = lm.init_cache(rows, S_DEC, dtype=jnp.bfloat16, abstract=True)
+    tokens = jax.ShapeDtypeStruct((rows, 1), jnp.int32)
+    c_sh = SH.to_shardings(mesh, SH.cache_pspecs(mesh, cache,
+                                                 seq_shard=seq_shard))
+    t_sh = SH.to_shardings(mesh, SH.batch_pspec(mesh, tokens))
+    fn = jax.jit(lm_step.make_serve_step(lm),
+                 in_shardings=(p_sh, c_sh, t_sh), donate_argnums=(1,))
+    with mesh:
+        return fn.lower(lm.param_specs(), cache, tokens).compile()
+
+
+def decode_b1() -> tuple:
+    """The decode cells of one row (``B1_ARCHS``) on (pod 2, data 2,
+    model 2)."""
+    mesh = make_test_mesh((2, 2, 2), ("pod", "data", "model"))
+    out, colls = {}, {}
+    for name, arch in B1_ARCHS.items():
+        lm = LM(reduced(get_config(arch)), constrain=SH.make_constrainer(mesh))
+        p_sh = SH.to_shardings(mesh, SH.param_pspecs(mesh, lm.param_specs()))
+        compiled = decode(mesh, lm, p_sh, 1)
         out[name] = int(compiled.memory_analysis().argument_size_in_bytes)
         colls[name] = collectives(compiled)
     return out, colls
@@ -151,6 +181,10 @@ def constraints() -> dict:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == ["b1"]:
+        args, colls = decode_b1()
+        print(json.dumps({"arguments": args, "collectives": colls}))
+        raise SystemExit(0)
     args, colls = arguments()
     print(json.dumps({"arguments": args, "collectives": colls,
                       "specs": specs(), "constraints": constraints()}))

@@ -2,11 +2,11 @@
 sharding constraints it runs on, held to JAX's.
 
 Process groups are global and xdist shares workers, so none is made here:
-JAX's side runs on 8 placeholder devices in ``_torch_dryrun_jax.py`` (JAX's
-``dryrun.py`` is never imported: it forces 512 devices), the port's fake
-cells in three ``_torch_dryrun_fake.py`` processes and the same sharded
-steps run for real on four gloo ranks in ``_torch_dryrun_gloo.py``, all
-started at once under one limit.
+JAX's side runs on 8 placeholder devices in two ``_torch_dryrun_jax.py``
+processes (JAX's ``dryrun.py`` is never imported: it forces 512 devices),
+the port's fake cells in four ``_torch_dryrun_fake.py`` processes and the
+same sharded steps run for real on four gloo ranks in
+``_torch_dryrun_gloo.py``, all started at once under one limit.
 """
 
 import ast
@@ -31,7 +31,10 @@ from repro_torch.models.model import LM
 from _torch_dryrun_gloo import CELLS as GLOO_CELLS, mesh_of
 
 #: the parts of ``_torch_dryrun_fake.py``, each its own process
-FAKE_PARTS = ("jax", "gloo", "scale")
+FAKE_PARTS = ("jax", "gloo", "scale", "b1")
+#: the decode cells of one row (fewer rows than the data ranks), read on
+#: both sides in processes of their own (``b1``)
+B1_CELLS = ("decode_b1_hybrid", "decode_b1_ssm", "decode_b1_moe")
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
 SRC = os.path.join(ROOT, "src")
@@ -56,33 +59,40 @@ def _env():
     return env
 
 
+def _start(*args):
+    return subprocess.Popen([sys.executable] + [str(a) for a in args],
+                            env=_env(), stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """JAX's helper, the fake cells and the four gloo ranks, at once."""
+    """JAX's helper, the fake cells and the four gloo ranks, at once; the
+    one-row decode cells (JAX's and the port's) once JAX's helper, the
+    first waited on and the longest, has ended, so as not to slow it."""
     tmp = tmp_path_factory.mktemp("dryrun")
     rdv, out = tmp / "gloo", tmp / "records"
     rdv.mkdir()
     out.mkdir()
-    procs = {
-        "jax": subprocess.Popen([sys.executable,
-                                 os.path.join(HERE, "_torch_dryrun_jax.py")],
-                                env=_env(), stdout=subprocess.PIPE,
-                                stderr=subprocess.PIPE, text=True),
-        **{f"fake_{part}": subprocess.Popen(
-            [sys.executable, os.path.join(HERE, "_torch_dryrun_fake.py"),
-             str(out), part], env=_env(), stdout=subprocess.PIPE,
-            stderr=subprocess.PIPE, text=True) for part in FAKE_PARTS}}
+    fake_py = os.path.join(HERE, "_torch_dryrun_fake.py")
+    procs = {"jax": _start(os.path.join(HERE, "_torch_dryrun_jax.py")),
+             **{f"fake_{part}": _start(fake_py, out, part)
+                for part in FAKE_PARTS if part != "b1"}}
     for r in range(4):
-        procs[f"gloo{r}"] = subprocess.Popen(
-            [sys.executable, os.path.join(HERE, "_torch_dryrun_gloo.py"),
-             str(rdv), str(r), "4"], env=_env(), stdout=subprocess.PIPE,
-            stderr=subprocess.PIPE, text=True)
+        procs[f"gloo{r}"] = _start(os.path.join(HERE, "_torch_dryrun_gloo.py"),
+                                   rdv, r, 4)
     texts = {}
     try:
-        for name, proc in procs.items():
-            stdout, stderr = proc.communicate(timeout=LIMIT_S)
-            assert proc.returncode == 0, f"{name}: {stderr[-3000:]}"
+        names = list(procs)
+        for name in names:
+            stdout, stderr = procs[name].communicate(timeout=LIMIT_S)
+            assert procs[name].returncode == 0, f"{name}: {stderr[-3000:]}"
             texts[name] = stdout
+            if name == "jax":
+                procs["jax_b1"] = _start(
+                    os.path.join(HERE, "_torch_dryrun_jax.py"), "b1")
+                procs["fake_b1"] = _start(fake_py, out, "b1")
+                names += ["jax_b1", "fake_b1"]
     finally:
         for proc in procs.values():
             if proc.poll() is None:
@@ -97,8 +107,10 @@ def runs(tmp_path_factory):
         fake.update(got)
     gloo = [json.loads((rdv / f"rank{r}.json").read_text())
             for r in range(4)]
-    return {"jax": json.loads(texts["jax"]), "fake": fake,
-            "gloo": gloo, "records": out}
+    jax = json.loads(texts["jax"])
+    for key, cells in json.loads(texts["jax_b1"]).items():
+        jax[key].update(cells)
+    return {"jax": jax, "fake": fake, "gloo": gloo, "records": out}
 
 
 def _flat(tree, path=()):
@@ -178,18 +190,21 @@ def test_constrainer_redistributes_a_dtensor_to_the_spec(runs):
 
 
 @pytest.mark.parametrize("cell", ["train", "decode", "decode_seqshard",
-                                  "moe_train"])
+                                  "moe_train"] + list(B1_CELLS))
 def test_argument_bytes_equal_jax_memory_analysis(runs, cell):
     assert runs["fake"]["arguments"][cell] == runs["jax"]["arguments"][cell]
 
 
 #: the most the port's collective bytes may be of JAX's HLO count, per
 #: cell: (all-reduce bytes, wire bytes); None where the cell holds no bound.
-#: Decode moves the (B, 1, d) activations where JAX gathers the weights
-#: (ROADMAP §3, divergences kept on purpose): its wire stays within JAX's
+#: Decode keeps every weight in its stored shard and moves the (B, 1, d)
+#: activations, where JAX gathers the weights of the 8-row cells (ROADMAP
+#: §3, divergences kept on purpose) and moves the rows too in the one-row
+#: cells: its wire stays within JAX's
 COLLECTIVE_BOUNDS = {"train": (1.5, 1.5), "decode": (None, 1.0),
                      "decode_seqshard": (None, 1.0),
-                     "moe_train": (1.5, 1.5)}
+                     "moe_train": (1.5, 1.5),
+                     **{c: (None, 1.0) for c in B1_CELLS}}
 #: the most the port's all-gather bytes may be of JAX's, in every cell
 ALL_GATHER_BOUND = 1.0
 #: the cells read by call site on (pod 2, data 2, model 2): the reduced
@@ -253,18 +268,32 @@ def test_no_weight_moves_over_one_data_dim(runs, cell):
     assert {"all-gather", "reduce-scatter"} <= both, rows
 
 
-@pytest.mark.parametrize("cell", TRAIN_SITES + tuple(
-    f"gloo_{c[0]}" for c in GLOO_CELLS
-    if c[2] == "train" and mesh_of(c[0]) == (2, 2)))
+@pytest.mark.parametrize("cell", TRAIN_SITES + ("one_kv",) + tuple(
+    f"gloo_{c[0]}" for c in GLOO_CELLS if c[2] == "train"))
 def test_train_step_passes_no_shard_between_dims(runs, cell):
     """No collective of the train cells passes a shard from one tensor dim
     to another (DTensor's ``shard_dim_alltoall``: an all-to-all on a card's
     mesh, an all-gather on a CPU one, in steps that differ between torch
     releases); the Adafactor factors move between the gradient's and the
-    moments' layouts gathered and cut (``dryrun._redistribute``), and the
+    moments' layouts gathered and cut (``dryrun._redistribute``), the
     Mamba-2 mixer's leaves, splits and SSD inputs are moved by regions
-    (``ssm_mixer``). (On a model dim of one rank DTensor's head product
-    still moves the batch shard: ROADMAP §3.)"""
+    (``ssm_mixer``), and on a model dim of one rank (``one_kv``) the head's
+    weight is gathered at use (``fsdp_gather``)."""
+    rows = runs["fake"]["sites"][cell]
+    assert rows and not [r for r in rows if r["shard_move"]
+                         or r["kind"] == "all-to-all"], rows
+
+
+@pytest.mark.parametrize("cell", ("decode", "decode_seqshard") + B1_CELLS
+                         + tuple(f"gloo_{c[0]}" for c in GLOO_CELLS
+                                 if c[2] == "decode"))
+def test_decode_step_passes_no_shard_between_dims(runs, cell):
+    """No collective of a decode step passes a shard between tensor dims
+    (DTensor's plans did at ``_qkv``, ``swiglu`` and the attention's q, in
+    steps that moved with torch): each weight stays in its stored shard
+    and each move of the token's activations, the cache or the state is
+    one explicit collective (the ``decode`` region's policy), so torch
+    releases and devices issue the same ones."""
     rows = runs["fake"]["sites"][cell]
     assert rows and not [r for r in rows if r["shard_move"]
                          or r["kind"] == "all-to-all"], rows
