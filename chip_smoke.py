@@ -419,7 +419,9 @@ Phases (any failure exits non-zero; nothing is caught):
                cells and the decode cells on one pod read torch 2.13's
                bytes by kind (DRYRUN_2_13) within DRYRUN_RELEASE_TOL; each
                decode cell's wire and temp bytes at most JAX's record
-               (DRYRUN_JAX_DECODE); no train
+               (DRYRUN_JAX_DECODE), each train and prefill cell's temp
+               (DRYRUN_JAX_TEMP); each train cell's live bytes at the peak
+               by the line that made them printed; no train
                cell on two pods moves more than a scalar over one data dim
                alone. No kernel launches; the phase within
                DRYRUN_PHASE_S;
@@ -786,13 +788,13 @@ DRYRUN_SITE_CELLS = (("qwen3-8b", "train_4k"),
 #: DRYRUN_RELEASE_TOL: the record does not move with torch
 DRYRUN_2_13 = {
     ("qwen3-8b", "train_4k", "single"): {
-        "all-gather": [1155, 21_940_113_408],
-        "all-reduce": [369, 102_543_747_088],
-        "reduce-scatter": [326, 365_978_176]},
+        "all-gather": [1229, 138_899_009_536],
+        "all-reduce": [442, 24_754_059_280],
+        "reduce-scatter": [471, 5_231_370_816]},
     ("mamba2-780m", "train_4k", "single"): {
-        "all-gather": [1493, 166_209_012_736],
-        "all-reduce": [677, 21_178_826_320],
-        "reduce-scatter": [97, 15_137_280]},
+        "all-gather": [1541, 188_991_719_424],
+        "all-reduce": [726, 1_688_281_680],
+        "reduce-scatter": [193, 1_223_096_832]},
     ("jamba-1.5-large-398b", "long_500k", "single"): {
         "all-gather": [198, 7_211_520],
         "all-reduce": [660, 104_486_656],
@@ -828,14 +830,36 @@ DRYRUN_JAX_DECODE = {
     ("qwen3-8b", "decode_32k", "single"): (41_935_244_768, 6_547_305_688),
     ("qwen3-moe-235b-a22b", "decode_32k", "single"):
         (124_238_809_120, 11_829_113_600)}
-#: the rows of a DRYRUN_SITE_CELLS cell printed, largest bytes first
+#: (arch, shape, mesh, variant) -> JAX's record of phase 6f's train and
+#: prefill cells: per-rank temp bytes (memory_analysis'
+#: temp_size_in_bytes), read on this repo's CPU (`PYTHONPATH=src
+#: JAX_PLATFORMS=cpu python -c "from repro.launch import dryrun as D;
+#: D.run_cell(ARCH, SHAPE, MULTI, OUT, variant=VARIANT)"`); the port's
+#: temp must read at most these, as its residual stream between sublayers
+#: keeps d over "model" where the remat saves it, as JAX's scan carry
+#: does (none of these cells is among ROADMAP §3's divergences kept above
+#: JAX's temp)
+DRYRUN_JAX_TEMP = {
+    ("qwen3-8b", "train_4k", "single", "baseline"): 15_480_133_216,
+    ("qwen3-moe-235b-a22b", "prefill_32k", "multi", "moe_shmap"):
+        7_218_007_632,
+    ("mamba2-780m", "train_4k", "single", "baseline"): 54_025_158_688,
+    ("qwen3-moe-235b-a22b", "train_4k", "multi", "baseline"):
+        563_434_491_480,
+    ("qwen3-8b", "train_4k", "multi", "baseline"): 7_837_980_512,
+    ("qwen3-moe-235b-a22b", "train_4k", "single", "baseline"):
+        577_374_858_008}
+#: the rows of a DRYRUN_SITE_CELLS cell printed, largest bytes first; and
+#: of a train cell's live bytes at the peak by the line that made them
 DRYRUN_SITE_ROWS = 16
+DRYRUN_PEAK_ROWS = 8
 #: Qwen3-MoE's train_4k cell on one pod (256 ranks): its per-rank temp
-#: bytes in the torch 2.11 sweep of record (`python3 -m
-#: repro_torch.launch.dryrun --all` on an H100 host, PERF.md §6); the
-#: same cell on two pods (512 ranks) must fit and read at most
+#: bytes on torch 2.13 (`python tests/_torch_dryrun_fake.py OUT sites
+#: qwen3-moe-235b-a22b train_4k single baseline cpu`; the card's 2.11
+#: reads the same, PERF.md §6); the same cell on two pods (512 ranks)
+#: must fit and read at most
 #: MOE_TRAIN_POD_RATIO of it, as each rank holds half the rows
-MOE_TRAIN_SINGLE_TEMP = 79_722_832_252
+MOE_TRAIN_SINGLE_TEMP = 28_887_851_900
 MOE_TRAIN_POD_RATIO = 0.6
 #: phase 6g, the port's examples (``examples/torch_*.py``) at their
 #: defaults, each run through its ``main``; the paths (artifacts,
@@ -4912,13 +4936,16 @@ def main() -> int:
                               write=False, **kw)
             return rec, show(rec, t0)
 
-        def dryrun_sites(rec, sites):
+        def dryrun_sites(rec, sites, peak):
             """A full-width cell's collectives by call site: the rows of
             DRYRUN_SITE_CELLS printed; the cells of DRYRUN_2_13 held to
             torch 2.13's bytes by kind; no cell of
             DRYRUN_SITE_CELLS passes a shard between tensor dims (DTensor's
             all-to-all); on two pods no train cell moves anything larger
-            than a scalar over one data dim alone."""
+            than a scalar over one data dim alone. A train cell's live
+            bytes at the peak by the line that made them (``peak``)
+            printed; the decode cells' wire and temp held to JAX's record,
+            the train and prefill cells' temp."""
             arch, shape, mesh_name = rec["arch"], rec["shape"], rec["mesh"]
             by_kind = {}
             for r in sites:
@@ -4977,6 +5004,23 @@ def main() -> int:
                       f"{wire:.0f} B a rank, more than JAX's {jax[0]} B")
                 check(temp <= jax[1], f"{arch} {shape} {mesh_name}: temp "
                       f"{temp} B a rank, more than JAX's {jax[1]} B")
+            want = DRYRUN_JAX_TEMP.get((arch, shape, mesh_name,
+                                        rec["variant"]))
+            if want is not None:
+                temp = rec["memory_analysis"]["temp_size_in_bytes"]
+                print(f"{tag} {arch} {shape} {mesh_name} {rec['variant']}: "
+                      f"temp {temp} B a rank, {temp / want:.4f} of JAX's "
+                      f"record {want} B")
+                check(temp <= want, f"{arch} {shape} {mesh_name}: temp "
+                      f"{temp} B a rank, more than JAX's {want} B")
+            if shape.startswith("train"):
+                print(f"{tag} {arch} {shape} {mesh_name}: live bytes at "
+                      f"the peak by the line that made them, largest "
+                      f"first (and each line's most at once):")
+                for r in peak[:DRYRUN_PEAK_ROWS]:
+                    print(f"{tag}   {r['file']}:{r['line']} {r['function']}"
+                          f": {r['bytes']} B in {r['storages']} storages "
+                          f"(most {r['most']} B)")
 
         # (a) world 1 against the card's own runs: phase 6d's Yi-6B step
         # (TRAIN_LAYERS of 32 layers, float32, AdamW at 3e-4, remat) and
@@ -5078,19 +5122,19 @@ def main() -> int:
                 stem = DR._stem(arch, shape, mesh_name, variant)
                 with open(os.path.join(cell_dir, stem + ".json")) as f:
                     rec = json.load(f)
-                sites = json.loads(log.split("RESULT ", 1)[1])["sites"]
+                got = json.loads(log.split("RESULT ", 1)[1])
                 print(f"{tag} {stem}: its process ended "
                       f"{time.perf_counter() - t_phase:.1f} s into the "
                       f"phase")
                 show(rec, t0)
-                dryrun_sites(rec, sites)
+                dryrun_sites(rec, got["sites"], got["peak"])
                 if (arch, shape, multi) == ("qwen3-moe-235b-a22b",
                                             "train_4k", True):
                     temp = rec["memory_analysis"]["temp_size_in_bytes"]
                     print(f"{tag} {arch} {shape} on two pods: temp {temp} B "
                           f"a rank, {temp / MOE_TRAIN_SINGLE_TEMP:.3f} of "
-                          f"one pod's {MOE_TRAIN_SINGLE_TEMP} B (the torch "
-                          f"2.11 sweep of record; limit "
+                          f"one pod's {MOE_TRAIN_SINGLE_TEMP} B (torch "
+                          f"2.13's reading; limit "
                           f"{MOE_TRAIN_POD_RATIO})"
                           f" — card: {card}")
                     check(rec["fits"], f"{arch} {shape} multi does not "

@@ -40,7 +40,12 @@ under JAX's file stems and record keys:
     needs its collectives and calls the model's own functions for the
     rest. Their redistributions are explicit (``_redistribute``: no
     all-to-all), so torch releases and devices issue the same collectives
-    there. A decode step runs under the ``decode`` policy: every weight
+    there. A train or prefill step's residual stream keeps d on "model"
+    between sublayers, as JAX's scan carry does, so each period's
+    checkpoint saves a shard: a row-parallel output is reduce-scattered
+    onto it, and each norm runs on the shard and gathers its output whole
+    (``residual``, ``norm``).
+    A decode step runs under the ``decode`` policy: every weight
     stays in its stored shard and only the token's activations, the cache
     and the state move, each by one explicit collective, so no decode
     collective is DTensor's. The tests hold the collective bytes of seven
@@ -222,9 +227,10 @@ REGIONS = {
     "gelu_mlp": "models/layers.py::gelu_mlp: DTensor (torch 2.11) cannot "
                 "add a sharded bias to the partial product its propagation "
                 "picks after a sharded layernorm; each rank runs gelu_mlp "
-                "on the Megatron split with a zero b_out, its rows with the "
-                "hidden dim on 'model' (JAX's w_in / w_out specs), the "
-                "output all-reduced over 'model', then b_out added",
+                "on the Megatron split, its rows with the hidden dim on "
+                "'model' (JAX's w_in / w_out specs), b_out in the first "
+                "model rank's term alone, the output a partial sum over "
+                "'model' for the residual region to reduce",
     "split_heads": "models/model.py::LM._split_heads, _merge_heads: "
                    "DTensor refuses to split a projection's columns "
                    "sharded over a mesh dim that does not divide its heads "
@@ -266,26 +272,38 @@ REGIONS = {
               "contraction shard and each partial product reduced once, "
               "JAX's constraints and the copied periods' gathers "
               "explicit",
-    "fsdp_gather": "models/model.py::LM._proj: on a mesh with a dim of "
-                   "one rank (a model dim of 1) DTensor's head product "
-                   "passes the rows' batch shard to the contraction dim, "
-                   "and back in the backward; the head's FSDP weight is "
-                   "gathered over the data dims at use instead, its "
-                   "gradient left a partial sum for the grads region, as "
-                   "JAX's partitioner gathers it",
-    "residual": "models/model.py::LM._residual: DTensor leaves a "
-                "row-parallel product's output Partial over 'model' and "
+    "fsdp_gather": "models/model.py::LM._proj: DTensor's head product "
+                   "meets the rows' batch shard with the head's FSDP "
+                   "contraction shard on the same data dims: on a mesh "
+                   "with a dim of one rank it passes the batch shard to "
+                   "the contraction dim (and back in the backward), "
+                   "elsewhere it can sum the whole batch's logits "
+                   "partially over the data dims (Whisper-tiny prefill_32k "
+                   "1.49 GB of them at the peak, Mamba2-780M's 9.89 GB); "
+                   "the head's FSDP weight is gathered over the data dims "
+                   "at use instead, its gradient left a partial sum for "
+                   "the grads region, as JAX's partitioner gathers it",
+    "residual": "models/model.py::LM._residual, _carry: DTensor leaves "
+                "a row-parallel product's output Partial over 'model' and "
                 "each later reader reduces its own copy (the next norm "
-                "twice, in float32); the output is reduced once, in its "
-                "own dtype, to the placements the residual entered with "
-                "(_redistribute), as JAX's partitioner reduces it before "
-                "the residual add",
-    "norm": "models/model.py::LM._norm: the backward of DTensor's norm "
-            "on a Partial gradient (the column-parallel products' input "
-            "gradient) reduces float32 intermediates; each rank normalises "
-            "its rows, and the output's gradient is reduced once over "
-            "'model' in its own dtype before the norm's backward, as JAX "
-            "all-reduces that gradient",
+                "twice, in float32), and a Python loop keeps no scan "
+                "carry's layout; the residual stream of a train or prefill "
+                "step enters each period with its rows on the data dims "
+                "and d on 'model' (_stream_layout, JAX's scan carry: the "
+                "remat saves that shard), and each output is reduced once, "
+                "in its own dtype, to the placements the residual entered "
+                "with (_redistribute: a reduce-scatter onto the d shard)",
+    "norm": "models/model.py::LM._norm: DTensor's norm of a d-sharded x "
+            "takes its own steps, and its backward on a Partial gradient "
+            "(the column-parallel products' input gradient) reduces "
+            "float32 intermediates; each rank normalises x where it lies, "
+            "its scale cut as x's d is and, where d is sharded, its "
+            "float32 sums all-reduced over the shards (their gradients "
+            "too), then gathers the output whole over 'model' (one "
+            "all-gather) for the products, whose input gradient is "
+            "reduce-scattered back onto the shard once, in its own dtype; "
+            "where x is whole, that gradient is all-reduced before the "
+            "norm's backward, as JAX all-reduces it",
     "grads": "training/lm_step.py::_grad: DTensor leaves a parameter's "
              "gradient Partial over the mesh dims its work was split by "
              "and every reader reduces it anew (the gradient norm and the "
@@ -642,7 +660,7 @@ def _step(t, unit, b):
     names = mesh.mesh_dim_names
     group = _flat_group(mesh, tuple(names[i] for i in unit)) \
         if len(unit) > 1 else (mesh, unit[0])
-    local = t.to_local()
+    local = t.to_local().contiguous()     # torch 2.11's collectives ask it
     if kind == "gather":
         out = funcol.all_gather_tensor(local, a.dim, group)
     elif kind == "scatter":
@@ -724,14 +742,31 @@ def _group(mesh, dims):
         if len(dims) > 1 else (mesh, dims[0])
 
 
+def _all_reduce(t, group):
+    import torch.distributed._functional_collectives as funcol
+    out = funcol.all_reduce(t, "sum", group)
+    return out.wait() if hasattr(out, "wait") else out
+
+
+class _Psum(torch.autograd.Function):
+    """A local tensor summed over a process group (one all-reduce); its
+    gradient summed the same way, as each rank's copy of the sum feeds only
+    its own shard of what follows (a norm's float32 sums over d shards)."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return _all_reduce(t, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
 def _psum(t, mesh, dims):
     """``t``, a local tensor, all-reduced (summed) over ``mesh``'s dims
-    ``dims`` in one collective (none where there are none)."""
-    import torch.distributed._functional_collectives as funcol
-    if not dims:
-        return t
-    out = funcol.all_reduce(t, "sum", _group(mesh, dims))
-    return out.wait() if hasattr(out, "wait") else out
+    ``dims`` in one collective (none where there are none; ``_Psum``)."""
+    return _Psum.apply(t, _group(mesh, dims)) if dims else t
 
 
 def _residual_layout(mesh, shape):
@@ -1124,9 +1159,11 @@ def _reduced(placements):
 
 class _Moved(torch.autograd.Function):
     """``t`` moved to ``placements`` by ``_redistribute``; its gradient
-    moved back to t's placements, but left replicated where it is and t
-    was a partial sum (the placements DTensor's own redistribution gives
-    the gradient), by ``_redistribute``."""
+    moved back to t's placements by ``_redistribute``, but where t was a
+    partial sum, each rank's term takes the whole gradient: left partial
+    where it is partial, else replicated (a shard gathered: the gradient
+    of a row-parallel output reduce-scattered onto the residual's d
+    shard)."""
 
     @staticmethod
     def forward(ctx, t, placements):
@@ -1135,18 +1172,19 @@ class _Moved(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return _redistribute(g, [b if b.is_replicate() and a.is_partial()
-                                 else a for a, b in zip(ctx.placements,
-                                                        g.placements)]), None
+        from torch.distributed.tensor import Replicate
+        return _redistribute(g, [
+            (b if b.is_partial() else Replicate()) if a.is_partial() else a
+            for a, b in zip(ctx.placements, g.placements)]), None
 
 
-def _move(used, region, t, like):
-    """``t`` moved to the placements of ``like`` (``_Moved``) where they
-    differ, the move recorded as ``region``'s: the one redistribution of
-    the ``residual`` and ``grads`` regions."""
-    if _is_dtensor(t) and tuple(t.placements) != tuple(like.placements):
+def _move(used, region, t, placements):
+    """``t`` moved to ``placements`` (``_Moved``) where they differ, the
+    move recorded as ``region``'s: the one redistribution of the
+    ``residual``, ``norm`` and ``grads`` regions."""
+    if _is_dtensor(t) and tuple(t.placements) != tuple(placements):
         used.add(region)
-        t = _Moved.apply(t, like.placements)
+        t = _Moved.apply(t, placements)
     return t
 
 
@@ -1334,47 +1372,67 @@ def _decode_attention_region(real, used):
 
 def _residual_region(real, used):
     def _residual(self, x, y):
-        return real(self, x, _move(used, "residual", y, x))
+        if _is_dtensor(x):
+            y = _move(used, "residual", y, x.placements)
+        return real(self, x, y)
     return _residual
+
+
+def _stream_layout(mesh, shape):
+    """A train or prefill step's residual stream (B, S, d) between
+    sublayers: the rows on the data dims, d on "model" where that dim has
+    more than one rank and divides d, as JAX's program saves its scan
+    carry (Qwen3-8B's ``bf16[36,16,4096,256]``); else d whole there."""
+    names = tuple(mesh.mesh_dim_names)
+    cut = "model" in names and mesh.size(names.index("model")) > 1
+    return _placements(mesh, shape, ("data", None, "model" if cut else None))
+
+
+def _carry_region(real, used):
+    def _carry(self, x):
+        if _is_dtensor(x):
+            x = _move(used, "residual", x, _stream_layout(x.device_mesh,
+                                                          x.shape))
+        return real(self, x)
+    return _carry
 
 
 def _norm_region(real, used):
     def _norm(self, x, p, name="ln"):
         if not _is_dtensor(x):
             return real(self, x, p, name)
-        from torch.distributed.tensor import Replicate
-        from torch.distributed.tensor.experimental import local_map
+        from torch.distributed.tensor import Replicate, Shard
         used.add("norm")
-        mesh = x.device_mesh
-        if _decoding(x):
-            return _norm_decode(self, x, p, name, real)
-        rows = _placements(mesh, x.shape,
-                           ("data",) + (None,) * (x.dim() - 1))
-        rep = [Replicate()] * mesh.ndim
+        mesh, last = x.device_mesh, x.dim() - 1
         names = [k for k in (name, f"{name}_b") if p.get(k) is not None]
-
-        def local(x, *w):
-            return real(self, x, dict(zip(names, w)), name)
-
-        ins = (rows,) + (rep,) * len(names)
-        return local_map(local, out_placements=rows, in_placements=ins,
-                         in_grad_placements=_grads(ins, rows),
-                         device_mesh=mesh, redistribute_inputs=True)(
-            x, *(p[k] for k in names))
+        # the scale (and bias) cut as x's d is
+        pl = [Shard(0) if a == Shard(last) else Replicate()
+              for a in x.placements]
+        if _decoding(x):
+            return _norm_at(self, x, [_fetch(p[k], pl) for k in names],
+                            names, name, real)
+        y = _norm_at(self, x, [
+            p[k] if list(p[k].placements) == pl else
+            _DataGather.apply(p[k], pl) for k in names], names, name, real)
+        # the output whole over "model" for the column-parallel products;
+        # their input gradient, partial there, reduce-scattered back
+        return _move(used, "norm", y, [Replicate() if a == Shard(last)
+                                       else a for a in y.placements])
     return _norm
 
 
-def _norm_decode(lm, x, p, name, real):
-    """A decode step's norm of x where it lies (``_residual_layout``): its
-    scale (and bias) cut as x's last dim is, and where that dim is
-    sharded its float32 sums over it all-reduced over the dims that shard
-    it; the model's own norm where it is whole."""
-    from torch.distributed.tensor import Replicate, Shard
+def _norm_at(lm, x, ws, names, name, real):
+    """The model's norm of x where it lies (a train or prefill step's
+    residual stream, d on "model"; a decode step's, ``_residual_layout``),
+    its scale and bias ``ws`` cut as x's d is: where d is sharded, its
+    float32 sums over it all-reduced over the dims that shard it
+    (``_psum``; their gradients too), so the float32 intermediates are a
+    shard's; the model's own norm where it is whole. Each rank's scale
+    gradient is its rows' part of the sum."""
+    from torch.distributed.tensor import Shard
     from torch.distributed.tensor.experimental import local_map
     mesh, last = x.device_mesh, x.dim() - 1
     dims = [i for i, a in enumerate(x.placements) if a == Shard(last)]
-    pl = [Shard(0) if i in dims else Replicate() for i in range(mesh.ndim)]
-    names = [k for k in (name, f"{name}_b") if p.get(k) is not None]
     d, eps = x.shape[-1], lm.cfg.norm_eps
 
     def local(x, *w):
@@ -1390,9 +1448,10 @@ def _norm_decode(lm, x, p, name, real):
         var = _psum((x32 * x32).sum(dim=-1, keepdim=True), mesh, dims) / d
         return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * w[0]
 
-    ws = [_fetch(p[k], pl) for k in names]
+    ins = (list(x.placements),) + tuple(list(w.placements) for w in ws)
     return local_map(local, out_placements=list(x.placements),
-                     in_placements=(list(x.placements),) + (pl,) * len(ws),
+                     in_placements=ins,
+                     in_grad_placements=_grads(ins, x.placements),
                      device_mesh=mesh)(x, *ws)
 
 
@@ -1491,7 +1550,7 @@ def _grad_norm_region(real, used):
 
 def _grad_region(real, used):
     def _grad(t):
-        return _move(used, "grads", real(t), t)
+        return _move(used, "grads", real(t), t.placements)
     return _grad
 
 
@@ -1500,7 +1559,7 @@ def _gelu_region(real, used):
         if not _is_dtensor(x):
             return real(x, w_in, b_in, w_out, b_out)
         import torch.nn.functional as F
-        from torch.distributed.tensor import Replicate, Shard
+        from torch.distributed.tensor import Partial, Replicate, Shard
         from torch.distributed.tensor.experimental import local_map
         used.add("gelu_mlp")
         if _decoding(x):            # the stored shards, b_out added once
@@ -1515,19 +1574,19 @@ def _gelu_region(real, used):
                for i in range(mesh.ndim)]
         w_in_pl = [Shard(1) if i in split else Replicate()
                    for i in range(mesh.ndim)]
+        # the hidden dim's partial sums, reduced by _residual; b_out in
+        # the first rank's term alone
+        first = float(all(mesh.get_local_rank(i) == 0 for i in split))
 
-        def local(x, w_in, b_in, w_out):  # the Megatron split, no b_out
-            y = real(x, w_in, b_in, w_out, w_out.new_zeros(w_out.shape[-1]))
-            for i in split:               # the hidden dim's partial sums
-                y = _sum(y, mesh, i)
-            return y
+        def local(x, w_in, b_in, w_out, b_out):   # the Megatron split
+            return real(x, w_in, b_in, w_out, b_out * first)
 
-        ins = (rows, w_in_pl, hid, hid)
-        y = local_map(local, out_placements=rows, in_placements=ins,
-                      in_grad_placements=_grads(ins, _split_by(rows, hid)),
-                      device_mesh=mesh, redistribute_inputs=True)(
-            x, w_in, b_in, w_out)
-        return y + b_out.redistribute(mesh, rep)
+        ins = (rows, w_in_pl, hid, hid, rep)
+        out = [Partial() if i in split else p for i, p in enumerate(rows)]
+        return local_map(local, out_placements=out, in_placements=ins,
+                         in_grad_placements=_grads(ins, _split_by(rows, hid)),
+                         device_mesh=mesh, redistribute_inputs=True)(
+            x, w_in, b_in, w_out, b_out)
     return gelu_mlp
 
 
@@ -1537,10 +1596,9 @@ def _proj_region(real, used):
             used.add("decode")
             return _column_product(h, w, heads)
         if heads is None and _is_dtensor(h) and _is_dtensor(w) and \
-                1 in tuple(w.device_mesh.shape) and _fsdp_rows(h, w):
-            # the head's FSDP gather at use, as JAX's partitioner makes it:
-            # on a mesh dim of one rank DTensor passes the rows' batch
-            # shard to the contraction instead
+                _fsdp_rows(h, w):
+            # the head's FSDP gather at use, as JAX's partitioner makes it
+            # (DTensor meets the rows' batch shard on the contraction)
             used.add("fsdp_gather")
             w = _Gather.apply(w, _dp_replicated(w.device_mesh, w.placements))
         return real(self, h, w, heads)
@@ -1874,6 +1932,7 @@ _SITES = ((moe, "moe_ffn", _moe_region),
           (LM, "_split_heads", _heads_region),
           (LM, "_merge_heads", _merge_region),
           (LM, "_residual", _residual_region),
+          (LM, "_carry", _carry_region),
           (LM, "_proj", _proj_region),
           (LM, "_out", _out_region),
           (LM, "decode_step", _decode_region),

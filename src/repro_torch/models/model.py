@@ -36,11 +36,12 @@ runs those functions in regions on each rank's plain shards
 (``launch/dryrun.py``), whose placements stand in for them. It also
 carries the mesh, ``constrain.mesh``. ``_lookup``, ``_nll``, ``_store``,
 ``_split_heads``, ``_merge_heads``, ``_norm``, ``_qk_norm``, ``_proj``,
-``_out``, ``_residual``, ``_gather_weights`` and ``decode_step`` are the
-points where the dry-run's regions step in for DTensor (the sharded
-lookup, log-sum-exp, cache write, head split and merge, a norm's gradient,
-q's and k's norm scale, a column- and a row-parallel product on the
-weight's stored shard, the residual add of a row-parallel product, the
+``_out``, ``_residual``, ``_carry``, ``_gather_weights`` and
+``decode_step`` are the points where the dry-run's regions step in for
+DTensor (the sharded lookup, log-sum-exp, cache write, head split and
+merge, a norm and its gradient, q's and k's norm scale, a column- and a
+row-parallel product on the weight's stored shard, the residual add of a
+row-parallel product, the residual stream as a period takes it, the
 weights gathered at use, the decode step's policy); on plain tensors they
 are the model's own arithmetic. With
 ``cfg.moe_buf_mode == "shard_map"`` and a mesh whose "model" dim divides E,
@@ -389,6 +390,11 @@ class LM(nn.Module):
         or its MoE FFN: where a sharded y's partial sums are reduced."""
         return x + y
 
+    def _carry(self, x):
+        """x as it enters a period: the scan carry JAX's program saves for
+        the period's rematerialised backward."""
+        return x
+
     def _proj(self, h, w, heads=None):
         """h @ w, a column-parallel product (``wq``, ``wk``, ``wv``,
         ``x_wq``, ``x_wk``, ``x_wv``, the head), whose columns split into
@@ -577,6 +583,7 @@ class LM(nn.Module):
         enc_out = self.encode(enc_frames) if self.cfg.enc_layers else None
         period = self._remat(self._period)
         for block in self.layers:
+            x = self._carry(x)
             x, aux = period(block, x, aux, positions, enc_out)
         return self._constrain(self._head(x), ("data", None, "model")), aux
 

@@ -43,12 +43,15 @@ the cells held to JAX's (``jax``: ``arguments``, ``shmap``, ``constrain``;
   * ``sites``: the collectives of the tiny ``train`` (``baseline`` and
     ``wgather``), ``decode``, ``decode_seqshard``, ``moe_train``,
     ``one_kv`` and one-row decode cells and of each gloo cell
-    (``gloo_<name>``) by call site (``Sites``).
+    (``gloo_<name>``) by call site (``Sites``);
+  * ``peak``: the tiny ``train`` cell's live bytes by the line of the
+    port that made them, at the recorder's peak and at each line's most
+    (``Peak``).
 
 The ``sites`` part runs one full-width cell on its production mesh and
-writes its record to OUT_DIR; it prints the record's stem and the cell's
-collectives by call site, as ``chip_smoke.py`` phase 6f reads them on the
-card.
+writes its record to OUT_DIR; it prints the record's stem, the cell's
+collectives by call site and its live bytes by line (``Peak``), as
+``chip_smoke.py`` phase 6f reads them on the card.
 """
 
 import collections
@@ -105,20 +108,27 @@ def _group(args) -> list:
     return dist.get_process_group_ranks(pg)
 
 
-def _site() -> str:
-    """``file:function`` of the innermost frame in the port's package
-    outside ``launch/dryrun.py``; "-" for the autograd engine's own ops
-    (a backward formula: torch 2.13 runs them under the frame that called
+def _frame():
+    """The innermost frame in the port's package outside
+    ``launch/dryrun.py``; None for the autograd engine's own ops (a
+    backward formula: torch 2.13 runs them under the frame that called
     ``backward()``, 2.11 on a thread with no Python frame)."""
     f = sys._getframe(2)
     while f is not None:
         name = os.path.abspath(f.f_code.co_filename)
         if name.startswith(PORT + os.sep) and name != DRYRUN:
-            return f"{os.path.relpath(name, PORT)}:{f.f_code.co_name}"
+            return f
         if f.f_code.co_name == "_engine_run_backward":
             break
         f = f.f_back
-    return "-"
+    return None
+
+
+def _site() -> str:
+    """``file:function`` of ``_frame()``; "-" for the engine's ops."""
+    f = _frame()
+    return "-" if f is None else \
+        f"{os.path.relpath(f.f_code.co_filename, PORT)}:{f.f_code.co_name}"
 
 
 class Sites:
@@ -211,10 +221,83 @@ class Sites:
                       key=lambda r: (-r["bytes"], r["kind"], r["site"]))
 
 
+class Peak:
+    """Attributes the live bytes the dry-run's ``Recorder`` counts to the
+    line of the port that made each storage, while installed (``with
+    Peak() as p:``), as ``Sites`` tags collectives: each new storage's
+    ``_frame()`` (file, line and function; "-" for the autograd engine's
+    own ops), its bytes counted there until it is freed. ``rows`` lists,
+    by line, the bytes live at the recorder's peak and the most live at
+    once (the last step run): in a cell of few periods the peak can fall
+    in the first period's backward, after the later periods' saved inputs
+    are freed, and a line's own most shows what it held then."""
+
+    def __init__(self):
+        self.live: dict = {}
+        self.most: dict = {}
+        self.at_peak: dict = {}
+        self.peak = self.run = 0
+
+    def __enter__(self):
+        import weakref
+        real_op, real_step, peak = DR.Recorder._op, DR.run_step, self
+
+        def op(rec, func, args, out):
+            new = {id(st): st for st in (DR._local(t).untyped_storage()
+                                         for t in DR._tensors(out))
+                   if st not in rec._seen}
+            real_op(rec, func, args, out)
+            for st in new.values():
+                n = rec._seen.get(st)
+                if n is None:            # DTensor's sharding propagation
+                    continue
+                f = _frame()
+                site = ("-", 0, "-") if f is None else (
+                    os.path.relpath(f.f_code.co_filename, PORT), f.f_lineno,
+                    f.f_code.co_name)
+                peak._add(peak.run, site, n)
+                weakref.finalize(st, peak._add, peak.run, site, -n)
+            if rec.peak > peak.peak:
+                peak.peak = rec.peak
+                peak.at_peak = {k: tuple(v) for k, v in peak.live.items()
+                                if v[0]}
+
+        def step(c):
+            peak.run += 1
+            peak.live, peak.most, peak.at_peak, peak.peak = {}, {}, {}, 0
+            return real_step(c)
+        self._real = real_op, real_step
+        DR.Recorder._op, DR.run_step = op, step
+        return self
+
+    def __exit__(self, *exc):
+        DR.Recorder._op, DR.run_step = self._real
+
+    def _add(self, run, site, n) -> None:
+        if run == self.run:              # not a storage of an earlier step
+            e = self.live.setdefault(site, [0, 0])
+            e[0] += n
+            e[1] += 1 if n > 0 else -1
+            self.most[site] = max(self.most.get(site, 0), e[0])
+
+    def rows(self) -> list:
+        """[{file, line, function, bytes, storages, most}] of every line
+        that made a storage: the bytes and storages live at the peak
+        (summing to the recorder's peak) and the most bytes live at once;
+        largest at the peak first."""
+        return sorted(({"file": f, "line": ln, "function": fn,
+                        "bytes": self.at_peak.get((f, ln, fn), (0, 0))[0],
+                        "storages": self.at_peak.get((f, ln, fn), (0, 0))[1],
+                        "most": most}
+                       for (f, ln, fn), most in self.most.items()),
+                      key=lambda r: (-r["bytes"], -r["most"], r["file"],
+                                     r["line"]))
+
+
 def cell(arch, shape, cell, *, multi_pod=True, mesh=MESH3, variant="baseline",
-         dtype=torch.bfloat16, out_dir=None, sites=None):
+         dtype=torch.bfloat16, out_dir=None, watch=()):
     """``run_step``'s reading of a cell, with the record when ``out_dir``;
-    ``sites`` (a ``Sites``) tags its collectives."""
+    ``watch`` (a ``Sites``, a ``Peak``) installed around it."""
     rec, runs = None, []
     real = DR.run_step
 
@@ -224,7 +307,9 @@ def cell(arch, shape, cell, *, multi_pod=True, mesh=MESH3, variant="baseline",
         return r
     DR.run_step = keep
     try:
-        with sites or contextlib.nullcontext():
+        with contextlib.ExitStack() as stack:
+            for w in watch:
+                stack.enter_context(w)
             rec = DR.run_cell(arch, shape, multi_pod, out_dir or "", variant,
                               cfg=reduced(get_config(arch)), cell=cell,
                               device_type="cpu", mesh_shape=mesh, dtype=dtype,
@@ -234,12 +319,15 @@ def cell(arch, shape, cell, *, multi_pod=True, mesh=MESH3, variant="baseline",
     return rec, runs[0]
 
 
-def tagged(res, name, *args, **kw):
+def tagged(res, name, *args, peak=False, **kw):
     """``cell`` with its collectives by call site in ``res["sites"][name]``
-    -> (record, run)."""
-    s = Sites()
-    rec, run = cell(*args, sites=s, **kw)
+    and, with ``peak``, its live bytes at the peak by line in
+    ``res["peak"][name]`` -> (record, run)."""
+    s, p = Sites(), Peak()
+    rec, run = cell(*args, watch=(s, p) if peak else (s,), **kw)
     res.setdefault("sites", {})[name] = s.rows()
+    if peak:
+        res.setdefault("peak", {})[name] = p.rows()
     return rec, run
 
 
@@ -299,7 +387,7 @@ def jax_cells(res, out_dir) -> None:
                                                         "coll_bytes")}
         res["recorder"][name] = agree(run)
     rec, run = tagged(res, "train", "yi-6b", "train_4k", TRAIN,
-                      out_dir=out_dir)
+                      out_dir=out_dir, peak=True)
     keep("train", rec, run)
     res["train_record"] = rec
     # the same cell under JAX's "wgather" variant (the dense weights
@@ -389,14 +477,15 @@ def gloo_cells(res) -> None:
 def full_width_sites(out_dir, arch, shape, mesh_name, variant,
                      device_type="cpu") -> None:
     """One full-width cell on its production mesh, its record written to
-    ``out_dir``: prints ``RESULT`` and {"stem", "sites"}."""
-    s = Sites()
-    with s:
+    ``out_dir``: prints ``RESULT`` and {"stem", "sites", "peak"} (the
+    ``Peak`` rows)."""
+    s, p = Sites(), Peak()
+    with s, p:
         DR.run_cell(arch, shape, mesh_name == "multi", out_dir, variant,
                     device_type=device_type)
     print("RESULT " + json.dumps({
         "stem": DR._stem(arch, shape, mesh_name, variant),
-        "sites": s.rows()}))
+        "sites": s.rows(), "peak": p.rows()}))
 
 
 if __name__ == "__main__":

@@ -28,6 +28,7 @@ from repro_torch.launch import dryrun as DR
 from repro_torch.launch import specs as SP
 from repro_torch.models.model import LM
 
+from _torch_dryrun_fake import MESH3, TRAIN
 from _torch_dryrun_gloo import CELLS as GLOO_CELLS, mesh_of
 
 #: the parts of ``_torch_dryrun_fake.py``, each its own process
@@ -310,6 +311,25 @@ def test_pod_axis_shrinks_the_moe_train_step_per_rank(runs, reading):
     msg = f"(data 2, model 2) {single}; (pod 2, data 2, model 2) {multi}"
     assert single[reading] > 0, msg
     assert multi[reading] <= POD_SCALING[reading] * single[reading], msg
+
+
+def test_train_step_saves_its_period_inputs_as_d_shards(runs):
+    """The tiny ``train`` cell (the reduced Yi-6B, bf16, on (pod 2, data
+    2, model 2)) keeps its residual stream's d over "model" between
+    sublayers, where each period's checkpoint saves it (JAX's scan carry):
+    the storages made at ``LM._residual`` hold at most (periods + 1)
+    shards of (rows, S, d / model) at once, and no more at the
+    recorder's peak (the whole stream held twice that)."""
+    cfg = reduced(get_config("yi-6b"))
+    data, model = 2 * MESH3[0], MESH3[1]        # (pod 2, data 2), model 2
+    shard = TRAIN.global_batch // data * TRAIN.seq_len * \
+        cfg.d_model // model * torch.bfloat16.itemsize
+    made = [r for r in runs["fake"]["peak"]["train"]
+            if (r["file"], r["function"]) == ("models/model.py", "_residual")]
+    most = sum(r["most"] for r in made)
+    assert made and most > 0, runs["fake"]["peak"]["train"]
+    assert most <= (cfg.n_periods + 1) * shard, (most, shard, made)
+    assert sum(r["bytes"] for r in made) <= (cfg.n_periods + 1) * shard
 
 
 def test_train_step_with_one_kv_head_at_a_model_dim_of_1(runs):
