@@ -70,6 +70,13 @@ it with jnp; the MoE FFN and the SSD mixer are plain PyTorch products
 Cross-attention calls the flash kernel in the forward and in every decode
 step, as JAX calls its ``chunked_attention`` there.
 
+The forward opens ``telemetry.trace.device_span`` at each stage it walks:
+``embed`` (the lookup, the positions and the aux's zero), ``attn`` and
+``ffn`` around each sublayer in ``_period`` (an encoder-decoder's
+cross-attention inside ``attn``, the FFN's aux sum inside ``ffn``), and
+``head``; ``norm`` in ``_norm`` and ``_qk_norm``, ``rope`` in ``_rope``.
+With no profiler running a site costs one check.
+
 Both frontends are JAX's stubs: Whisper's encoder takes precomputed frame
 embeddings (B, S_enc, d) in the model's dtype (``enc_frames``), InternVL's
 forward precomputed patch embeddings (B, P, d) that replace the first P
@@ -97,6 +104,7 @@ from repro_torch.core.lowering import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2, moe
 from repro_torch.models.config import ArchConfig
+from repro_torch.telemetry import trace
 
 class Leaf(NamedTuple):
     """A parameter's shape, how JAX initialises it (``"normal"`` times
@@ -380,9 +388,11 @@ class LM(nn.Module):
         return out
 
     def _norm(self, x, p, name="ln"):
-        if self.cfg.norm == "layernorm":
-            return L.layernorm(x, p[name], p[f"{name}_b"], self.cfg.norm_eps)
-        return L.rmsnorm(x, p[name], self.cfg.norm_eps)
+        with trace.device_span("norm"):
+            if self.cfg.norm == "layernorm":
+                return L.layernorm(x, p[name], p[f"{name}_b"],
+                                   self.cfg.norm_eps)
+            return L.rmsnorm(x, p[name], self.cfg.norm_eps)
 
     def _residual(self, x, y):
         """x plus a sublayer's output y, the product of its row-parallel
@@ -433,13 +443,15 @@ class LM(nn.Module):
     def _qk_norm(self, t, scale):
         """The per-head RMS norm of q or k (B, S, heads, d_head) with its
         (d_head,) scale."""
-        return L.rmsnorm(t, scale, self.cfg.norm_eps)
+        with trace.device_span("norm"):
+            return L.rmsnorm(t, scale, self.cfg.norm_eps)
 
     def _rope(self, q, k, positions):
         theta = self.cfg.rope_theta
         if theta > 0:
-            q = L.apply_rope(q, positions, theta)
-            k = L.apply_rope(k, positions, theta)
+            with trace.device_span("rope"):
+                q = L.apply_rope(q, positions, theta)
+                k = L.apply_rope(k, positions, theta)
         return q, k
 
     def _attn_full(self, x, p, positions, causal=True):
@@ -544,14 +556,17 @@ class LM(nn.Module):
         for i, kind in enumerate(self.cfg.period):
             p = self._gather_weights(block[f"{i}:{kind}"])
             if kind == "attn":
-                x = self._attn_full(x, p, positions)
-                if enc_out is not None:
-                    x = self._cross_attn(x, p, *self._cross_kv(enc_out, p))
+                with trace.device_span("attn"):
+                    x = self._attn_full(x, p, positions)
+                    if enc_out is not None:
+                        x = self._cross_attn(x, p,
+                                             *self._cross_kv(enc_out, p))
             else:
                 x = self._residual(x, mamba2.mamba2_mixer(
                     self._norm(x, p), p, self.cfg, self.constrain_mid))
-            x, a = self._ffn(x, p, i)
-            aux = aux + a
+            with trace.device_span("ffn"):
+                x, a = self._ffn(x, p, i)
+                aux = aux + a
         return x, aux
 
     def _remat(self, body):
@@ -576,16 +591,19 @@ class LM(nn.Module):
         encoder-decoder encodes ``enc_frames`` once and each decoder
         sublayer runs self-attention, cross-attention over the encoder's
         output, then its FFN."""
-        x = self._constrain(self._embed(tokens, patch_embeds),
-                            ("data", None, None))
-        positions = torch.arange(x.shape[1], device=x.device)[None, :]
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        with trace.device_span("embed"):
+            x = self._constrain(self._embed(tokens, patch_embeds),
+                                ("data", None, None))
+            positions = torch.arange(x.shape[1], device=x.device)[None, :]
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
         enc_out = self.encode(enc_frames) if self.cfg.enc_layers else None
         period = self._remat(self._period)
         for block in self.layers:
             x = self._carry(x)
             x, aux = period(block, x, aux, positions, enc_out)
-        return self._constrain(self._head(x), ("data", None, "model")), aux
+        with trace.device_span("head"):
+            logits = self._constrain(self._head(x), ("data", None, "model"))
+        return logits, aux
 
     def loss(self, batch: dict) -> tuple[torch.Tensor, dict]:
         """batch: ``tokens`` (B, S), ``labels`` (B, S) (-100 is masked),

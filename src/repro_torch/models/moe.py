@@ -19,6 +19,11 @@ The port of ``repro.models.moe`` (``capacity``, ``moe_ffn``,
 The expert products are ``torch.matmul``, as JAX leaves its einsums to XLA;
 no kernel of this package runs here.
 
+``moe_ffn`` and ``route`` each open a device span (``telemetry.trace``),
+``moe_ffn`` and ``moe.route``; ``moe_ffn`` counts the expert-buffer rows
+it computes (``moe_ffn.slots``, E * B * C) and the assignments it kept
+(``moe_ffn.kept``, summed on the device when the counts are read).
+
 ``moe_ffn_shard_map`` is JAX's expert-parallel form over a
 ``torch.distributed`` ``DeviceMesh`` with a "model" dim: each model rank
 runs E / model of the experts on its data shard's rows and one all-reduce
@@ -36,6 +41,8 @@ from typing import Callable, NamedTuple
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
+
+from repro_torch.telemetry import trace
 
 Constrain = Callable[[torch.Tensor, tuple], torch.Tensor]
 
@@ -92,26 +99,27 @@ def route(x: torch.Tensor, router: torch.Tensor, *, n_experts: int,
     """``moe_ffn``'s routing and dispatch coordinates on x (B, S, d);
     ``constrain`` takes the one-hot in JAX's (B, S*k, E) layout, ``psum``
     the router's logits (``_probs``)."""
-    B, S, _ = x.shape
-    E, k = n_experts, top_k
-    C = capacity(S, k, E, capacity_factor)
-    probs = _probs(x, router, psum)
-    top_w, top_i = topk(probs, k)
-    top_w = top_w / top_w.sum(dim=-1, keepdim=True)
-    aux = balance_loss(*balance(probs, top_i, E))
-    flat_e = top_i.reshape(B, S * k)
-    # JAX's sum((cumsum(onehot) - 1) * onehot, -1), as (cumsum - 1) read at
-    # each assignment's own expert; the one-hot is laid out (B, E, S*k) so
-    # that the cumsum runs along its innermost axis (a scan along the outer
-    # one took 12.9 ms a Qwen3-MoE layer on an H100)
-    experts = torch.arange(E, device=x.device)[None, :, None]
-    onehot = (flat_e[:, None, :] == experts).to(torch.int32)    # (B, E, S*k)
-    if constrain is not None:
-        onehot = constrain(onehot.transpose(1, 2),
-                           ("data", None, "model")).transpose(1, 2)
-    counts = onehot.cumsum(dim=2, dtype=torch.int32)
-    pos = counts.gather(1, flat_e[:, None, :])[:, 0] - 1
-    return Routing(top_w, top_i, pos, pos < C, aux, C)
+    with trace.device_span("moe.route"):
+        B, S, _ = x.shape
+        E, k = n_experts, top_k
+        C = capacity(S, k, E, capacity_factor)
+        probs = _probs(x, router, psum)
+        top_w, top_i = topk(probs, k)
+        top_w = top_w / top_w.sum(dim=-1, keepdim=True)
+        aux = balance_loss(*balance(probs, top_i, E))
+        flat_e = top_i.reshape(B, S * k)
+        # JAX's sum((cumsum(onehot) - 1) * onehot, -1), as (cumsum - 1) read
+        # at each assignment's own expert; the one-hot is laid out (B, E,
+        # S*k) so that the cumsum runs along its innermost axis (a scan
+        # along the outer one took 12.9 ms a Qwen3-MoE layer on an H100)
+        experts = torch.arange(E, device=x.device)[None, :, None]
+        onehot = (flat_e[:, None, :] == experts).to(torch.int32)  # (B, E, S*k)
+        if constrain is not None:
+            onehot = constrain(onehot.transpose(1, 2),
+                               ("data", None, "model")).transpose(1, 2)
+        counts = onehot.cumsum(dim=2, dtype=torch.int32)
+        pos = counts.gather(1, flat_e[:, None, :])[:, 0] - 1
+        return Routing(top_w, top_i, pos, pos < C, aux, C)
 
 
 def moe_ffn(x: torch.Tensor, p, *, n_experts: int, top_k: int,
@@ -132,46 +140,49 @@ def moe_ffn(x: torch.Tensor, p, *, n_experts: int, top_k: int,
     each rank's plain shards (``launch/dryrun.py``), whose placements
     stand in for these constraints; so ``buf_mode`` has no effect there
     either (``dryrun.no_effect``)."""
-    constrain = constrain or (lambda t, axes: t)
-    B, S, d = x.shape
-    E, k = n_experts, top_k
-    r = route(x, p["router"], n_experts=E, top_k=k,
-              capacity_factor=capacity_factor, constrain=constrain)
-    C = r.capacity
-    flat_e = r.top_i.reshape(B, S * k)
-    pos_c = r.pos.clamp(max=C - 1)
+    with trace.device_span("moe_ffn"):
+        constrain = constrain or (lambda t, axes: t)
+        B, S, d = x.shape
+        E, k = n_experts, top_k
+        r = route(x, p["router"], n_experts=E, top_k=k,
+                  capacity_factor=capacity_factor, constrain=constrain)
+        C = r.capacity
+        trace.device_count("moe_ffn.slots", E * B * C)
+        trace.device_count("moe_ffn.kept", r.keep)
+        flat_e = r.top_i.reshape(B, S * k)
+        pos_c = r.pos.clamp(max=C - 1)
 
-    def jax_layout(t, axes):
-        """``constrain`` on the (E, B*C, .) tensor t seen as JAX's
-        (B, E, C, .), returned in t's layout."""
-        v = t.view(E, B, C, t.shape[-1]).transpose(0, 1)
-        return constrain(v, axes).transpose(0, 1).reshape(t.shape)
+        def jax_layout(t, axes):
+            """``constrain`` on the (E, B*C, .) tensor t seen as JAX's
+            (B, E, C, .), returned in t's layout."""
+            v = t.view(E, B, C, t.shape[-1]).transpose(0, 1)
+            return constrain(v, axes).transpose(0, 1).reshape(t.shape)
 
-    # ---- dispatch: scatter-add the kept assignments into (E, B, C, d)
-    xk = x.repeat_interleave(k, dim=1)                           # (B, S*k, d)
-    vals = xk.masked_fill_(~r.keep[..., None], 0)
-    b_idx = torch.arange(B, device=x.device)[:, None]
-    slot = (flat_e * B + b_idx) * C + pos_c                      # (B, S*k)
-    buf_axes = ("data", None, None, None) if buf_mode == "local" \
-        else ("data", "model", None, None)
-    buf = jax_layout(x.new_zeros((E, B * C, d)), buf_axes)
-    buf = buf.view(E * B * C, d).index_add_(0, slot.reshape(-1),
-                                            vals.reshape(-1, d))
-    buf = jax_layout(buf.view(E, B * C, d), buf_axes)
+        # ---- dispatch: scatter-add the kept assignments into (E, B, C, d)
+        xk = x.repeat_interleave(k, dim=1)                       # (B, S*k, d)
+        vals = xk.masked_fill_(~r.keep[..., None], 0)
+        b_idx = torch.arange(B, device=x.device)[:, None]
+        slot = (flat_e * B + b_idx) * C + pos_c                  # (B, S*k)
+        buf_axes = ("data", None, None, None) if buf_mode == "local" \
+            else ("data", "model", None, None)
+        buf = jax_layout(x.new_zeros((E, B * C, d)), buf_axes)
+        buf = buf.view(E * B * C, d).index_add_(0, slot.reshape(-1),
+                                                vals.reshape(-1, d))
+        buf = jax_layout(buf.view(E, B * C, d), buf_axes)
 
-    # ---- experts (SwiGLU), one batched product over E
-    act = ("data", "model", None, None)
-    h = torch.matmul(buf, p["w_gate"])
-    u = torch.matmul(buf, p["w_up"])
-    h = jax_layout(F.silu(h) * u, act)
-    y = jax_layout(torch.matmul(h, p["w_down"]), act)            # (E, B*C, d)
+        # ---- experts (SwiGLU), one batched product over E
+        act = ("data", "model", None, None)
+        h = torch.matmul(buf, p["w_gate"])
+        u = torch.matmul(buf, p["w_up"])
+        h = jax_layout(F.silu(h) * u, act)
+        y = jax_layout(torch.matmul(h, p["w_down"]), act)        # (E, B*C, d)
 
-    # ---- combine
-    out_k = y.view(E * B * C, d)[slot.reshape(-1)].view(B, S * k, d)
-    out_k = out_k.masked_fill_(~r.keep[..., None], 0)
-    out_k = out_k * r.top_w.reshape(B, S * k)[..., None].to(x.dtype)
-    out = out_k.view(B, S, k, d).sum(dim=2)
-    return out, r.aux.float()
+        # ---- combine
+        out_k = y.view(E * B * C, d)[slot.reshape(-1)].view(B, S * k, d)
+        out_k = out_k.masked_fill_(~r.keep[..., None], 0)
+        out_k = out_k * r.top_w.reshape(B, S * k)[..., None].to(x.dtype)
+        out = out_k.view(B, S, k, d).sum(dim=2)
+        return out, r.aux.float()
 
 
 class _SumGrad(torch.autograd.Function):

@@ -37,6 +37,26 @@ manager every time; ``emit()``/``begin()`` return ``None``). Install a
         trace.install(prev)
 
 Hot paths that must build attr dicts should guard on ``trace.enabled()``.
+
+**Device spans.** The LM's prefill path opens ``device_span(name)`` at each
+stage it walks: the ``prefill`` root (``training/lm_step.py``), the
+``embed``, ``attn``, ``ffn`` and ``head`` stages that tile a forward, the
+``norm`` and ``rope`` sites inside them, and ``moe_ffn`` and ``moe.route``
+(``models/moe.py``). While a torch profiler runs, a site opens a
+``_RecordFunctionFast`` range of its name: the profiler's own trace shows it
+on the profiler's clock as the parent of the ops under it, so each kernel is
+read under the spans that launched it, and the device's idle gaps under the
+span the host was in. Never ``record_function``: that opens a
+user-annotation range, which the profiler mirrors onto the device as if it
+were an operation. A span adds no work to the device, so a traced run reads
+the device as an untraced one does. With no profiler running a site costs
+one ``_profiler_enabled()`` call and returns the shared null context.
+
+``device_count(name, value)`` adds to a count while a profiler runs (the
+MoE layer's expert-buffer rows and the assignments it kept): a device
+tensor is summed when ``device_counts()`` reads the counts, so the forward
+launches no kernel and waits for none. ``reset_device_counts()`` empties
+them.
 """
 
 from __future__ import annotations
@@ -46,6 +66,10 @@ import itertools
 import json
 import threading
 import time
+
+import torch
+from torch._C._autograd import _profiler_enabled
+from torch._C._profiler import _RecordFunctionFast
 
 #: the only legal scope tags — every span carries exactly one (the paper's
 #: accelerator-only vs system-level measurement split)
@@ -316,3 +340,56 @@ def end(span_obj, attrs: dict | None = None) -> None:
 
 def emit(name: str, scope: str, **kw):
     return _recorder.emit(name, scope, **kw)
+
+
+# ------------------------------------------------------------- device spans
+def device_span(name: str):
+    """A range of the torch profiler's trace around the work issued inside
+    it, while a profiler runs; else the shared null context (the module
+    docstring)."""
+    return _RecordFunctionFast(name) if _profiler_enabled() else _NULL_CTX
+
+
+#: ``device_count``'s totals, and the device tensors whose sums are still to
+#: be added to them; past ``_MAX_PENDING`` tensors they are added at once
+_counts: dict[str, int] = {}
+_pending: list = []
+_count_lock = threading.Lock()
+_MAX_PENDING = 256
+
+
+def device_count(name: str, value) -> None:
+    """Add ``value`` to the count ``name`` while a torch profiler runs: an
+    int, or a tensor whose sum ``device_counts()`` adds (no kernel and no
+    wait here)."""
+    if not _profiler_enabled():
+        return
+    with _count_lock:
+        if isinstance(value, torch.Tensor):
+            _pending.append((name, value))
+            if len(_pending) >= _MAX_PENDING:
+                _fold()
+        else:
+            _counts[name] = _counts.get(name, 0) + int(value)
+
+
+def _fold() -> None:
+    """Add the pending tensors' sums to the counts (waits for the device);
+    under ``_count_lock``."""
+    for name, t in _pending:
+        _counts[name] = _counts.get(name, 0) + int(t.sum())
+    _pending.clear()
+
+
+def device_counts() -> dict[str, int]:
+    """The counts ``device_count`` took, every pending sum added."""
+    with _count_lock:
+        _fold()
+        return dict(_counts)
+
+
+def reset_device_counts() -> None:
+    """Empty the counts and drop the pending sums."""
+    with _count_lock:
+        _counts.clear()
+        _pending.clear()

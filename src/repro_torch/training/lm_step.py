@@ -29,6 +29,7 @@ import torch
 
 from repro_torch.models.convert import leaf_groups
 from repro_torch.models.model import LM
+from repro_torch.telemetry import trace
 from repro_torch.training import compress as C
 from repro_torch.training import optim as O
 
@@ -166,9 +167,11 @@ def make_prefill_step(lm: LM) -> Callable:
     ``patch_embeds`` or ``enc_frames``. On the card each attention sublayer
     is one launch of the flash kernel (an encoder-decoder's decoder
     sublayers two, self- and cross-attention, and each encoder layer one);
-    MoE and mamba sublayers launch none."""
+    MoE and mamba sublayers launch none. Each call is one ``prefill`` device
+    span (``telemetry.trace``), the root of the forward's spans."""
     @torch.no_grad()
     def prefill_step(tokens: torch.Tensor, **frontend) -> torch.Tensor:
-        logits, _ = lm.forward(tokens, **frontend)
+        with trace.device_span("prefill"):
+            logits, _ = lm.forward(tokens, **frontend)
         return logits
     return prefill_step
